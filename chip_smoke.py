@@ -2,21 +2,29 @@
 
     python3 chip_smoke.py
 
-Drives tinyfusers_tpu_torch's SD1.5 text-to-image path on the card, with
-seeded random weights made on the card, and holds every hand-written
-CUDA kernel of that path against its plain PyTorch version. Imports
-neither jax nor tinyfusers_tpu. Phases, one or more lines each:
+Drives tinyfusers_tpu_torch's SD1.5 text-to-image path on the card, dense
+and with a weight-only int8, fp8 or int4 UNet, with seeded random weights
+made on the card, and holds every hand-written CUDA kernel of those paths
+against its plain PyTorch version. Imports neither jax nor tinyfusers_tpu.
+Phases, one or more lines each:
 
 1. device: name, count, and nvidia-smi's name and power limit;
 2. build: the kernels compiled from tinyfusers_tpu_torch/csrc (seconds,
    and ptxas's register / shared-memory report);
 3. kernels: each kernel against its plain version at every main-path
-   shape, bf16 and fp32, with its error and tolerance, its time, the plain
-   version's time, the library call's time where one computes the same
-   function (all device times, from CUDA-graph replays), and the bound from the shapes and the card's published peaks;
+   shape (the quant matmuls with int8, fp8 and int4 weights), bf16 and
+   fp32, with its error and tolerance, its time, the plain version's time,
+   the library call's time where one computes the same function (with its
+   error against the plain version), for the quant matmuls the dense bf16
+   ``F.linear`` time at the same shape (all device times, from CUDA-graph
+   replays), and the bound from the shapes and the card's published peaks;
+   for the quant matmuls in bf16 also the error of a planted rounding
+   deviation, which the tolerance must catch;
 4. unet: one full-width SD1.5 UNet forward at 256x256 (32x32 latents, so
-   the 1024-token level takes the packed kernel and every FF the GEGLU
-   kernel) in fp32 on the card, against the same weights on the CPU;
+   the 1024-token level takes the packed kernel) in fp32 on the card,
+   against the same weights on the CPU: dense (every FF through the GEGLU
+   kernel), then with int8 and with int4 weights (184 quant-matmul
+   launches, no GEGLU);
 5. main path: ``generate`` at SD1.5 512x512, 20-step DDIM, CFG 7.5, bf16,
    batch 1: one warm-up through the pipeline's stages (finite latents),
    then one image with the launch counts set to 0 just before it and read
@@ -28,9 +36,17 @@ neither jax nor tinyfusers_tpu. Phases, one or more lines each:
    device's busy share, the number of device kernels, and the device time
    by kernel group (the port's kernels, cuDNN convolution, cuBLAS,
    reductions, elementwise, other);
-7. the ``kernels`` JSON line: per kernel the main path's launches, and per
-   shape the launches counted there beside the per-call times of phase 3;
-   the per-image times are those counts times those per-call times. Then
+5q. quantized main path: the same UNet weights restored dense on the card
+   and quantized there by ``io/quantize_tree.quantize_params`` to int8,
+   fp8 and int4 in turn; for each a warm-up (latents compared with the
+   dense ones), one image with the counts checked exactly (3,680 quant
+   matmuls at the 19 shapes of phase 3, 0 geglu, 400 flash_packed, 1
+   flash_bhsd), one more image; s/image, peak and held device memory;
+6q. profile: one int4 image under ``torch.profiler``, as phase 6;
+7. the ``kernels`` JSON line: per kernel the main path's launches (for
+   the quant matmuls, those of the quantized images), and per shape the
+   launches counted there beside the per-call times of phase 3; the
+   per-image times are those counts times those per-call times. Then
    nvidia-smi's line again, then the last line ``{"ok": true, ...}``.
 
 Any failed phase exits non-zero before the last line. Without a CUDA
@@ -41,6 +57,7 @@ cuDNN convolutions (torch.backends.*.allow_tf32 = False) for the whole run.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import subprocess
@@ -62,6 +79,7 @@ GUIDANCE = 7.5
 
 # Device-kernel name fragments -> group, for the profile phase.
 GROUPS = (
+    ("quant_mm", "port: quant matmul"),
     ("flash_fwd", "port: flash attention"),
     ("geglu_ff", "port: geglu"),
     ("conv", "convolution (cuDNN)"),
@@ -168,14 +186,29 @@ def main() -> None:
     from tinyfusers_tpu_torch.kernels import _build
     from tinyfusers_tpu_torch.kernels.flash_attention import (
         flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
+    from tinyfusers_tpu_torch.io.quantize_tree import quantize_params
     from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
+    from tinyfusers_tpu_torch.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
     from tinyfusers_tpu_torch.models import unet as unet_mod
     from tinyfusers_tpu_torch.models import vae as vae_mod
-    from tinyfusers_tpu_torch.models.layers import init_weights
+    from tinyfusers_tpu_torch.models.layers import Linear, init_weights
+    from tinyfusers_tpu_torch.ops.quant import Int4Tensor, quantize, quantize_int4
     from tinyfusers_tpu_torch.pipeline import sd
 
     wrappers = {"flash_packed": flash_packed, "flash_bhsd": flash_bhsd,
-                "geglu": geglu_matmul}
+                "geglu": geglu_matmul, "quant_matmul": quant_matmul,
+                "quant_matmul_int4": quant_matmul_int4}
+    # quantized formats: the quantize_params argument, the wrapper, the
+    # plain version and the phase-3 row key of a call (M, K, N)
+    qformats = {
+        "int8": (torch.int8, "quant_matmul", quant_matmul_plain,
+                 lambda m, k, n: ("int8", m, k, n)),
+        "fp8": (torch.float8_e4m3fn, "quant_matmul", quant_matmul_plain,
+                lambda m, k, n: ("fp8", m, k, n)),
+        "int4": ("int4", "quant_matmul_int4", quant_matmul_int4_plain,
+                 lambda m, k, n: (m, k, n, 64)),
+    }
 
     def reset_counts():
         for w in wrappers.values():
@@ -210,8 +243,16 @@ def main() -> None:
     # kernel rounds P to bf16 against a running (per 64-key tile) max, the
     # plain version against the row's global max, so P's roundings differ.
     # bf16 GEGLU: fp32 sums in another order, then one bf16 rounding.
+    # bf16 quant matmuls: the weight converts to bf16 identically on both
+    # sides, so only the sums' order differs; the limit sits below the
+    # error of either rounding hazard of the formats (``planted``), which
+    # the run measures and holds above it.
     tol = {("attn", torch.bfloat16): 1e-2, ("attn", torch.float32): 1e-5,
-           ("geglu", torch.bfloat16): 2e-3, ("geglu", torch.float32): 1e-5}
+           ("geglu", torch.bfloat16): 2e-3, ("geglu", torch.float32): 1e-5,
+           ("quant", torch.bfloat16): 5e-4, ("quant", torch.float32): 1e-5}
+    # A library call counts as computing the same function within this
+    # (its scales are in x's dtype, which moves each weight by up to 2^-8).
+    lib_tol = 1e-2
     # (label, call shape as the wrapper counts it): every shape the main
     # path gives each kernel; phase 5 fails if it gives one not listed.
     packed_shapes = [("64x64 self", (2, 4096, 4096, 320, 8)),
@@ -223,20 +264,89 @@ def main() -> None:
                     ("32x32", (2048, 2560, 640)),
                     ("16x16", (512, 5120, 1280)),
                     ("8x8 mid", (128, 5120, 1280))]
+    # (M, K, N) of the UNet's linears at bf16, CFG batch 2, and their
+    # launches in one 20-step image: 184 per forward, 3,680 per image.
+    quant_shapes = {
+        (8192, 320, 320): 600, (154, 768, 320): 200, (8192, 320, 2560): 100,
+        (8192, 1280, 320): 100, (2048, 640, 640): 600, (154, 768, 640): 200,
+        (2048, 640, 5120): 100, (2048, 2560, 640): 100, (512, 1280, 1280): 600,
+        (154, 768, 1280): 240, (512, 1280, 10240): 100, (512, 5120, 1280): 100,
+        (128, 1280, 1280): 120, (128, 1280, 10240): 20, (128, 5120, 1280): 20,
+        (2, 1280, 320): 100, (2, 1280, 640): 100, (2, 1280, 1280): 260,
+        (2, 320, 1280): 20}
+    quant_f32 = [(2, 1280, 320), (154, 768, 640), (2048, 640, 640), (512, 5120, 1280)]
     report = {kname: {} for kname in wrappers}  # kname -> shape -> bf16 row
 
-    def record(kname, label, key, dt, err, t_k, t_p, t_lib, flops, nbytes, limit):
+    def record(kname, label, key, dt, err, t_k, t_p, t_lib, flops, nbytes, limit,
+               **extra):
         b_ms, b_by = bound(flops, nbytes, dt)
         lib = "n/a" if t_lib is None else f"{t_lib:.4f}"
+        more = "".join(f" {k}={v:.4g}" for k, v in extra.items() if v is not None)
         say(f"[kernel] {kname} {label} {str(dt)[6:]}: max_abs={err[0]:.3e} "
             f"rel={err[1]:.3e} (tol {limit:.0e}) kernel_ms={t_k:.4f} "
-            f"plain_ms={t_p:.4f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by})")
+            f"plain_ms={t_p:.4f} library_ms={lib}{more} bound_ms={b_ms:.4f} ({b_by})")
         if not err[1] <= limit:
             fail(f"{kname} {label} {dt}: rel err {err[1]:.3e} > {limit:.0e}")
         if dt == torch.bfloat16:
             report[kname][key] = dict(
                 shape=label, call=list(key), max_abs_err=err[0], rel_err=err[1],
-                ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+                ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                **extra)
+
+    def int8pack_mm(x, leaf):
+        """torch._weight_int8pack_mm on the same int8 weight (no bias, its
+        scales in x's dtype), where this PyTorch build has it on CUDA."""
+        w8, sc = leaf.weight_values, leaf.weight_scales.reshape(-1).to(x.dtype)
+        try:
+            torch._weight_int8pack_mm(x, w8, sc)
+        except (RuntimeError, NotImplementedError, AttributeError) as e:
+            return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        return (lambda: torch._weight_int8pack_mm(x, w8, sc)), None
+
+    def int4pack_mm(x, leaf):
+        """torch._weight_int4pack_mm (tinygemm) on the same int4 weight. It
+        decodes (q - 8) * scale + zero per group of K, so q = nibble ^ 8 and
+        zero = 0 give ((v & 0xF) ^ 8) - 8 times the scale; its scales are
+        in x's dtype, and it adds no bias. The weight is packed once, here,
+        with even k in the high nibble, as the op's input takes it."""
+        w = leaf.w
+        p = w.packed.t().contiguous()  # (N, K/2), even k in the low nibble
+        q = (((p & 0xF) ^ 8) << 4) | ((p >> 4) ^ 8)
+        tiles = next((t for t in (8, 4, 2) if w.orig_dim % (16 * t) == 0), 2)
+        sz = torch.stack([w.scales, torch.zeros_like(w.scales)], -1).to(x.dtype).contiguous()
+        try:
+            packed = torch._convert_weight_to_int4pack(q.contiguous(), tiles)
+            torch._weight_int4pack_mm(x, packed, w.group_size, sz)
+        except (RuntimeError, NotImplementedError, AttributeError) as e:
+            return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        return (lambda: torch._weight_int4pack_mm(x, packed, w.group_size, sz)), None
+
+    def planted(x, w, b):
+        """The plain version with the format's rounding hazard planted:
+        int4 with the scaled weight left in fp32 (not rounded to x's dtype
+        before the product); int8 / fp8 with the scale folded into the
+        weight in x's dtype."""
+        wd = (w.dequantize(torch.float32) if isinstance(w, Int4Tensor)
+              else w.dequantize(x.dtype).float())
+        return (x.float() @ wd + b.float()).to(x.dtype)
+
+    def quant_leaf(k, n, qname):
+        """A Linear of the model's kind holding seeded weights, quantized as
+        quantize_params does it: its container is what the UNet passes."""
+        leaf = Linear(k, n, device=dev, dtype=torch.float32)
+        with torch.no_grad():
+            leaf.weight.copy_(torch.randn(n, k, generator=gen, device=dev) * k ** -0.5)
+            leaf.bias.copy_(torch.randn(n, generator=gen, device=dev))
+        dense = leaf.weight.detach().clone()
+        if qname == "int4":
+            leaf.set_weight(quantize_int4(leaf.w, axis=0, group_size=64))
+        else:
+            leaf.set_weight(quantize(leaf.w, qformats[qname][0]))
+        return leaf, dense
+
+    lib_notes = {}  # format -> why its library call was not timed
+    libraries = {"int8": ("torch._weight_int8pack_mm", int8pack_mm),
+                 "int4": ("torch._weight_int4pack_mm", int4pack_mm)}
 
     for dt in (torch.bfloat16, torch.float32):
         isz = torch.tensor([], dtype=dt).element_size()
@@ -282,7 +392,53 @@ def main() -> None:
             record("geglu", label, (m, kd, nd), dt, err, t_k, t_p, None, flops, nbytes,
                    tol[("geglu", dt)])
         del q, k, v, proj, gx, gate, w, got
+        for (m, kd, nd) in (quant_shapes if dt == torch.bfloat16 else quant_f32):
+            x = randn(m, kd, dtype=dt)
+            for qname, (_, kname, plain, row_key) in qformats.items():
+                leaf, dense = quant_leaf(kd, nd, qname)
+                w, bias = leaf.w, leaf.bias.to(dt)
+                fn = wrappers[kname]
+                got = fn(x, w, bias)
+                torch.cuda.synchronize()
+                want = plain(x, w, bias)
+                err = rel_err(got, want)
+                planted_rel = (rel_err(planted(x, w, bias), want)[1]
+                               if dt == torch.bfloat16 else None)
+                t_k = cuda_ms(lambda: fn(x, w, bias), 20)
+                t_p = cuda_ms(lambda: plain(x, w, bias), 5)
+                wd = dense.to(dt)
+                t_d = cuda_ms(lambda: F.linear(x, wd, bias), 20)
+                t_l = lib_rel = None
+                if qname in libraries and dt == torch.bfloat16:
+                    lib_fn, why = libraries[qname][1](x, leaf)
+                    if lib_fn is not None:
+                        lib_rel = rel_err(lib_fn() + bias, want)[1]
+                        if lib_rel > lib_tol:
+                            lib_fn, why = None, f"differs from the plain version by {lib_rel:.3e}"
+                    if lib_fn is None:
+                        lib_notes.setdefault(qname, why)
+                    else:
+                        t_l = cuda_ms(lib_fn, 20)
+                wbytes = kd * nd if qname != "int4" else kd * nd // 2 + 4 * nd * kd // 64
+                nbytes = (m * kd + m * nd + nd) * isz + wbytes + (4 * nd if qname != "int4" else 0)
+                record(kname, f"{qname} ({m},{kd},{nd})", row_key(m, kd, nd), dt, err, t_k,
+                       t_p, t_l, 2.0 * m * kd * nd, nbytes, tol[("quant", dt)], dense_ms=t_d,
+                       library_rel=lib_rel, planted_rel=planted_rel)
+                del leaf, dense, wd, got, want
+        del x
         torch.cuda.empty_cache()
+    for qname, why in lib_notes.items():
+        say(f"[kernel] library for {qname}: {libraries[qname][0]} not timed ({why}); "
+            f"library_ms n/a")
+    qrows = [r for kn in ("quant_matmul", "quant_matmul_int4") for r in report[kn].values()]
+    worst = max(r["rel_err"] for r in qrows)
+    caught = min(r["planted_rel"] for r in qrows)
+    say(f"[kernel] quant matmuls bf16, tolerance {tol[('quant', torch.bfloat16)]:.0e}: "
+        f"largest kernel error {worst:.3e}; smallest error of a planted rounding "
+        f"deviation {caught:.3e} (int4 not rounded before the product, int8 / fp8 "
+        f"scale folded into the weight)")
+    if not caught > tol[("quant", torch.bfloat16)]:
+        fail("the quant-matmul tolerance does not catch a planted rounding deviation")
 
     # 4. kernels inside the model: UNet fp32, card vs CPU -----------------
     cfg = sd.SD15
@@ -309,7 +465,29 @@ def main() -> None:
         f"flash_packed={n_packed} geglu={n_geglu}")
     if not (err[1] <= unet_tol and n_packed == 10 and n_geglu == 16):
         fail("UNet forward on the card disagrees with the CPU or skipped a kernel")
-    del unet_gpu, unet_cpu, got, want
+    del unet_cpu, got, want
+    for qname in ("int8", "int4"):
+        qdtype, kname = qformats[qname][:2]
+        # quantized on the card, then the same buffers moved to the CPU
+        q_gpu = quantize_params(copy.deepcopy(unet_gpu), qdtype)
+        q_cpu = copy.deepcopy(q_gpu).to("cpu")
+        reset_counts()
+        with torch.inference_mode():
+            got = unet_mod.apply(q_gpu, x.to(dev), t.to(dev), ctx.to(dev))
+            torch.cuda.synchronize()
+            counts = {kn: w.launches for kn, w in wrappers.items()}
+            want = unet_mod.apply(q_cpu, x, t, ctx)
+        err = rel_err(got.cpu(), want)
+        say(f"[unet] SD1.5 UNet fp32 256x256 {qname} weights: card vs CPU max_abs="
+            f"{err[0]:.3e} rel={err[1]:.3e} (tol {unet_tol:.0e}); kernel launches on the "
+            f"card: {counts}")
+        expect = dict.fromkeys(wrappers, 0)
+        expect.update(flash_packed=10, **{kname: 184})
+        if not (err[1] <= unet_tol and counts == expect):
+            fail(f"{qname} UNet forward on the card disagrees with the CPU or its "
+                 f"launches {counts} are not {expect}")
+        del q_gpu, q_cpu, got, want
+    del unet_gpu
     torch.cuda.empty_cache()
 
     # 5. the main path ----------------------------------------------------
@@ -356,7 +534,8 @@ def main() -> None:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if img.dtype != torch.uint8 or tuple(img.shape) != (1, 512, 512, 3):
         fail(f"image {img.dtype} {tuple(img.shape)}, want uint8 (1, 512, 512, 3)")
-    want = {"flash_packed": 400, "flash_bhsd": 1, "geglu": 320}
+    want = {"flash_packed": 400, "flash_bhsd": 1, "geglu": 320, "quant_matmul": 0,
+            "quant_matmul_int4": 0}
     say(f"[main] launches in one image: {launches} (want {want})")
     if launches != want:
         fail("the main path did not launch each kernel the expected number of times")
@@ -374,29 +553,111 @@ def main() -> None:
                                        num_steps=STEPS))
     say(f"[profile] one SD1.5 image under torch.profiler: {json.dumps(prof)}")
 
+    # 5q. the main path with the UNet quantized on the card ---------------
+    # The same bf16 UNet weights, restored dense on the card for each format
+    # and quantized there in place by quantize_params, as a user would.
+    dense_state = {key: v.to("cpu") for key, v in model.unet.state_dict().items()}
+    dense_lat = lat.float()
+    q_launches, q_shapes = {}, {}
+    for qname, (qdtype, kname, _, row_key) in qformats.items():
+        model.unet = None
+        torch.cuda.empty_cache()
+        unet_q = unet_mod.UNet(cfg.unet, device=dev, dtype=dtype)
+        unet_q.load_state_dict(dense_state)
+        model.unet = quantize_params(unet_q, qdtype)
+        del unet_q
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held_gb = torch.cuda.memory_allocated() / 1e9  # weights of all three models
+        with torch.inference_mode():  # warm-up
+            qlat = sd.sample_latents(model.unet, latent, c, uc, num_steps=STEPS,
+                                     guidance=GUIDANCE)
+            torch.cuda.synchronize()
+        if qlat.shape != (1, 64, 64, 4) or not torch.isfinite(qlat.float()).all():
+            fail(f"{qname}: latents {tuple(qlat.shape)} not finite of shape (1, 64, 64, 4)")
+        lat_rel = ((qlat.float() - dense_lat).norm() / dense_lat.norm()).item()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i in range(2):
+            if i == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = sd.generate(model, ids, uncond, latent, GUIDANCE, num_steps=STEPS)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                counts = {kn: w.launches for kn, w in wrappers.items()}
+                counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if img.dtype != torch.uint8 or tuple(img.shape) != (1, 512, 512, 3):
+            fail(f"{qname} image {img.dtype} {tuple(img.shape)}, want uint8 (1, 512, 512, 3)")
+        want = {"flash_packed": 400, "flash_bhsd": 1, "geglu": 0, "quant_matmul": 0,
+                "quant_matmul_int4": 0}
+        want[kname] = sum(quant_shapes.values())
+        want_shapes = {row_key(*mkn): n for mkn, n in quant_shapes.items()}
+        say(f"[main-{qname}] launches in one image: {counts} (want {want})")
+        if counts != want or counted[kname] != want_shapes:
+            fail(f"{qname}: launches {counts}, shapes {counted[kname]} against {want}, "
+                 f"{want_shapes}")
+        for kn in ("flash_packed", "flash_bhsd"):
+            if set(counted[kn]) - set(report[kn]):
+                fail(f"{qname} {kn}: main-path shapes {counted[kn]} not all measured")
+        if set(want_shapes) - set(report[kname]):
+            fail(f"{qname}: a main-path shape of {kname} was not measured in phase 3")
+        q_launches[qname], q_shapes[qname] = counts[kname], counted[kname]
+        say(f"[main-{qname}] SD1.5 512x512 {STEPS}-step DDIM CFG {GUIDANCE} bf16 batch 1, "
+            f"UNet weights {qname}: s/image {[round(x, 4) for x in secs]} mean "
+            f"{sum(secs) / 2:.4f}; peak device memory {peak_gb:.2f} GB ({held_gb:.2f} GB "
+            f"held before the images); final latents vs the dense image's: rel "
+            f"{lat_rel:.4e}; card {card}")
+
+    # 6q. profile: one int4 image -------------------------------------------
+    prof = profile(lambda: sd.generate(model, ids, uncond, latent, GUIDANCE,
+                                       num_steps=STEPS))
+    say(f"[profile] one SD1.5 image with int4 UNet weights under torch.profiler: "
+        f"{json.dumps(prof)}")
+
     # 7. the kernels line and the contract line ---------------------------
     sources = {"flash_packed": ("tinyfusers_tpu_torch/csrc/flash_attention.cu",
                                 "tinyfusers_tpu/kernels/flash_attention.py:117"),
                "flash_bhsd": ("tinyfusers_tpu_torch/csrc/flash_attention.cu",
                               "tinyfusers_tpu/kernels/flash_attention.py:31"),
                "geglu": ("tinyfusers_tpu_torch/csrc/geglu_ff.cu",
-                         "tinyfusers_tpu/kernels/geglu_ff.py:48")}
+                         "tinyfusers_tpu/kernels/geglu_ff.py:48"),
+               "quant_matmul": ("tinyfusers_tpu_torch/csrc/quant_matmul.cu",
+                                "tinyfusers_tpu/kernels/quant_matmul.py:35"),
+               "quant_matmul_int4": ("tinyfusers_tpu_torch/csrc/quant_matmul.cu",
+                                     "tinyfusers_tpu/kernels/quant_matmul.py:111")}
+    # each kernel's path: its launches and per-shape counts, what they cover
+    paths = {kn: (launches[kn], shapes[kn], "one dense image's launches at bf16",
+                  "geglu" if kn == "geglu" else "attn")
+             for kn in ("flash_packed", "flash_bhsd", "geglu")}
+    paths["quant_matmul"] = (q_launches["int8"] + q_launches["fp8"],
+                             {**q_shapes["int8"], **q_shapes["fp8"]},
+                             "the int8 image's and the fp8 image's launches at bf16", "quant")
+    paths["quant_matmul_int4"] = (q_launches["int4"], q_shapes["int4"],
+                                  "the int4 image's launches at bf16", "quant")
     kernels = []
     for kname, by_key in report.items():
-        rows = [dict(r, launches=shapes[kname].get(key, 0)) for key, r in by_key.items()]
+        n_launch, counted, per_what, family = paths[kname]
+        rows = [dict(r, launches=counted.get(key, 0)) for key, r in by_key.items()]
         per = lambda field: sum(r["launches"] * r[field] for r in rows)  # noqa: E731
         ops_ms = sum(r["launches"] * r["bound_ms"] for r in rows
                      if r["bound_by"] == "operations")
-        lib = None if rows[0]["library_ms"] is None else per("library_ms")
-        kernels.append({
+        lib = (None if any(r["library_ms"] is None for r in rows)
+               else per("library_ms"))
+        entry = {
             "name": kname, "route": "cuda", "source": sources[kname][0],
-            "replaces": sources[kname][1], "launches": launches[kname],
+            "replaces": sources[kname][1], "launches": n_launch,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": per("ms"), "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
             "bound_by": "operations" if ops_ms >= per("bound_ms") / 2 else "bytes",
-            "library_ms": lib, "per": "one image's launches at bf16",
-            "tolerance": tol[("geglu" if kname == "geglu" else "attn", torch.bfloat16)],
-            "shapes": rows})
+            "library_ms": lib, "per": per_what,
+            "tolerance": tol[(family, torch.bfloat16)]}
+        if family == "quant":
+            entry["dense_ms"] = per("dense_ms")
+        kernels.append(dict(entry, shapes=rows))
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

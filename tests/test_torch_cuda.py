@@ -10,7 +10,12 @@ Tolerances on ||kernel - plain|| / ||plain||: fp32 1e-5 (both exact fp32,
 other summation order; TF32 is switched off); bf16 attention 1e-2 (the
 kernel rounds P to bf16 against a running per-tile max, the plain version
 against the row's global max); bf16 GEGLU 2e-3 (fp32 sums in another
-order, then one bf16 rounding).
+order, then one bf16 rounding); bf16 quantized matmuls 5e-4: the weight
+converts to bf16 identically on both sides, so only the sums' order
+differs (at most 1.2e-4 measured at SD1.5's shapes), while either rounding
+hazard of the quantized formats (int4 scaled without the rounding to bf16
+before the product, or the int8 / fp8 scale folded into the bf16 weight)
+gives about 2e-3 (chip_smoke.py phase 3 measures both).
 """
 import pytest
 import torch
@@ -18,7 +23,10 @@ import torch
 from tinyfusers_tpu_torch.kernels.flash_attention import (
     flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
 from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
-from tinyfusers_tpu_torch.ops.linear import geglu_linear
+from tinyfusers_tpu_torch.kernels.quant_matmul import (
+    quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
+from tinyfusers_tpu_torch.ops.linear import geglu_linear, linear
+from tinyfusers_tpu_torch.ops.quant import QuantizedTensor, quantize, quantize_int4
 
 
 @pytest.fixture
@@ -38,6 +46,8 @@ def _rel(got, want):
 
 ATTN_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 GEGLU_REL = {torch.bfloat16: 2e-3, torch.float32: 1e-5}
+QUANT_REL = {torch.bfloat16: 5e-4, torch.float32: 1e-5}
+QFORMAT_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8", torch.float8_e5m2: "e5m2"}
 
 
 @pytest.mark.cuda
@@ -115,3 +125,76 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         flash_bhsd(x.float(), x.float(), x.float(), kv_len=9)
     with pytest.raises(ValueError):  # no plain fallback for a weight it cannot take
         geglu_linear(x.float(), x.float(), torch.zeros(2, 16, 4, device=cuda))
+
+
+QUANT_SHAPES = [  # (M, K, N, bias): SD1.5 calls, then ragged edges
+    (2, 1280, 320, True), (154, 768, 640, False), (8192, 320, 320, False),
+    (512, 5120, 1280, True),
+    (37, 96, 40, True),   # K % 16 != 0: element-wise weight loads
+    (5, 72, 33, True),    # K % 16 != 0, odd N
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wdtype", list(QFORMAT_NAMES))
+@pytest.mark.parametrize("m,k,n,bias", QUANT_SHAPES)
+def test_cuda_quant_matmul_matches_plain(cuda, dtype, wdtype, m, k, n, bias):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = quantize(torch.randn(n, k, generator=g, device=cuda).t() * k ** -0.5, wdtype)
+    b = torch.randn(n, generator=g, device=cuda).to(dtype) if bias else None
+    key = (QFORMAT_NAMES[wdtype], m, k, n)
+    s0 = quant_matmul.shapes[key]
+    got = quant_matmul(x, w, b)
+    torch.cuda.synchronize()
+    assert quant_matmul.shapes[key] == s0 + 1 and got.dtype == dtype
+    assert _rel(got, quant_matmul_plain(x, w, b)) <= QUANT_REL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,bias", QUANT_SHAPES + [(37, 130, 40, True)])  # g = 2
+def test_cuda_quant_matmul_int4_matches_plain(cuda, dtype, m, k, n, bias):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = quantize_int4(torch.randn(n, k, generator=g, device=cuda).t() * k ** -0.5, axis=0)
+    b = torch.randn(n, generator=g, device=cuda).to(dtype) if bias else None
+    key = (m, k, n, w.group_size)
+    s0 = quant_matmul_int4.shapes[key]
+    got = quant_matmul_int4(x, w, b)
+    torch.cuda.synchronize()
+    assert quant_matmul_int4.shapes[key] == s0 + 1 and got.dtype == dtype
+    assert _rel(got, quant_matmul_int4_plain(x, w, b)) <= QUANT_REL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_quantized_linear_launches_the_kernels(cuda):
+    x = torch.randn(3, 7, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(64, 48, device=cuda)
+    counts = (quant_matmul.launches, quant_matmul_int4.launches, geglu_matmul.launches)
+    y8 = linear(x, quantize(w, torch.int8))
+    y4 = geglu_linear(x, x, quantize_int4(w, axis=0))  # a quantized FF weight: no GEGLU kernel
+    torch.cuda.synchronize()
+    assert y8.shape == y4.shape == (3, 7, 48)
+    assert (quant_matmul.launches, quant_matmul_int4.launches,
+            geglu_matmul.launches) == (counts[0] + 1, counts[1] + 1, counts[2])
+
+
+@pytest.mark.cuda
+def test_cuda_quant_wrappers_raise_and_never_fall_back(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.randn(64, 32, device=cuda)
+    with pytest.raises(ValueError, match="axis 0"):  # packed on the wrong axis
+        quant_matmul_int4(x, quantize_int4(w.t(), axis=1))
+    with pytest.raises(TypeError):  # a dtype the kernel does not take
+        quant_matmul(x.half(), quantize(w))
+    q = quantize(w)
+    with pytest.raises(TypeError):  # a weight format the kernel does not take
+        quant_matmul(x, QuantizedTensor(q.values.view(torch.uint8), q.scales))
+    with pytest.raises(ValueError, match="one CUDA device"):  # CPU weight, CUDA x
+        quant_matmul(x, quantize(w.cpu()))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        quant_matmul_int4(x, quantize_int4(w.cpu(), axis=0))
+    with pytest.raises(ValueError, match="K mismatch"):
+        quant_matmul(x[:, :32], quantize(w))

@@ -8,6 +8,15 @@ Leaves change layout on the way: linear weights (in, out) -> (out, in),
 conv weights HWIO -> OIHW, and CLIP's per-layer leaves, stacked on a
 leading axis for ``lax.scan``, are split across the ModuleList.
 Every parameter must be written exactly once and every shape must match.
+
+A weight-only quantized tree, as ``jax.tree.map(np.asarray,
+quantize_params(...))`` gives it, is taken as well. Its quantized leaves
+are recognised by their attributes (``values`` and ``scales``, or
+``packed``, ``scales``, ``axis``, ``group_size`` and ``orig_dim``), never
+by the JAX package's classes, and become ops.quant containers held by
+the Linear or Conv in its torch layout (models/layers.py). fp8 values
+arrive as ml_dtypes arrays, which torch cannot take directly: they go
+through their bytes (a uint8 view, then a float8_e4m3fn view).
 """
 from __future__ import annotations
 
@@ -18,13 +27,45 @@ import torch
 from torch import nn
 
 from ..models.layers import Conv, Linear
+from ..ops.quant import Int4Tensor, QuantizedTensor
+
+# ml_dtypes float8 arrays by dtype name -> the torch dtype of their bytes
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
+def _tensor(value) -> torch.Tensor:
+    value = np.asarray(value)
+    name = value.dtype.name
+    if name == "bfloat16":  # ml_dtypes: torch cannot view it
+        return torch.tensor(value.astype(np.float32))
+    if name in _FP8:
+        return torch.tensor(value.view(np.uint8)).view(_FP8[name])
+    return torch.tensor(value)
+
+
+def _quantized(value):
+    """The ops.quant container of a quantized JAX leaf, or None for a
+    dense one."""
+    if hasattr(value, "packed"):
+        return Int4Tensor(_tensor(value.packed), _tensor(value.scales).float(),
+                          axis=int(value.axis), group_size=int(value.group_size),
+                          orig_dim=int(value.orig_dim))
+    if hasattr(value, "values") and hasattr(value, "scales"):
+        return QuantizedTensor(_tensor(value.values), _tensor(value.scales).float())
+    return None
+
+
+def _assign_quantized(module, q, where: str) -> None:
+    if not isinstance(module, (Linear, Conv)):
+        raise ValueError(f"{where}: a quantized weight for {type(module).__name__}")
+    try:
+        module.set_weight(q)
+    except ValueError as e:
+        raise ValueError(f"{where}: {e}") from None
 
 
 def _assign(param: torch.Tensor, value: np.ndarray, where: str) -> None:
-    value = np.asarray(value)
-    if value.dtype.name == "bfloat16":  # ml_dtypes: torch cannot view it
-        value = value.astype(np.float32)
-    t = torch.tensor(value)
+    t = _tensor(value)
     if tuple(t.shape) != tuple(param.shape):
         raise ValueError(f"{where}: shape {tuple(t.shape)} != {tuple(param.shape)}")
     with torch.no_grad():
@@ -47,11 +88,15 @@ def _load(module: nn.Module, tree, where: str, ignore: Iterable[str], seen: set)
         if path in ignore:
             continue
         if key in ("weight", "bias") and not isinstance(value, (dict, list)):
+            q = _quantized(value) if key == "weight" else None
+            if q is not None:
+                _assign_quantized(module, q, path)
+                continue
             if isinstance(module, Linear) and key == "weight":
                 value = np.swapaxes(value, -1, -2)
             elif isinstance(module, Conv) and key == "weight":
                 value = np.transpose(value, (3, 2, 0, 1))
-            param = getattr(module, key)
+            param = getattr(module, key, None)
             if param is None:
                 raise ValueError(f"{path}: the module has no {key}")
             _assign(param, value, path)

@@ -1,0 +1,41 @@
+"""Quantize a model's matmul and conv weights in place, weight-only (port
+of tinyfusers_tpu/io/quantize_tree.py).
+
+The JAX package's rule, on the port's modules: every Linear or Conv
+weight with at least ``_MIN_QUANT_SIZE`` elements (the JAX tree's
+"weight" leaves of ndim 2 or 4) is quantized; norms, embeddings and
+biases stay as they are. int8 and fp8 quantize per output channel
+(axis -1 of the JAX layout); "int4" packs along the contraction axis (0
+for (in, out) linears, 2 for HWIO convs) with per-group scales. The work
+runs on the module's own device, and each leaf then holds its quantized
+buffers (models/layers.py) in place of its weight.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+from torch import nn
+
+from ..models.layers import Conv, Linear
+from ..ops.quant import is_quantized, quantize, quantize_int4
+
+_MIN_QUANT_SIZE = 4096  # don't bother quantizing tiny tensors
+
+
+def quantize_params(module: nn.Module, qdtype: Union[torch.dtype, str] = torch.int8, *,
+                    group_size: int = 64) -> nn.Module:
+    """Quantize ``module``'s eligible weights in place (qdtype torch.int8,
+    torch.float8_e4m3fn, torch.float8_e5m2 or "int4"); returns ``module``."""
+    for leaf in module.modules():
+        if not isinstance(leaf, (Linear, Conv)):
+            continue
+        w = leaf.w
+        if is_quantized(w) or w.numel() < _MIN_QUANT_SIZE:
+            continue
+        if qdtype == "int4":
+            q = quantize_int4(w, axis=leaf.INT4_AXIS, group_size=group_size)
+        else:
+            q = quantize(w, qdtype, axis=-1)
+        leaf.set_weight(q)
+    return module

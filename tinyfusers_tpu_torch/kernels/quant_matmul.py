@@ -1,0 +1,172 @@
+"""Weight-only quantized matmuls: y = (x @ w_q) * scales + b (port of
+tinyfusers_tpu/kernels/quant_matmul.py).
+
+``quant_matmul`` replaces the Pallas ``_kernel`` (int8, fp8-e4m3 and
+fp8-e5m2 weights, per-output-channel scales in the epilogue) and
+``quant_matmul_int4`` replaces ``_int4_kernel`` (nibble pairs along K,
+per-group scales applied to the weight before the product). For a CUDA
+tensor each launches its hand-written kernel in ``csrc/quant_matmul.cu``,
+which reads the quantized bytes and converts each weight tile on chip;
+for a CPU tensor each computes its plain version. A CUDA tensor the
+kernel does not take raises; it never falls back. ``.launches`` counts a
+wrapper's launches and ``.shapes`` counts them by call.
+
+Semantics, as in the Pallas kernels (and the JAX package's XLA path off
+the TPU): the weight is dequantized to x's dtype (int8 and fp8 exactly;
+int4 as ``q * scale`` in fp32, rounded to x's dtype before the product),
+sums are fp32, int8 / fp8 apply ``acc * scale[n]`` then ``+ b[n]`` in
+fp32, int4 adds only the bias, and the output is rounded once to x's
+dtype.
+
+Weights use ``ops/quant.py``'s containers in the JAX layout: values
+(K, N) with scales (1, N), or int4 packed on axis 0 as (K/2, N) with
+scales (K/g, N). The kernels read them as (N, K), (N, K/2) and (N, K/g)
+rows: the transposes of a model's containers, so no copy is made for
+them.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+from typing import TYPE_CHECKING, Optional
+
+import torch
+
+from . import _build
+
+if TYPE_CHECKING:  # ops imports this module: no import back at run time
+    from ..ops.quant import Int4Tensor, QuantizedTensor
+
+# weight dtype -> (format code of the C interface, name in the shape counts)
+_FORMATS = {torch.int8: (0, "int8"), torch.float8_e4m3fn: (1, "fp8"),
+            torch.float8_e5m2: (2, "e5m2")}
+
+
+def _check(x: torch.Tensor, w: QuantizedTensor) -> None:
+    if w.values.dim() != 2:
+        raise ValueError(f"quant_matmul wants a 2D (K, N) weight, got {tuple(w.values.shape)}")
+    k, n = w.values.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"K mismatch: x has {x.shape[-1]}, w has {k}")
+    if w.scales.numel() != n:
+        raise ValueError(f"quant_matmul wants per-output-channel scales ({n}), got "
+                         f"{tuple(w.scales.shape)}")
+
+
+def _check_int4(x: torch.Tensor, w: Int4Tensor) -> None:
+    if w.axis != 0 or w.packed.dim() != 2:
+        raise ValueError("quant_matmul_int4 wants a 2D weight packed on axis 0, got "
+                         f"axis={w.axis} ndim={w.packed.dim()}")
+    if x.shape[-1] != w.orig_dim:
+        raise ValueError(f"K mismatch: x has {x.shape[-1]}, w has {w.orig_dim}")
+    k, g = w.orig_dim, w.group_size
+    n = w.packed.shape[1]
+    if (w.packed.shape[0] * 2 != k or k % g
+            or tuple(w.scales.shape) != (k // g, n)):
+        raise ValueError(f"int4 weight: packed {tuple(w.packed.shape)}, scales "
+                         f"{tuple(w.scales.shape)} do not fit K={k}, g={g}")
+
+
+def _finish(y: torch.Tensor, b: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    if b is not None:
+        y = y + b.float()
+    return y.to(dtype)
+
+
+def quant_matmul_plain(x: torch.Tensor, w: QuantizedTensor,
+                       b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the int8 / fp8 kernel; same arguments."""
+    _check(x, w)
+    y = torch.matmul(x.float(), w.values.to(x.dtype).float())
+    return _finish(y * w.scales.reshape(-1).float(), b, x.dtype)
+
+
+def quant_matmul_int4_plain(x: torch.Tensor, w: Int4Tensor,
+                            b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the int4 kernel; same arguments."""
+    _check_int4(x, w)
+    y = torch.matmul(x.float(), w.dequantize(x.dtype).float())
+    return _finish(y, b, x.dtype)
+
+
+def _on_device(x: torch.Tensor, *tensors: torch.Tensor) -> None:
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("quantized matmul: x and the weight must be on one CUDA device")
+
+
+def _bias(b: Optional[torch.Tensor], x: torch.Tensor):
+    return None if b is None else b.to(device=x.device, dtype=torch.float32).contiguous()
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# (dtype, fmt, x, w, scales, bias, out, M, N, K, stream)
+_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+         + [ctypes.c_void_p])
+# (dtype, x, packed, scales, bias, out, M, N, K, g, stream)
+_ARGS_INT4 = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+              + [ctypes.c_void_p])
+
+
+def quant_matmul(x: torch.Tensor, w: QuantizedTensor,
+                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (..., K) @ int8 / fp8 w (K, N) -> (..., N) in x's dtype."""
+    _check(x, w)
+    if not x.is_cuda:
+        return quant_matmul_plain(x, w, b)
+    _on_device(x, w.values, w.scales)
+    if w.values.dtype not in _FORMATS:
+        raise TypeError(f"quant_matmul takes int8, float8_e4m3fn or float8_e5m2 weights, "
+                        f"not {w.values.dtype}")
+    fmt, fmt_name = _FORMATS[w.values.dtype]
+    dtype = _build.dtype_code(x.dtype)
+    *lead, k = x.shape
+    n = w.values.shape[1]
+    x2 = x.reshape(-1, k).contiguous()
+    m = x2.shape[0]
+    wt = w.values.t().contiguous()  # (N, K): a model's own storage, no copy
+    scales = w.scales.reshape(-1).to(torch.float32).contiguous()
+    bias = _bias(b, x)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _build.entry("quant_matmul", "tf_quant_matmul", _ARGS)(
+        dtype, fmt, x2.data_ptr(), wt.data_ptr(), scales.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k, _stream(x))
+    quant_matmul.launches += 1
+    quant_matmul.shapes[(fmt_name, m, k, n)] += 1
+    return out.reshape(*lead, n)
+
+
+quant_matmul.launches = 0
+quant_matmul.shapes = collections.Counter()  # ("int8" | "fp8" | "e5m2", M, K, N) -> launches
+
+
+def quant_matmul_int4(x: torch.Tensor, w: Int4Tensor,
+                      b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (..., K) @ int4 w (K, N), packed on axis 0 -> (..., N) in x's dtype."""
+    _check_int4(x, w)
+    if not x.is_cuda:
+        return quant_matmul_int4_plain(x, w, b)
+    _on_device(x, w.packed, w.scales)
+    if w.packed.dtype != torch.uint8:
+        raise TypeError(f"quant_matmul_int4 takes uint8 nibble pairs, not {w.packed.dtype}")
+    dtype = _build.dtype_code(x.dtype)
+    *lead, k = x.shape
+    n, g = w.packed.shape[1], w.group_size
+    x2 = x.reshape(-1, k).contiguous()
+    m = x2.shape[0]
+    packed = w.packed.t().contiguous()                       # (N, K/2)
+    scales = w.scales.t().to(torch.float32).contiguous()     # (N, K/g)
+    bias = _bias(b, x)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _build.entry("quant_matmul", "tf_quant_matmul_int4", _ARGS_INT4)(
+        dtype, x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k, g, _stream(x))
+    quant_matmul_int4.launches += 1
+    quant_matmul_int4.shapes[(m, k, n, g)] += 1
+    return out.reshape(*lead, n)
+
+
+quant_matmul_int4.launches = 0
+quant_matmul_int4.shapes = collections.Counter()  # (M, K, N, g) -> launches

@@ -6,6 +6,15 @@ Their ``forward`` calls the ops with the JAX layout (the transposed views
 of the stored weights, so no copy is made). Parameters are created empty
 on the requested device; ``init_weights`` fills a whole model from one
 seed on that device (utils/init.py).
+
+A Linear or Conv may hold a weight-only quantized weight instead
+(``set_weight``, as io/quantize_tree.py and io/from_jax.py use it). It is
+stored as buffers in the same torch layout, so ``.to()`` and
+``state_dict`` carry it: ``weight_values`` and ``weight_scales`` for
+int8 / fp8 (scales (out, 1) or (O, 1, 1, 1)), or ``weight_packed`` and
+``weight_scales`` for int4, packed along the input axis ((out, in/2) and
+(out, in/g), or (O, I/2, H, W) and (O, I/g, H, W)). ``w`` gives the
+ops.quant container of those buffers in the JAX layout, as views.
 """
 from __future__ import annotations
 
@@ -13,10 +22,82 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..ops.quant import Int4Tensor, QuantizedTensor
 from ..utils import init as pinit
 
+_QUANT_BUFFERS = ("weight_values", "weight_packed", "weight_scales")
 
-class Linear(nn.Module):
+
+class _WeightLeaf(nn.Module):
+    """A leaf whose weight may be dense or quantized. Subclasses give the
+    layout maps between torch's order and the JAX package's, and the JAX
+    axis an int4 weight is packed along."""
+
+    INT4_AXIS = 0
+
+    @staticmethod
+    def to_jax(t: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    @staticmethod
+    def from_jax(t: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    @property
+    def w(self):
+        """The weight in the JAX layout, as views of what is stored: a
+        tensor, a QuantizedTensor or an Int4Tensor."""
+        if "weight" in self._parameters:
+            return self.to_jax(self.weight)
+        scales = self.to_jax(self.weight_scales)
+        if "weight_packed" in self._buffers:
+            k = 2 * self.weight_packed.shape[1]
+            return Int4Tensor(self.to_jax(self.weight_packed), scales, axis=self.INT4_AXIS,
+                              group_size=k // self.weight_scales.shape[1], orig_dim=k)
+        return QuantizedTensor(self.to_jax(self.weight_values), scales)
+
+    def set_weight(self, w) -> None:
+        """Hold ``w``, a QuantizedTensor or Int4Tensor in the JAX layout of
+        this leaf's weight, in place of the current weight, on this leaf's
+        device. Raises ValueError when a shape of ``w`` does not fit."""
+        shape = tuple(self.w.shape)
+        if isinstance(w, Int4Tensor):
+            ax, k, g = w.axis % w.ndim, w.orig_dim, w.group_size
+            along = lambda n: shape[:ax] + (n,) + shape[ax + 1:]  # noqa: E731
+            ok = (ax == self.INT4_AXIS and len(shape) == w.ndim and shape[ax] == k
+                  and g > 0 and k % g == 0 and tuple(w.packed.shape) == along(k // 2)
+                  and tuple(w.scales.shape) == along(k // g))
+            tensors = {"weight_packed": w.packed, "weight_scales": w.scales}
+        elif isinstance(w, QuantizedTensor):
+            ok = (tuple(w.values.shape) == shape
+                  and tuple(w.scales.shape) == (1,) * (len(shape) - 1) + shape[-1:])
+            tensors = {"weight_values": w.values, "weight_scales": w.scales}
+        else:
+            raise TypeError(f"set_weight takes a quantized weight, not {type(w).__name__}")
+        if not ok:
+            got = ", ".join(f"{n[7:]} {tuple(t.shape)}" for n, t in tensors.items())
+            axis = f" packed on axis {w.axis}" if isinstance(w, Int4Tensor) else ""
+            raise ValueError(f"quantized weight shape ({got}{axis}) does not fit "
+                             f"{shape}")
+        dev = next(iter([*self.parameters(), *self.buffers()])).device
+        if "weight" in self._parameters:
+            del self.weight
+        for name in _QUANT_BUFFERS:
+            self._buffers.pop(name, None)
+        for name, t in tensors.items():
+            self.register_buffer(name, self.from_jax(t).to(dev).contiguous())
+
+    def _apply(self, fn, recurse=True):
+        """Device moves reach the quantized buffers; dtype casts do not
+        (they would round the fp32 scales and turn fp8 values dense)."""
+        held = {n: self._buffers.pop(n) for n in _QUANT_BUFFERS if n in self._buffers}
+        super()._apply(fn, recurse)
+        for name, t in held.items():
+            self._buffers[name] = t.to(fn(torch.empty(0, device=t.device)).device)
+        return self
+
+
+class Linear(_WeightLeaf):
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True, *,
                  device=None, dtype=None):
         super().__init__()
@@ -25,25 +106,35 @@ class Linear(nn.Module):
         self.bias = (nn.Parameter(torch.empty(out_dim, **kw), requires_grad=False)
                      if bias else None)
 
-    @property
-    def w(self) -> torch.Tensor:
-        """The weight in the JAX layout (in, out), as a view."""
-        return self.weight.t()
+    @staticmethod
+    def to_jax(t: torch.Tensor) -> torch.Tensor:
+        return t.t()  # (out, in) -> (in, out)
+
+    from_jax = to_jax
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ops.linear(x, self.w, self.bias)
 
 
-class Conv(nn.Module):
+class Conv(_WeightLeaf):
+    INT4_AXIS = 2  # HWIO input channels
+
     def __init__(self, in_ch: int, out_ch: int, k: int, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k, **kw), requires_grad=False)
         self.bias = nn.Parameter(torch.empty(out_ch, **kw), requires_grad=False)
 
+    @staticmethod
+    def to_jax(t: torch.Tensor) -> torch.Tensor:
+        return t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+
+    @staticmethod
+    def from_jax(t: torch.Tensor) -> torch.Tensor:
+        return t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+
     def forward(self, x: torch.Tensor, *, stride=1, padding=0) -> torch.Tensor:
-        return ops.conv2d(x, self.weight.permute(2, 3, 1, 0), self.bias,
-                          stride=stride, padding=padding)
+        return ops.conv2d(x, self.w, self.bias, stride=stride, padding=padding)
 
 
 class Norm(nn.Module):

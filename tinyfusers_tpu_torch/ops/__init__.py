@@ -4,6 +4,8 @@ from .conv import conv2d, upsample_nearest_2x
 from .embedding import embedding
 from .linear import geglu_linear, linear
 from .norms import group_norm, layer_norm
+from .quant import (Int4Tensor, QuantizedTensor, dequantize, is_quantized, quantize,
+                    quantize_int4)
 
 __all__ = [
     "gelu_erf", "gelu_tanh", "geglu", "quick_gelu", "sigmoid", "silu", "swish",
@@ -12,4 +14,6 @@ __all__ = [
     "embedding",
     "geglu_linear", "linear",
     "group_norm", "layer_norm",
+    "Int4Tensor", "QuantizedTensor", "dequantize", "is_quantized", "quantize",
+    "quantize_int4",
 ]

@@ -9,6 +9,16 @@ In fp32 that is the JAX package's arithmetic; in bf16 the library rounds
 where it rounds, which can differ from the JAX package's single rounding
 of the fp32 sum plus bias by one bf16 ulp. The 9-shifted-GEMM route of the JAX package is a TPU layout choice and is
 not ported.
+
+Quantized weights, as in the JAX package: a ``QuantizedTensor`` (per
+output channel) convolves with its values in the compute dtype and no
+bias, then the output is multiplied by the scales and the bias is added,
+in fp32. In bf16 the library's output is rounded once before the scale,
+where the JAX package rounds only the final fp32 sum, so the two may differ
+by 2^-8 of the scaled sum beyond the last rounding; the library call
+keeps the bf16 tensor cores, which an fp32 conv would give up. An
+``Int4Tensor`` (packed along the input channels, HWIO axis 2) is
+dequantized to the compute dtype and convolved like a dense weight.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from .quant import Int4Tensor, QuantizedTensor
 
 PadLike = Union[int, Sequence[int]]
 
@@ -34,15 +46,21 @@ def _normalize_padding(padding: PadLike) -> Tuple[int, int, int, int]:
 
 def conv2d(
     x: torch.Tensor,
-    w: torch.Tensor,
+    w,
     b: Optional[torch.Tensor] = None,
     *,
     stride: Union[int, Tuple[int, int]] = 1,
     padding: PadLike = 0,
     compute_dtype=None,
 ) -> torch.Tensor:
-    """x (N, H, W, Cin), w (kh, kw, Cin, Cout) -> (N, H', W', Cout)."""
+    """x (N, H, W, Cin), w (kh, kw, Cin, Cout) -> (N, H', W', Cout); w may
+    be a QuantizedTensor or an Int4Tensor of that shape."""
     cd = compute_dtype or x.dtype
+    if isinstance(w, Int4Tensor):
+        w = w.dequantize(cd)
+    scales = None
+    if isinstance(w, QuantizedTensor):
+        scales, w = w.scales, w.values
     t, bt, l, r = _normalize_padding(padding)
     xc = x.to(cd).permute(0, 3, 1, 2)
     wc = w.to(cd).permute(3, 2, 0, 1)
@@ -51,9 +69,14 @@ def conv2d(
     else:
         xc = F.pad(xc, (l, r, t, bt))
         pad = 0
-    y = F.conv2d(xc, wc, None if b is None else b.to(cd), stride=stride,
-                 padding=pad)
-    return y.permute(0, 2, 3, 1).contiguous()
+    call_bias = None if b is None or scales is not None else b.to(cd)
+    y = F.conv2d(xc, wc, call_bias, stride=stride, padding=pad).permute(0, 2, 3, 1)
+    if scales is not None:
+        y = y.float() * scales.reshape(-1).float()
+        if b is not None:
+            y = y + b.float()
+        y = y.to(cd)
+    return y.contiguous()
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
