@@ -3,16 +3,24 @@
     python3 chip_smoke.py
 
 Drives tinyfusers_tpu_torch's SD1.5 text-to-image path on the card, dense
-and with a weight-only int8, fp8 or int4 UNet, with seeded random weights
-made on the card, and holds every hand-written CUDA kernel of those paths
-against its plain PyTorch version. Imports neither jax nor tinyfusers_tpu.
+and with a weight-only int8, fp8 or int4 UNet, and its SD3-medium path
+(MMDiT, rectified flow), without and with T5-XXL, with seeded random
+weights made on the card, and holds every hand-written CUDA kernel of
+those paths against its plain PyTorch version. Imports neither jax nor
+tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
+and the ``final`` layer) are zeros under the JAX init, which would keep
+the joint attention's output out of the latents, so a wrong kernel would
+not show: they are refilled with seeded non-zero values, as the parity
+tests' ``tests/torch_parity.py::random_tree`` fills every leaf.
 Phases, one or more lines each:
 
 1. device: name, count, and nvidia-smi's name and power limit;
 2. build: the kernels compiled from tinyfusers_tpu_torch/csrc (seconds,
    and ptxas's register / shared-memory report);
 3. kernels: each kernel against its plain version at every main-path
-   shape (the quant matmuls with int8, fp8 and int4 weights), bf16 and
+   shape (the quant matmuls with int8, fp8 and int4 weights; flash_packed
+   also at SD3's two joint-attention shapes with their kv_len, flash_bhsd
+   also at the 1024x1024 VAE's mid attention), bf16 and
    fp32, with its error and tolerance, its time, the plain version's time,
    the library call's time where one computes the same function (with its
    error against the plain version), for the quant matmuls the dense bf16
@@ -25,6 +33,10 @@ Phases, one or more lines each:
    against the same weights on the CPU: dense (every FF through the GEGLU
    kernel), then with int8 and with int4 weights (184 quant-matmul
    launches, no GEGLU);
+4s. mmdit: one full-width SD3-medium MMDiT forward at a 64x64 latent
+   (1024 image + 77 text tokens, padded to 1152 joint tokens, kv_len
+   1101: 24 flash_packed launches) in fp32 on the card, against the same
+   weights on the CPU;
 5. main path: ``generate`` at SD1.5 512x512, 20-step DDIM, CFG 7.5, bf16,
    batch 1: one warm-up through the pipeline's stages (finite latents),
    then one image with the launch counts set to 0 just before it and read
@@ -43,11 +55,23 @@ Phases, one or more lines each:
    matmuls at the 19 shapes of phase 3, 0 geglu, 400 flash_packed, 1
    flash_bhsd), one more image; s/image, peak and held device memory;
 6q. profile: one int4 image under ``torch.profiler``, as phase 6;
-7. the ``kernels`` JSON line: per kernel the main path's launches (for
-   the quant matmuls, those of the quantized images), and per shape the
-   launches counted there beside the per-call times of phase 3; the
-   per-image times are those counts times those per-call times. Then
-   nvidia-smi's line again, then the last line ``{"ok": true, ...}``.
+5s. SD3 main path: ``sd3.generate`` at SD3-medium without T5, 1024x1024,
+   28-step Euler rectified flow, CFG 5.0, bf16, batch 1: a warm-up through
+   the pipeline's stages (finite latents), one image with the counts
+   checked exactly (672 flash_packed at (2, 4224, 4224, 1536, 24, kv_len
+   4173), 1 flash_bhsd at (1, 16384, 16384, 512), no geglu or quant
+   matmul), one more image; s/image, held and peak device memory;
+6s. profile: one more SD3 image under ``torch.profiler``, as phase 6;
+5t. SD3-medium with T5-XXL: one warm-up and one counted image (672
+   flash_packed at (2, 4352, 4352, 1536, 24, kv_len 4250), 1 flash_bhsd);
+   s/image and memory;
+7. the ``kernels`` JSON line: per kernel the main paths' launches (for
+   the quant matmuls, those of the quantized images; flash_packed's SD3
+   calls, the counterpart of the TPU's multi-k kernel, as their own
+   entry), and per shape the launches counted there beside the per-call
+   times of phase 3; the per-image times are those counts times those
+   per-call times. Then nvidia-smi's line again, then the last line
+   ``{"ok": true, ...}``.
 
 Any failed phase exits non-zero before the last line. Without a CUDA
 GPU, or without the repository beside it, it exits non-zero at once.
@@ -76,6 +100,8 @@ PEAK_BYTES = 3.35e12
 
 STEPS = 20
 GUIDANCE = 7.5
+SD3_STEPS = 28
+SD3_GUIDANCE = 5.0
 
 # Device-kernel name fragments -> group, for the profile phase.
 GROUPS = (
@@ -87,6 +113,7 @@ GROUPS = (
     ("gemm", "matrix products (cuBLAS)"),
     ("sm90_xmma", "matrix products (cuBLAS)"),
     ("cutlass", "matrix products (cuBLAS)"),
+    ("nvjet", "matrix products (cuBLAS)"),  # cuBLAS's Hopper GEMMs
     ("reduce", "reductions (norm statistics)"),
     ("elementwise", "elementwise"),
 )
@@ -190,15 +217,19 @@ def main() -> None:
     from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
     from tinyfusers_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
+    from tinyfusers_tpu_torch.models import mmdit as mmdit_mod
     from tinyfusers_tpu_torch.models import unet as unet_mod
     from tinyfusers_tpu_torch.models import vae as vae_mod
-    from tinyfusers_tpu_torch.models.layers import Linear, init_weights
+    from tinyfusers_tpu_torch.models.layers import Linear, ZeroLinear, init_weights
     from tinyfusers_tpu_torch.ops.quant import Int4Tensor, quantize, quantize_int4
-    from tinyfusers_tpu_torch.pipeline import sd
+    from tinyfusers_tpu_torch.pipeline import sd, sd3
 
     wrappers = {"flash_packed": flash_packed, "flash_bhsd": flash_bhsd,
                 "geglu": geglu_matmul, "quant_matmul": quant_matmul,
                 "quant_matmul_int4": quant_matmul_int4}
+    # entries of the kernels line that are not a wrapper's own name: the
+    # SD3 calls of flash_packed stand for the TPU's multi-k kernel
+    wrapper_of = {"flash_packed_multik": "flash_packed"}
     # quantized formats: the quantize_params argument, the wrapper, the
     # plain version and the phase-3 row key of a call (M, K, N)
     qformats = {
@@ -214,6 +245,17 @@ def main() -> None:
         for w in wrappers.values():
             w.launches = 0
             w.shapes.clear()
+
+    def fill_adaln(model, seed):
+        """Seeded non-zero values in every adaLN-Zero leaf (weights normal
+        / sqrt(fan_in), biases 0.1 normal, as random_tree fills them)."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            for leaf in model.modules():
+                if isinstance(leaf, ZeroLinear):
+                    w = torch.randn(leaf.weight.shape, generator=g, device=dev)
+                    leaf.weight.copy_(w * leaf.weight.shape[1] ** -0.5)
+                    leaf.bias.copy_(torch.randn(leaf.bias.shape, generator=g, device=dev) * 0.1)
 
     # 1. device ----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -255,11 +297,18 @@ def main() -> None:
     lib_tol = 1e-2
     # (label, call shape as the wrapper counts it): every shape the main
     # path gives each kernel; phase 5 fails if it gives one not listed.
-    packed_shapes = [("64x64 self", (2, 4096, 4096, 320, 8)),
-                     ("64x64 cross", (2, 4096, 77, 320, 8)),
-                     ("32x32 self", (2, 1024, 1024, 640, 8)),
-                     ("32x32 cross", (2, 1024, 77, 640, 8))]
-    bhsd_shapes = [("VAE mid", (1, 4096, 4096, 512))]
+    # flash_packed: (B, Sq, Sk, H*d, H, real keys), as the wrapper counts.
+    # The SD1.5 UNet's calls (the TPU's single-k-block kernel) ...
+    packed_shapes = [("64x64 self", (2, 4096, 4096, 320, 8, 4096)),
+                     ("64x64 cross", (2, 4096, 77, 320, 8, 77)),
+                     ("32x32 self", (2, 1024, 1024, 640, 8, 1024)),
+                     ("32x32 cross", (2, 1024, 77, 640, 8, 77))]
+    # ... and SD3's joint attention (the TPU's multi-k kernel): 4096 image
+    # + 77 CLIP (+ 77 T5) tokens, padded to a multiple of 128.
+    multik_shapes = [("SD3 joint", (2, 4224, 4224, 1536, 24, 4173)),
+                     ("SD3+T5 joint", (2, 4352, 4352, 1536, 24, 4250))]
+    bhsd_shapes = [("VAE mid 512x512", (1, 4096, 4096, 512)),
+                   ("VAE mid 1024x1024", (1, 16384, 16384, 512))]
     geglu_shapes = [("64x64", (8192, 1280, 320)),
                     ("32x32", (2048, 2560, 640)),
                     ("16x16", (512, 5120, 1280)),
@@ -275,7 +324,15 @@ def main() -> None:
         (2, 1280, 320): 100, (2, 1280, 640): 100, (2, 1280, 1280): 260,
         (2, 320, 1280): 20}
     quant_f32 = [(2, 1280, 320), (154, 768, 640), (2048, 640, 640), (512, 5120, 1280)]
-    report = {kname: {} for kname in wrappers}  # kname -> shape -> bf16 row
+    report = {kname: {} for kname in [*wrappers, *wrapper_of]}  # entry -> shape -> bf16 row
+
+    def measured(wname):
+        """The call shapes of wrapper ``wname`` that phase 3 measured."""
+        return {key for entry, rows in report.items()
+                if wrapper_of.get(entry, entry) == wname for key in rows}
+
+    def reps(flops):  # calls per CUDA-graph replay: fewer for the largest
+        return 10 if flops < 1e11 else 3
 
     def record(kname, label, key, dt, err, t_k, t_p, t_lib, flops, nbytes, limit,
                **extra):
@@ -350,33 +407,40 @@ def main() -> None:
 
     for dt in (torch.bfloat16, torch.float32):
         isz = torch.tensor([], dtype=dt).element_size()
-        for label, (b, sq, sk, c, h) in packed_shapes:
+        packed_rows = ([("flash_packed", *row) for row in packed_shapes]
+                       + [("flash_packed_multik", *row) for row in multik_shapes])
+        for entry, label, (b, sq, sk, c, h, kvl) in packed_rows:
             q, k, v = randn(b, sq, c, dtype=dt), randn(b, sk, c, dtype=dt), randn(b, sk, c, dtype=dt)
-            got = flash_packed(q, k, v, heads=h)
+            got = flash_packed(q, k, v, heads=h, kv_len=kvl)
             torch.cuda.synchronize()
-            err = rel_err(got, flash_packed_plain(q, k, v, heads=h))
-            t_k = cuda_ms(lambda: flash_packed(q, k, v, heads=h), 10)
-            t_p = cuda_ms(lambda: flash_packed_plain(q, k, v, heads=h), 3)
+            err = rel_err(got, flash_packed_plain(q, k, v, heads=h, kv_len=kvl))
+            # the work these inputs need: kvl real keys of sk
+            flops = 4.0 * b * sq * kvl * c
+            nbytes = (2 * b * sq * c + 2 * b * kvl * c) * isz
+            n_rep = reps(flops)
+            t_k = cuda_ms(lambda: flash_packed(q, k, v, heads=h, kv_len=kvl), n_rep)
+            t_p = cuda_ms(lambda: flash_packed_plain(q, k, v, heads=h, kv_len=kvl), 3)
             split = lambda x, s: x.view(b, s, h, c // h).transpose(1, 2)  # noqa: E731
-            qh, kh, vh = split(q, sq), split(k, sk), split(v, sk)
-            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 10)
-            flops = 4.0 * b * sq * sk * c
-            nbytes = (2 * b * sq * c + 2 * b * sk * c) * isz
-            record("flash_packed", label, (b, sq, sk, c, h), dt, err, t_k, t_p, t_l, flops, nbytes,
+            qh, kh, vh = split(q, sq), split(k, sk)[:, :, :kvl], split(v, sk)[:, :, :kvl]
+            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), n_rep)
+            record(entry, label, (b, sq, sk, c, h, kvl), dt, err, t_k, t_p, t_l, flops, nbytes,
                    tol[("attn", dt)])
+            del q, k, v, qh, kh, vh, got
         for label, (n, sq, sk, d) in bhsd_shapes:
             q = randn(1, n, sq, d, dtype=dt)
             k, v = randn(1, n, sk, d, dtype=dt), randn(1, n, sk, d, dtype=dt)
             got = flash_bhsd(q, k, v)
             torch.cuda.synchronize()
             err = rel_err(got, flash_bhsd_plain(q, k, v))
-            t_k = cuda_ms(lambda: flash_bhsd(q, k, v), 10)
-            t_p = cuda_ms(lambda: flash_bhsd_plain(q, k, v), 3)
-            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
             flops = 4.0 * n * sq * sk * d
             nbytes = (2 * n * sq * d + 2 * n * sk * d) * isz
+            n_rep = reps(flops)
+            t_k = cuda_ms(lambda: flash_bhsd(q, k, v), n_rep)
+            t_p = cuda_ms(lambda: flash_bhsd_plain(q, k, v), 3)
+            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), n_rep)
             record("flash_bhsd", label, (n, sq, sk, d), dt, err, t_k, t_p, t_l, flops, nbytes,
                    tol[("attn", dt)])
+        torch.cuda.empty_cache()
         for label, (m, kd, nd) in geglu_shapes:
             proj = randn(m, 2 * kd, dtype=dt)
             gx, gate = proj.chunk(2, dim=-1)  # strided halves, as in the UNet
@@ -490,6 +554,41 @@ def main() -> None:
     del unet_gpu
     torch.cuda.empty_cache()
 
+    # 4s. the MMDiT: SD3-medium at full width, fp32, card vs CPU ----------
+    mcfg = sd3.SD3_MEDIUM_CFG.mmdit
+    mm_gpu = mmdit_mod.MMDiT(mcfg, device=dev, dtype=torch.float32)
+    init_weights(mm_gpu, seed=4)
+    fill_adaln(mm_gpu, seed=5)
+    mm_cpu = mmdit_mod.MMDiT(mcfg, device="cpu", dtype=torch.float32)
+    mm_cpu.load_state_dict(mm_gpu.state_dict())
+    g_cpu = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 64, 64, 16), generator=g_cpu)
+    t = torch.rand((2,), generator=g_cpu)
+    ctx = torch.randn((2, 77, 4096), generator=g_cpu)
+    pooled = torch.randn((2, 2048), generator=g_cpu)
+    reset_counts()
+    with torch.inference_mode():
+        got = mmdit_mod.apply(mm_gpu, x.to(dev), t.to(dev), ctx.to(dev), pooled.to(dev))
+        torch.cuda.synchronize()
+        counts = {kn: w.launches for kn, w in wrappers.items()}
+        mm_shapes = dict(flash_packed.shapes)
+        t0 = time.perf_counter()
+        want = mmdit_mod.apply(mm_cpu, x, t, ctx, pooled)
+        cpu_s = time.perf_counter() - t0
+    err = rel_err(got.cpu(), want)
+    mm_tol = 1e-3  # fp32, TF32 off: summation order only, over 24 blocks
+    say(f"[mmdit] SD3-medium MMDiT fp32, latent (2,64,64,16), 77 text tokens: card vs "
+        f"CPU max_abs={err[0]:.3e} rel={err[1]:.3e} (tol {mm_tol:.0e}); kernel launches "
+        f"on the card: {counts}, flash_packed shapes {mm_shapes}; CPU forward {cpu_s:.1f} s")
+    expect = dict.fromkeys(wrappers, 0)
+    expect["flash_packed"] = mcfg.depth
+    if not (err[1] <= mm_tol and counts == expect
+            and mm_shapes == {(2, 1152, 1152, 1536, 24, 1101): mcfg.depth}):
+        fail("MMDiT forward on the card disagrees with the CPU or its launches are not "
+             f"{expect} at (2, 1152, 1152, 1536, 24, 1101)")
+    del mm_gpu, mm_cpu, got, want
+    torch.cuda.empty_cache()
+
     # 5. the main path ----------------------------------------------------
     dtype = torch.bfloat16
     t0 = time.perf_counter()
@@ -540,9 +639,9 @@ def main() -> None:
     if launches != want:
         fail("the main path did not launch each kernel the expected number of times")
     for kname, counted in shapes.items():
-        unmeasured = set(counted) - set(report[kname])
+        unmeasured = set(counted) - measured(kname)
         if unmeasured or sum(counted.values()) != launches[kname]:
-            fail(f"{kname}: main-path shapes {counted} against phase 3's {list(report[kname])}")
+            fail(f"{kname}: main-path shapes {counted} against phase 3's {measured(kname)}")
     diff = (first.int() - warm_img.int()).abs().max().item()
     say(f"[main] SD1.5 512x512 {STEPS}-step DDIM CFG {GUIDANCE} bf16 batch 1: "
         f"s/image {[round(s, 4) for s in secs]} mean {sum(secs) / 3:.4f}; peak device "
@@ -601,9 +700,9 @@ def main() -> None:
             fail(f"{qname}: launches {counts}, shapes {counted[kname]} against {want}, "
                  f"{want_shapes}")
         for kn in ("flash_packed", "flash_bhsd"):
-            if set(counted[kn]) - set(report[kn]):
+            if set(counted[kn]) - measured(kn):
                 fail(f"{qname} {kn}: main-path shapes {counted[kn]} not all measured")
-        if set(want_shapes) - set(report[kname]):
+        if set(want_shapes) - measured(kname):
             fail(f"{qname}: a main-path shape of {kname} was not measured in phase 3")
         q_launches[qname], q_shapes[qname] = counts[kname], counted[kname]
         say(f"[main-{qname}] SD1.5 512x512 {STEPS}-step DDIM CFG {GUIDANCE} bf16 batch 1, "
@@ -617,10 +716,115 @@ def main() -> None:
                                        num_steps=STEPS))
     say(f"[profile] one SD1.5 image with int4 UNet weights under torch.profiler: "
         f"{json.dumps(prof)}")
+    del model, c, uc, lat, qlat, warm_img, first, img, dense_state, dense_lat
+    torch.cuda.empty_cache()
+
+    # 5s / 6s / 5t. the SD3 main paths ---------------------------------------
+    g_ids = torch.Generator().manual_seed(7)
+
+    def clip_ids(n_words):  # BOS, words, then EOT (vocab_size - 1) as padding
+        tok = torch.full((1, 77), 49407, dtype=torch.long)
+        tok[0, 0] = 49406
+        tok[0, 1:1 + n_words] = torch.randint(0, 49406, (n_words,), generator=g_ids)
+        return tok.to(dev)
+
+    def t5_ids(n_words):  # words, EOS (1), then padding (0)
+        tok = torch.zeros((1, 77), dtype=torch.long)
+        tok[0, :n_words] = torch.randint(2, 32128, (n_words,), generator=g_ids)
+        tok[0, n_words] = 1
+        return tok.to(dev)
+
+    bhsd_1024 = (1, 16384, 16384, 512)
+
+    def sd3_images(tag, cfg3, seed, n_images, joint_key):
+        """Weights made on the card (adaLN leaves filled), a warm-up through
+        the stages, then n_images images, the first with its launches
+        counted and checked exactly. Returns the model, the image call and
+        the first image's counts by wrapper and by shape."""
+        t0 = time.perf_counter()
+        model3 = sd3.StableDiffusion3(cfg3, device=dev, dtype=dtype, seed=seed)
+        fill_adaln(model3.mmdit, seed + 1)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        ids_l, ids_g, uids = clip_ids(8), clip_ids(8), clip_ids(0)
+        t5 = {} if cfg3.t5 is None else dict(ids_t5=t5_ids(8), uids_t5=t5_ids(0))
+        latent3 = sd3.initial_latent(seed + 2, 1, cfg3, device=dev, dtype=dtype)
+
+        def run():
+            return sd3.generate(model3, ids_l, ids_g, uids, uids, latent3, SD3_GUIDANCE,
+                                num_steps=SD3_STEPS, **t5)
+
+        with torch.inference_mode():  # warm-up through the pipeline's stages
+            cc, pc = sd3.encode_text(model3, ids_l, ids_g, t5.get("ids_t5"))
+            cu, pu = sd3.encode_text(model3, uids, uids, t5.get("uids_t5"))
+            lat3 = sd3.sample_latents(model3.mmdit, latent3, torch.cat([cu, cc]).to(dtype),
+                                      torch.cat([pu, pc]).to(dtype), SD3_GUIDANCE,
+                                      num_steps=SD3_STEPS, shift=cfg3.shift)
+            warm = vae_mod.to_image(vae_mod.decode(model3.vae, lat3))
+            torch.cuda.synchronize()
+        lat_shape = (1, *cfg3.latent_shape)
+        if tuple(lat3.shape) != lat_shape or not torch.isfinite(lat3.float()).all():
+            fail(f"{tag}: latents {tuple(lat3.shape)} not finite of shape {lat_shape}")
+        moved = (lat3.float() - latent3.float()).norm() / latent3.float().norm()
+        say(f"[{tag}] warm-up: weights made on the card in {init_s:.2f} s; context "
+            f"{tuple(cc.shape)}, pooled {tuple(pc.shape)}; latents finite, |lat| max "
+            f"{lat3.float().abs().max().item():.3f}, moved from the noise by rel "
+            f"{moved.item():.3f}")
+        held_gb = torch.cuda.memory_allocated() / 1e9  # weights and the warm-up's outputs
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i in range(n_images):
+            if i == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img3 = run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                counts3 = {kn: w.launches for kn, w in wrappers.items()}
+                counted3 = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+                first3 = img3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if img3.dtype != torch.uint8 or tuple(img3.shape) != (1, 1024, 1024, 3):
+            fail(f"{tag}: image {img3.dtype} {tuple(img3.shape)}, want uint8 (1, 1024, 1024, 3)")
+        n_joint = SD3_STEPS * cfg3.mmdit.depth
+        want = dict.fromkeys(wrappers, 0)
+        want.update(flash_packed=n_joint, flash_bhsd=1)
+        want_shapes = {kn: {} for kn in wrappers}
+        want_shapes.update(flash_packed={joint_key: n_joint}, flash_bhsd={bhsd_1024: 1})
+        say(f"[{tag}] launches in one image: {counts3} (want {want}); shapes "
+            f"flash_packed {counted3['flash_packed']}, flash_bhsd {counted3['flash_bhsd']}")
+        if counts3 != want or counted3 != want_shapes:
+            fail(f"{tag}: launches {counts3}, shapes {counted3} against {want}, {want_shapes}")
+        for kn, by_shape in counted3.items():
+            if set(by_shape) - measured(kn):
+                fail(f"{tag} {kn}: main-path shapes {by_shape} not all measured in phase 3")
+        diff = (first3.int() - warm.int()).abs().max().item()
+        say(f"[{tag}] SD3-medium{' + T5-XXL' if cfg3.t5 else ''} 1024x1024 {SD3_STEPS}-step "
+            f"Euler flow CFG {SD3_GUIDANCE} bf16 batch 1: image {tuple(img3.shape)} "
+            f"{str(img3.dtype)[6:]}; s/image {[round(x, 4) for x in secs]} mean "
+            f"{sum(secs) / len(secs):.4f}; peak device memory {peak_gb:.2f} GB "
+            f"({held_gb:.2f} GB held before the images); image max diff vs warm-up "
+            f"{diff}; card {card}")
+        return model3, run, counts3, counted3
+
+    model3, run3, sd3_launches, sd3_shapes = sd3_images(
+        "main-sd3", sd3.SD3_MEDIUM_CFG, 8, 2, multik_shapes[0][1])
+    prof = profile(run3)
+    say(f"[profile] one SD3-medium 1024x1024 image under torch.profiler: {json.dumps(prof)}")
+    del model3, run3
+    torch.cuda.empty_cache()
+    model3, run3, t5_launches, t5_shapes = sd3_images(
+        "main-sd3-t5", sd3.SD3_MEDIUM_T5_CFG, 12, 1, multik_shapes[1][1])
+    del model3, run3
+    torch.cuda.empty_cache()
 
     # 7. the kernels line and the contract line ---------------------------
     sources = {"flash_packed": ("tinyfusers_tpu_torch/csrc/flash_attention.cu",
                                 "tinyfusers_tpu/kernels/flash_attention.py:117"),
+               "flash_packed_multik": ("tinyfusers_tpu_torch/csrc/flash_attention.cu",
+                                       "tinyfusers_tpu/kernels/flash_attention.py:172"),
                "flash_bhsd": ("tinyfusers_tpu_torch/csrc/flash_attention.cu",
                               "tinyfusers_tpu/kernels/flash_attention.py:31"),
                "geglu": ("tinyfusers_tpu_torch/csrc/geglu_ff.cu",
@@ -629,18 +833,32 @@ def main() -> None:
                                 "tinyfusers_tpu/kernels/quant_matmul.py:35"),
                "quant_matmul_int4": ("tinyfusers_tpu_torch/csrc/quant_matmul.cu",
                                      "tinyfusers_tpu/kernels/quant_matmul.py:111")}
-    # each kernel's path: its launches and per-shape counts, what they cover
-    paths = {kn: (launches[kn], shapes[kn], "one dense image's launches at bf16",
+    # each entry's paths: launches by path, per-shape counts, what they cover
+    paths = {kn: ({"sd15": launches[kn]}, shapes[kn],
+                  "one dense SD1.5 image's launches at bf16",
                   "geglu" if kn == "geglu" else "attn")
-             for kn in ("flash_packed", "flash_bhsd", "geglu")}
-    paths["quant_matmul"] = (q_launches["int8"] + q_launches["fp8"],
+             for kn in ("flash_packed", "geglu")}
+    paths["flash_bhsd"] = (
+        {"sd15": launches["flash_bhsd"], "sd3": sd3_launches["flash_bhsd"],
+         "sd3_t5": t5_launches["flash_bhsd"]},
+        {k: shapes["flash_bhsd"].get(k, 0) + sd3_shapes["flash_bhsd"].get(k, 0)
+         + t5_shapes["flash_bhsd"].get(k, 0)
+         for k in {*shapes["flash_bhsd"], *sd3_shapes["flash_bhsd"], *t5_shapes["flash_bhsd"]}},
+        "one dense SD1.5 image's, one SD3 image's and one SD3 + T5 image's launches at bf16",
+        "attn")
+    paths["flash_packed_multik"] = (
+        {"sd3": sd3_launches["flash_packed"], "sd3_t5": t5_launches["flash_packed"]},
+        {**sd3_shapes["flash_packed"], **t5_shapes["flash_packed"]},
+        "one SD3 image's and one SD3 + T5 image's flash_packed launches at bf16", "attn")
+    paths["quant_matmul"] = ({"sd15_int8": q_launches["int8"], "sd15_fp8": q_launches["fp8"]},
                              {**q_shapes["int8"], **q_shapes["fp8"]},
                              "the int8 image's and the fp8 image's launches at bf16", "quant")
-    paths["quant_matmul_int4"] = (q_launches["int4"], q_shapes["int4"],
+    paths["quant_matmul_int4"] = ({"sd15_int4": q_launches["int4"]}, q_shapes["int4"],
                                   "the int4 image's launches at bf16", "quant")
     kernels = []
     for kname, by_key in report.items():
-        n_launch, counted, per_what, family = paths[kname]
+        by_path, counted, per_what, family = paths[kname]
+        n_launch = sum(by_path.values())
         rows = [dict(r, launches=counted.get(key, 0)) for key, r in by_key.items()]
         per = lambda field: sum(r["launches"] * r[field] for r in rows)  # noqa: E731
         ops_ms = sum(r["launches"] * r["bound_ms"] for r in rows
@@ -653,7 +871,8 @@ def main() -> None:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": per("ms"), "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
             "bound_by": "operations" if ops_ms >= per("bound_ms") / 2 else "bytes",
-            "library_ms": lib, "per": per_what,
+            "library_ms": lib, "per": per_what, "paths": by_path,
+            "wrapper": wrapper_of.get(kname, kname),
             "tolerance": tol[(family, torch.bfloat16)]}
         if family == "quant":
             entry["dense_ms"] = per("dense_ms")

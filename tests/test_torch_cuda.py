@@ -9,7 +9,8 @@ without them; there, skip tests/conftest.py (which sets up jax):
 Tolerances on ||kernel - plain|| / ||plain||: fp32 1e-5 (both exact fp32,
 other summation order; TF32 is switched off); bf16 attention 1e-2 (the
 kernel rounds P to bf16 against a running per-tile max, the plain version
-against the row's global max); bf16 GEGLU 2e-3 (fp32 sums in another
+against the row's global max); one full-width MMDiT block in fp32 1e-4
+(exact fp32 on both devices, other summation orders); bf16 GEGLU 2e-3 (fp32 sums in another
 order, then one bf16 rounding); bf16 quantized matmuls 5e-4: the weight
 converts to bf16 identically on both sides, so only the sums' order
 differs (at most 1.2e-4 measured at SD1.5's shapes), while either rounding
@@ -17,6 +18,9 @@ hazard of the quantized formats (int4 scaled without the rounding to bf16
 before the product, or the int8 / fp8 scale folded into the bf16 weight)
 gives about 2e-3 (chip_smoke.py phase 3 measures both).
 """
+import copy
+import dataclasses
+
 import pytest
 import torch
 
@@ -25,6 +29,8 @@ from tinyfusers_tpu_torch.kernels.flash_attention import (
 from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
 from tinyfusers_tpu_torch.kernels.quant_matmul import (
     quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
+from tinyfusers_tpu_torch.models import mmdit
+from tinyfusers_tpu_torch.models.layers import ZeroLinear, init_weights
 from tinyfusers_tpu_torch.ops.linear import geglu_linear, linear
 from tinyfusers_tpu_torch.ops.quant import QuantizedTensor, quantize, quantize_int4
 
@@ -57,12 +63,14 @@ QFORMAT_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8", torch.float8_e5
     (2, 1024, 1024, 8, 80, None), (2, 1024, 77, 8, 80, None),
     (1, 300, 80, 2, 40, 77), (1, 100, 200, 3, 128, 0),
     (2, 130, 70, 3, 36, 50),  # d % 8 != 0: element-wise tile loads
+    (2, 4224, 4224, 24, 64, 4173),  # SD3's joint attention (the TPU's multi-k kernel)
+    (2, 4352, 4352, 24, 64, 4250),  # the same with T5's 77 tokens
 ])
 def test_cuda_packed_matches_plain(cuda, dtype, b, sq, sk, heads, d, kv_len):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(b, s, heads * d, generator=g, device=cuda).to(dtype)
                for s in (sq, sk, sk))
-    key = (b, sq, sk, heads * d, heads)
+    key = (b, sq, sk, heads * d, heads, sk if kv_len is None else kv_len)
     n0, s0 = flash_packed.launches, flash_packed.shapes[key]
     got = flash_packed(q, k, v, heads=heads, kv_len=kv_len)
     torch.cuda.synchronize()
@@ -198,3 +206,34 @@ def test_cuda_quant_wrappers_raise_and_never_fall_back(cuda):
         quant_matmul_int4(x, quantize_int4(w.cpu(), axis=0))
     with pytest.raises(ValueError, match="K mismatch"):
         quant_matmul(x[:, :32], quantize(w))
+
+
+@pytest.mark.cuda
+def test_cuda_full_width_mmdit_block_matches_cpu(cuda):
+    """One SD3-medium joint block (1536 wide, 24 heads) at a 64x64 latent:
+    1024 image + 77 text tokens, the text padded to a joint 1152 with
+    kv_len 1101, through the packed kernel on the card and the math route
+    on the CPU. The adaLN leaves are filled (zeros at init would keep the
+    attention out of the output)."""
+    cfg = dataclasses.replace(mmdit.SD3_MEDIUM, depth=1)
+    model = mmdit.MMDiT(cfg, device=cuda)
+    init_weights(model, 0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():
+        for leaf in model.modules():
+            if isinstance(leaf, ZeroLinear):
+                leaf.weight.copy_(torch.randn(leaf.weight.shape, generator=g, device=cuda)
+                                  * leaf.weight.shape[1] ** -0.5)
+                leaf.bias.copy_(torch.randn(leaf.bias.shape, generator=g, device=cuda) * 0.1)
+    on_cpu = copy.deepcopy(model).to("cpu")
+    img, txt = (torch.randn(2, n, 1536, generator=g, device=cuda) for n in (1024, 128))
+    c = torch.randn(2, 1536, generator=g, device=cuda)
+    key = (2, 1152, 1152, 1536, 24, 1101)
+    s0 = flash_packed.shapes[key]
+    with torch.no_grad():
+        got = mmdit._block(model.blocks[0], img, txt, c, cfg, kv_len=1101)
+        torch.cuda.synchronize()
+        assert flash_packed.shapes[key] == s0 + 1
+        want = mmdit._block(on_cpu.blocks[0], img.cpu(), txt.cpu(), c.cpu(), cfg, kv_len=1101)
+    for a, b in zip(got, want):
+        assert _rel(a.cpu(), b) <= 1e-4

@@ -72,6 +72,41 @@ def test_packed_plain_matches_pallas_bf16():
     close(got, want, BF16)
 
 
+@pytest.mark.parametrize("b,sq,sk,heads,kv_len,block_k", [
+    (1, 256, 320, 4, 300, 128),   # nk = 3, kv_len ragged inside the last k block
+    (2, 200, 384, 2, None, 128),  # nk = 3, no padding keys, ragged Sq
+    (1, 130, 512, 3, 250, 256),   # the last k block holds only padding keys
+])
+def test_packed_plain_matches_pallas_multik(b, sq, sk, heads, kv_len, block_k):
+    """The multi-k-block heads-packed kernel (SD3's joint attention on the
+    TPU) computes what the plain version computes: flash_packed is its
+    counterpart too."""
+    from tinyfusers_tpu.kernels.flash_attention import _flash_packed_multik
+
+    c = heads * 64
+    q, k, v = rand(0, b, sq, c), rand(1, b, sk, c), rand(2, b, sk, c)
+    want = _flash_packed_multik(to_j(q), to_j(k), to_j(v), heads=heads, scale=None,
+                                block_q=128, block_k=block_k, kv_len=kv_len,
+                                interpret=True)
+    got = flash_packed_plain(to_t(q), to_t(k), to_t(v), heads=heads, kv_len=kv_len)
+    close(got, want, dict(rtol=2e-4, atol=2e-5))
+
+
+def test_packed_plain_matches_pallas_multik_bf16():
+    """bf16 at BF16: the same roundings (q's prescale, P to bf16), but the
+    multi-k kernel rounds P against each k block's running max."""
+    from tinyfusers_tpu.kernels.flash_attention import _flash_packed_multik
+
+    q, k, v = rand(0, 1, 256, 256), rand(1, 1, 320, 256), rand(2, 1, 320, 256)
+    bf = lambda x: to_j(x, jnp.bfloat16)  # noqa: E731
+    want = _flash_packed_multik(bf(q), bf(k), bf(v), heads=4, scale=None, block_q=128,
+                                block_k=128, kv_len=300, interpret=True)
+    tb = lambda x: to_t(x, torch.bfloat16)  # noqa: E731
+    got = flash_packed_plain(tb(q), tb(k), tb(v), heads=4, kv_len=300)
+    assert got.dtype == torch.bfloat16
+    close(got, want, BF16)
+
+
 @pytest.mark.parametrize("sq,sk,d,causal,kv_len", [
     (300, 300, 32, False, None),  # three k blocks of 128
     (256, 256, 32, True, None),   # causal, skipped blocks

@@ -2,7 +2,12 @@
 // behind two C entry points.
 //
 // Replaces tinyfusers_tpu/kernels/flash_attention.py:
-//   tf_flash_packed -> _kernel_packed  (heads-packed (B, S, H*d) layout)
+//   tf_flash_packed -> _kernel_packed and _kernel_packed_multik
+//                      (heads-packed (B, S, H*d) layout; the TPU split it
+//                      in two by whether all keys fit one VMEM block, the
+//                      64-key tile walk below takes any key length, so
+//                      SD3's joint attention, (2, 4224, 24 x 64) with
+//                      kv_len 4173, runs here as SD1.5's UNet does)
 //   tf_flash_bhsd   -> _kernel         ((N, S, d) layout, causal, kv_len)
 // and computes what they compute: q arrives prescaled by scale*log2(e)
 // (rounded in q's dtype by the caller), logits are fp32, softmax runs in
@@ -14,7 +19,8 @@
 //
 // What bounds it on an H100: at SD1.5's shapes the self-attention calls
 // are bound by tensor-core operations (4096 x 4096 x d per head), the
-// cross-attention calls (77 keys) by the bytes of q and o. Design:
+// cross-attention calls (77 keys) by the bytes of q and o; SD3's joint
+// calls (4224 x 4173 x 64 per head, 24 heads) by operations. Design:
 //   * a block of 4 warps owns 64 query rows of one (batch, head) and walks
 //     the keys in 64-row tiles with an online softmax, so any key length
 //     runs; tiles wholly past kv_len or above the causal diagonal are

@@ -5,8 +5,9 @@ The tree is given as nested dicts and lists of numpy arrays, as
 jax. The port's modules are named after the tree's keys, so the walk is
 mechanical: a dict key is an attribute, a list index a ModuleList index.
 Leaves change layout on the way: linear weights (in, out) -> (out, in),
-conv weights HWIO -> OIHW, and CLIP's per-layer leaves, stacked on a
-leading axis for ``lax.scan``, are split across the ModuleList.
+conv weights HWIO -> OIHW, and the per-layer leaves stacked on a leading
+axis for ``lax.scan`` (CLIP's and T5's layers, the MMDiT's blocks) are
+split across the ModuleList.
 Every parameter must be written exactly once and every shape must match.
 
 A weight-only quantized tree, as ``jax.tree.map(np.asarray,
@@ -87,7 +88,7 @@ def _load(module: nn.Module, tree, where: str, ignore: Iterable[str], seen: set)
         path = f"{where}.{key}" if where else key
         if path in ignore:
             continue
-        if key in ("weight", "bias") and not isinstance(value, (dict, list)):
+        if not isinstance(value, (dict, list)):  # a leaf: weight, bias, pos_embed
             q = _quantized(value) if key == "weight" else None
             if q is not None:
                 _assign_quantized(module, q, path)
@@ -97,7 +98,7 @@ def _load(module: nn.Module, tree, where: str, ignore: Iterable[str], seen: set)
             elif isinstance(module, Conv) and key == "weight":
                 value = np.transpose(value, (3, 2, 0, 1))
             param = getattr(module, key, None)
-            if param is None:
+            if not isinstance(param, torch.Tensor):
                 raise ValueError(f"{path}: the module has no {key}")
             _assign(param, value, path)
             seen.add(id(param))
@@ -131,3 +132,15 @@ def load_sd(model: nn.Module, params) -> None:
     """Load a JAX ``sd.init`` tree ({'clip', 'unet', 'vae'}) into a
     ``pipeline.sd.StableDiffusion``."""
     load_params(model, params, ignore=SD_NOT_PORTED)
+
+
+# The parts of the JAX SD3 tree that the port does not run yet (the
+# 16-channel VAE has no quant convs).
+SD3_NOT_PORTED = ("vae.encoder",)
+
+
+def load_sd3(model: nn.Module, params) -> None:
+    """Load a JAX ``sd3.init`` tree ({'clip_l', 'clip_g', 'mmdit', 'vae'}
+    and, with T5, 't5'; a learned 'mmdit.pos_embed' when the MMDiT holds
+    one) into a ``pipeline.sd3.StableDiffusion3``."""
+    load_params(model, params, ignore=SD3_NOT_PORTED)

@@ -1,13 +1,20 @@
 """Flash attention: wrappers, plain versions and launch counts (port of
 tinyfusers_tpu/kernels/flash_attention.py).
 
-``flash_packed`` replaces ``_kernel_packed`` (heads-packed (B, S, H*d)
-layout) and ``flash_bhsd`` replaces ``_kernel`` ((..., S, d) layout with
-``causal`` and ``kv_len``). Both launch the hand-written CUDA kernel in
+``flash_packed`` replaces both heads-packed (B, S, H*d) Pallas kernels:
+``_kernel_packed`` (the whole key sequence in one VMEM block: SD1.5's
+UNet) and ``_kernel_packed_multik`` (many k blocks with per-head online
+softmax statistics and ``kv_len``: SD3's joint attention, c = 1536). The
+TPU needed the second kernel only because the first holds every key in
+VMEM; the CUDA kernel walks 64-key tiles with per-(batch, head, row)
+statistics at any key length, so one kernel computes both.
+``flash_bhsd`` replaces ``_kernel`` ((..., S, d) layout with ``causal``
+and ``kv_len``). Both launch the hand-written CUDA kernel in
 ``csrc/flash_attention.cu`` for a CUDA tensor, and compute their plain
 PyTorch version for a CPU tensor; a CUDA tensor the kernel does not take
 raises, it never falls back. Each wrapper counts its launches in
-``.launches`` and, by call shape, in ``.shapes``.
+``.launches`` and, by call shape (with the real key count for
+``flash_packed``), in ``.shapes``.
 
 Shared semantics, as in the Pallas kernels: q is prescaled by
 scale*log2(e) and rounded in q's dtype here in the wrapper; logits are
@@ -118,20 +125,22 @@ def flash_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"packed k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     sk = k.shape[1]
     d = c // heads
+    sk_real = _sk_real(kv_len, sk)
     qs = _prescale(q, scale if scale is not None else 1.0 / (d ** 0.5)).contiguous()
     k, v = k.contiguous(), v.contiguous()
     out = torch.empty_like(qs)
     _build.entry("flash_attention", "tf_flash_packed", _ARGS)(
         _build.dtype_code(q.dtype), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, sq, sk, _sk_real(kv_len, sk), heads, d,
+        out.data_ptr(), b, sq, sk, sk_real, heads, d,
         torch.cuda.current_stream(q.device).cuda_stream)
     flash_packed.launches += 1
-    flash_packed.shapes[(b, sq, sk, c, heads)] += 1
+    flash_packed.shapes[(b, sq, sk, c, heads, sk_real)] += 1
     return out
 
 
 flash_packed.launches = 0
-flash_packed.shapes = collections.Counter()  # (B, Sq, Sk, H*d, H) -> launches
+# (B, Sq, Sk, H*d, H, real keys) -> launches
+flash_packed.shapes = collections.Counter()
 
 
 def flash_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

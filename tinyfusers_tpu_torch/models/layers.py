@@ -116,6 +116,11 @@ class Linear(_WeightLeaf):
         return ops.linear(x, self.w, self.bias)
 
 
+class ZeroLinear(Linear):
+    """A Linear whose JAX init is all zeros: the adaLN-Zero modulation and
+    the final projection of the transformer denoisers (models/mmdit.py)."""
+
+
 class Conv(_WeightLeaf):
     INT4_AXIS = 2  # HWIO input channels
 
@@ -153,6 +158,16 @@ class Norm(nn.Module):
         return ops.group_norm(x, num_groups, self.weight, self.bias, eps=eps)
 
 
+class Gain(nn.Module):
+    """A norm's weight alone, no bias: RMSNorm gains (T5, the MMDiT's
+    q/k norms)."""
+
+    def __init__(self, dim: int, *, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim, device=device, dtype=dtype),
+                                   requires_grad=False)
+
+
 class Embedding(nn.Module):
     def __init__(self, vocab: int, dim: int, *, device=None, dtype=None):
         super().__init__()
@@ -162,15 +177,21 @@ class Embedding(nn.Module):
 
 def init_weights(model: nn.Module, seed: int) -> None:
     """Fill every leaf of ``model`` with the JAX package's distributions,
-    drawn by one torch.Generator on the model's device."""
+    drawn by one torch.Generator on the model's device. A learned leaf
+    outside these classes (the MMDiT's optional ``pos_embed``) has no JAX
+    init and is left as it is."""
     dev = next(model.parameters()).device
     generator = torch.Generator(device=dev).manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, Linear):
+        if isinstance(mod, ZeroLinear):
+            pinit.zeros_(mod.weight, mod.bias)
+        elif isinstance(mod, Linear):
             pinit.linear_(mod.weight, mod.bias, generator)
         elif isinstance(mod, Conv):
             pinit.conv_(mod.weight, mod.bias, generator)
         elif isinstance(mod, Norm):
             pinit.norm_(mod.weight, mod.bias)
+        elif isinstance(mod, Gain):
+            pinit.ones_(mod.weight)
         elif isinstance(mod, Embedding):
             pinit.embedding_(mod.weight, generator)

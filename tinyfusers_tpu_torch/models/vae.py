@@ -37,6 +37,11 @@ SD_VAE_CONFIG = VAEConfig()
 
 TINY_VAE_CONFIG = VAEConfig(base_channels=16, channel_mult=(1, 1, 2), num_groups=8)
 
+# SD3's 16-channel VAE: the latent is shifted as well as scaled, and there
+# is no post_quant_conv (the JAX package's SD3Config.vae).
+SD3_VAE_CONFIG = VAEConfig(latent_channels=16, scale_factor=1.5305,
+                           shift_factor=0.0609, use_quant_conv=False)
+
 
 class ResnetBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, **kw):

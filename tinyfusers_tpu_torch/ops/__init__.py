@@ -1,5 +1,5 @@
 from .activations import gelu_erf, gelu_tanh, geglu, quick_gelu, sigmoid, silu, swish
-from .attention import sdpa, sdpa_math, sdpa_packed
+from .attention import packed_beneficial, sdpa, sdpa_math, sdpa_packed
 from .conv import conv2d, upsample_nearest_2x
 from .embedding import embedding
 from .linear import geglu_linear, linear
@@ -9,7 +9,7 @@ from .quant import (Int4Tensor, QuantizedTensor, dequantize, is_quantized, quant
 
 __all__ = [
     "gelu_erf", "gelu_tanh", "geglu", "quick_gelu", "sigmoid", "silu", "swish",
-    "sdpa", "sdpa_math", "sdpa_packed",
+    "packed_beneficial", "sdpa", "sdpa_math", "sdpa_packed",
     "conv2d", "upsample_nearest_2x",
     "embedding",
     "geglu_linear", "linear",

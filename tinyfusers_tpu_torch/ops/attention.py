@@ -7,16 +7,21 @@ Two routes, dispatched as the JAX package does with "on the TPU" read as
   fp32 logits and statistics (the JAX package's ``sdpa_xla``);
 - the hand-written flash kernels (kernels/flash_attention.py), taken for
   CUDA tensors when there is no mask and Sq >= 1024 (the UNet's 64x64 and
-  32x32 levels, the VAE's mid attention). CLIP's 77 tokens with their
-  causal mask and the UNet's 16x16 and 8x8 levels take the math route.
+  32x32 levels, the VAE's mid attention, the MMDiT's joint attention).
+  CLIP's 77 tokens with their causal mask, T5's with their position bias,
+  and the UNet's 16x16 and 8x8 levels take the math route.
 
-The JAX package's ``packed_ok`` and block tables are TPU VMEM bounds, not
-semantics: on the GPU every packed call with Sq >= 1024 takes the packed
-kernel.
+The JAX package's ``packed_ok`` / ``packed_multik_ok`` and block tables
+are TPU VMEM bounds, not semantics: on the GPU every packed call with
+Sq >= 1024 takes the packed kernel. ``packed_beneficial`` is the models'
+choice of layout (models/mmdit.py asks it for the joint attention): true
+on CUDA when the heads-packed kernel applies, false on the CPU, as the
+JAX function is false off the TPU, so on the CPU both packages take the
+bhsd math route.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -50,6 +55,16 @@ def sdpa_math(
 
 def _takes_kernel(q: torch.Tensor, mask) -> bool:
     return q.is_cuda and mask is None and q.shape[-2] >= 1024
+
+
+def packed_beneficial(sq: int, sk: int, channels: int, heads: int,
+                      itemsize: int = 2, *,
+                      device: Union[str, torch.device]) -> bool:
+    """Whether a model should hand ``sdpa_packed`` channel-packed
+    activations on ``device``: a CUDA device, Sq >= 1024 and whole heads.
+    sk and itemsize fed the TPU's VMEM bounds and do not matter here."""
+    return (torch.device(device).type == "cuda" and sq >= 1024
+            and channels % heads == 0)
 
 
 def _math(q, k, v, mask, scale, kv_len) -> torch.Tensor:

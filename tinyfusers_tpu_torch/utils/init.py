@@ -2,11 +2,13 @@
 
 Same distributions as the JAX package: linear weights scaled-normal with
 std sqrt(1/in), conv weights Kaiming-uniform over fan_in = in*k*k, norm
-weights ones and biases zeros, embeddings normal * 0.02. Values are drawn
-in place by a ``torch.Generator`` on the parameter's own device, so the
-full-width SD1.5 weights are made on the GPU without a host upload. The
-numbers differ from jax.random's for the same seed; tests that compare
-the two packages load the JAX params through ``io/from_jax``.
+weights ones and biases zeros, embeddings normal * 0.02, RMSNorm gains
+ones, and the adaLN-Zero leaves (modulation and final projection of the
+MMDiT) zeros. Values are drawn in place by a ``torch.Generator`` on the
+parameter's own device, so full-width weights are made on the GPU without
+a host upload. The numbers differ from jax.random's for the same seed;
+tests that compare the two packages load the JAX params through
+``io/from_jax``.
 
 Weights are in torch layouts: linear (out, in), conv OIHW.
 """
@@ -45,6 +47,18 @@ def norm_(weight: torch.Tensor, bias: torch.Tensor) -> None:
     with torch.no_grad():
         weight.fill_(1.0)
         bias.zero_()
+
+
+def ones_(weight: torch.Tensor) -> None:
+    with torch.no_grad():
+        weight.fill_(1.0)
+
+
+def zeros_(weight: torch.Tensor, bias) -> None:
+    with torch.no_grad():
+        weight.zero_()
+        if bias is not None:
+            bias.zero_()
 
 
 def embedding_(weight: torch.Tensor, gen: torch.Generator) -> None:
