@@ -16,7 +16,10 @@ Phases, one or more lines each:
 
 1. device: name, count, and nvidia-smi's name and power limit;
 2. build: the kernels compiled from tinyfusers_tpu_torch/csrc (seconds,
-   and ptxas's register / shared-memory report);
+   and ptxas's register, shared-memory and spill report per kernel; a TMA
+   + wgmma flash kernel is named with its configuration,
+   flash_fwd_wgmma<64-row groups, column groups, columns per warpgroup,
+   keys per tile, ring stages>, and takes its shared memory at launch);
 3. kernels: each kernel against its plain version at every main-path
    shape (the quant matmuls with int8, fp8 and int4 weights; flash_packed
    also at SD3's two joint-attention shapes with their kv_len, flash_bhsd
@@ -26,6 +29,10 @@ Phases, one or more lines each:
    error against the plain version), for the quant matmuls the dense bf16
    ``F.linear`` time at the same shape (all device times, from CUDA-graph
    replays), and the bound from the shapes and the card's published peaks;
+   for each flash row also the kernel variant it ran on and its TFLOP/s
+   (bf16 rows of the main paths must run on the TMA + wgmma variants), and
+   the flash_packed wrapper's host microseconds per call at SD1.5's 64x64
+   self-attention shape;
    for the quant matmuls in bf16 also the error of a planted rounding
    deviation, which the tolerance must catch;
 4. unet: one full-width SD1.5 UNet forward at 256x256 (32x32 latents, so
@@ -40,8 +47,9 @@ Phases, one or more lines each:
 5. main path: ``generate`` at SD1.5 512x512, 20-step DDIM, CFG 7.5, bf16,
    batch 1: one warm-up through the pipeline's stages (finite latents),
    then one image with the launch counts set to 0 just before it and read
-   just after (exactly 400 flash_packed, 1 flash_bhsd, 320 geglu, each at
-   a shape that phase 3 measured), then two more images; seconds per
+   just after (exactly 400 flash_packed on the wgmma variant, 1 flash_bhsd
+   on wgmma_wide, 320 geglu, each at a shape that phase 3 measured), then
+   two more images; seconds per
    image by the host clock after synchronize, and peak device memory;
 6. profile: one more image of the same model and inputs under
    ``torch.profiler``: its host seconds, the summed device time, the
@@ -60,7 +68,8 @@ Phases, one or more lines each:
    the pipeline's stages (finite latents), one image with the counts
    checked exactly (672 flash_packed at (2, 4224, 4224, 1536, 24, kv_len
    4173), 1 flash_bhsd at (1, 16384, 16384, 512), no geglu or quant
-   matmul), one more image; s/image, held and peak device memory;
+   matmul; the flash calls on the wgmma variants), one more image;
+   s/image, held and peak device memory;
 6s. profile: one more SD3 image under ``torch.profiler``, as phase 6;
 5t. SD3-medium with T5-XXL: one warm-up and one counted image (672
    flash_packed at (2, 4352, 4352, 1536, 24, kv_len 4250), 1 flash_bhsd);
@@ -84,6 +93,7 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -98,10 +108,28 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
+# The TMA + wgmma flash variants: every bf16 main-path call runs on one.
+WGMMA = ("wgmma", "wgmma_wide")
+
 STEPS = 20
 GUIDANCE = 7.5
 SD3_STEPS = 28
 SD3_GUIDANCE = 5.0
+
+# (label, call shape as the wrapper counts it): every bf16 flash-attention
+# shape of the main paths. flash_packed: (B, Sq, Sk, H*d, H, real keys).
+# The SD1.5 UNet's calls (the TPU's single-k-block kernel) ...
+PACKED_SHAPES = [("64x64 self", (2, 4096, 4096, 320, 8, 4096)),
+                 ("64x64 cross", (2, 4096, 77, 320, 8, 77)),
+                 ("32x32 self", (2, 1024, 1024, 640, 8, 1024)),
+                 ("32x32 cross", (2, 1024, 77, 640, 8, 77))]
+# ... and SD3's joint attention (the TPU's multi-k kernel): 4096 image + 77
+# CLIP (+ 77 T5) tokens, padded to a multiple of 128.
+MULTIK_SHAPES = [("SD3 joint", (2, 4224, 4224, 1536, 24, 4173)),
+                 ("SD3+T5 joint", (2, 4352, 4352, 1536, 24, 4250))]
+# flash_bhsd: (batch * heads, Sq, Sk, d), the VAEs' mid attention.
+BHSD_SHAPES = [("VAE mid 512x512", (1, 4096, 4096, 512)),
+               ("VAE mid 1024x1024", (1, 16384, 16384, 512))]
 
 # Device-kernel name fragments -> group, for the profile phase.
 GROUPS = (
@@ -166,6 +194,20 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def wrapper_host_us(fn, calls: int = 200, runs: int = 5) -> float:
+    """Host microseconds of one eager wrapper call (launch included): the
+    median of ``runs`` runs of ``calls`` calls, no synchronize between."""
+    per = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(per)[runs // 2]
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor):
     g, w = got.float(), want.float()
     d = g - w
@@ -176,6 +218,18 @@ def bound(flops: float, nbytes: float, dtype) -> tuple:
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def short_kernel_name(mangled: str) -> str:
+    """flash_fwd_wgmma<3,1,64,128,2> from ptxas's mangled name (the
+    template's integer arguments in order); other names as they are."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled.strip("'")
+    rest = mangled[m.end():]
+    name, rest = rest[:int(m.group(1))], rest[int(m.group(1)):]
+    args = re.findall(r"Li(\d+)E", rest[:rest.find("Ev") + 1])
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 def profile(run) -> dict:
@@ -212,7 +266,7 @@ def main() -> None:
 
     from tinyfusers_tpu_torch.kernels import _build
     from tinyfusers_tpu_torch.kernels.flash_attention import (
-        flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
+        _plan, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
     from tinyfusers_tpu_torch.io.quantize_tree import quantize_params
     from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
     from tinyfusers_tpu_torch.kernels.quant_matmul import (
@@ -245,6 +299,12 @@ def main() -> None:
         for w in wrappers.values():
             w.launches = 0
             w.shapes.clear()
+            if hasattr(w, "variants"):
+                w.variants.clear()
+
+    def variants():  # flash wrapper -> launches by kernel variant
+        return {"flash_packed": dict(flash_packed.variants),
+                "flash_bhsd": dict(flash_bhsd.variants)}
 
     def fill_adaln(model, seed):
         """Seeded non-zero values in every adaLN-Zero leaf (weights normal
@@ -270,9 +330,12 @@ def main() -> None:
     build_s = _build.build_all()
     say(f"[build] kernels from tinyfusers_tpu_torch/csrc built in {build_s:.2f} s")
     for stem, log in sorted(_build.build_log.items()):
+        kernel = "?"
         for line in log.splitlines():
-            if "Used" in line or "spill" in line.lower():
-                say(f"[build] {stem}: {line.strip()}")
+            if "Function properties for" in line:
+                kernel = short_kernel_name(line.split()[-1])
+            elif "Used" in line or "spill" in line.lower():
+                say(f"[build] {stem}: {kernel}: {line.split(':', 1)[-1].strip()}")
 
     # 3. each kernel against its plain version ---------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -297,18 +360,6 @@ def main() -> None:
     lib_tol = 1e-2
     # (label, call shape as the wrapper counts it): every shape the main
     # path gives each kernel; phase 5 fails if it gives one not listed.
-    # flash_packed: (B, Sq, Sk, H*d, H, real keys), as the wrapper counts.
-    # The SD1.5 UNet's calls (the TPU's single-k-block kernel) ...
-    packed_shapes = [("64x64 self", (2, 4096, 4096, 320, 8, 4096)),
-                     ("64x64 cross", (2, 4096, 77, 320, 8, 77)),
-                     ("32x32 self", (2, 1024, 1024, 640, 8, 1024)),
-                     ("32x32 cross", (2, 1024, 77, 640, 8, 77))]
-    # ... and SD3's joint attention (the TPU's multi-k kernel): 4096 image
-    # + 77 CLIP (+ 77 T5) tokens, padded to a multiple of 128.
-    multik_shapes = [("SD3 joint", (2, 4224, 4224, 1536, 24, 4173)),
-                     ("SD3+T5 joint", (2, 4352, 4352, 1536, 24, 4250))]
-    bhsd_shapes = [("VAE mid 512x512", (1, 4096, 4096, 512)),
-                   ("VAE mid 1024x1024", (1, 16384, 16384, 512))]
     geglu_shapes = [("64x64", (8192, 1280, 320)),
                     ("32x32", (2048, 2560, 640)),
                     ("16x16", (512, 5120, 1280)),
@@ -338,7 +389,8 @@ def main() -> None:
                **extra):
         b_ms, b_by = bound(flops, nbytes, dt)
         lib = "n/a" if t_lib is None else f"{t_lib:.4f}"
-        more = "".join(f" {k}={v:.4g}" for k, v in extra.items() if v is not None)
+        more = "".join(f" {k}={v:.4g}" if isinstance(v, float) else f" {k}={v}"
+                       for k, v in extra.items() if v is not None)
         say(f"[kernel] {kname} {label} {str(dt)[6:]}: max_abs={err[0]:.3e} "
             f"rel={err[1]:.3e} (tol {limit:.0e}) kernel_ms={t_k:.4f} "
             f"plain_ms={t_p:.4f} library_ms={lib}{more} bound_ms={b_ms:.4f} ({b_by})")
@@ -401,18 +453,29 @@ def main() -> None:
             leaf.set_weight(quantize(leaf.w, qformats[qname][0]))
         return leaf, dense
 
+    def ran_on(wname, dt, plan):
+        """The variant the one launch since reset_counts() ran on; a bf16
+        main-path shape must run on a TMA + wgmma kernel, as _plan says."""
+        counted = variants()[wname]
+        variant = next(iter(counted)) if len(counted) == 1 else None
+        if counted != {plan[0]: 1} or (dt == torch.bfloat16 and variant not in WGMMA):
+            fail(f"{wname} {dt}: launches by variant {counted}, want one on {plan[0]}")
+        return variant
+
     lib_notes = {}  # format -> why its library call was not timed
     libraries = {"int8": ("torch._weight_int8pack_mm", int8pack_mm),
                  "int4": ("torch._weight_int4pack_mm", int4pack_mm)}
 
     for dt in (torch.bfloat16, torch.float32):
         isz = torch.tensor([], dtype=dt).element_size()
-        packed_rows = ([("flash_packed", *row) for row in packed_shapes]
-                       + [("flash_packed_multik", *row) for row in multik_shapes])
+        packed_rows = ([("flash_packed", *row) for row in PACKED_SHAPES]
+                       + [("flash_packed_multik", *row) for row in MULTIK_SHAPES])
         for entry, label, (b, sq, sk, c, h, kvl) in packed_rows:
             q, k, v = randn(b, sq, c, dtype=dt), randn(b, sk, c, dtype=dt), randn(b, sk, c, dtype=dt)
+            reset_counts()
             got = flash_packed(q, k, v, heads=h, kv_len=kvl)
             torch.cuda.synchronize()
+            variant = ran_on("flash_packed", dt, _plan(dt, c // h))
             err = rel_err(got, flash_packed_plain(q, k, v, heads=h, kv_len=kvl))
             # the work these inputs need: kvl real keys of sk
             flops = 4.0 * b * sq * kvl * c
@@ -424,13 +487,20 @@ def main() -> None:
             qh, kh, vh = split(q, sq), split(k, sk)[:, :, :kvl], split(v, sk)[:, :, :kvl]
             t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), n_rep)
             record(entry, label, (b, sq, sk, c, h, kvl), dt, err, t_k, t_p, t_l, flops, nbytes,
-                   tol[("attn", dt)])
+                   tol[("attn", dt)], variant=variant, tflops=flops / t_k / 1e9)
+            if (label, dt) == ("64x64 self", torch.bfloat16):
+                host_us = wrapper_host_us(lambda: flash_packed(q, k, v, heads=h, kv_len=kvl))
+                say(f"[host] flash_packed wrapper at SD1.5 64x64 self {(b, sq, sk, c, h, kvl)}: "
+                    f"{host_us:.2f} us of host time per call (median of 5 runs of 200 "
+                    f"eager calls, no synchronize between calls)")
             del q, k, v, qh, kh, vh, got
-        for label, (n, sq, sk, d) in bhsd_shapes:
+        for label, (n, sq, sk, d) in BHSD_SHAPES:
             q = randn(1, n, sq, d, dtype=dt)
             k, v = randn(1, n, sk, d, dtype=dt), randn(1, n, sk, d, dtype=dt)
+            reset_counts()
             got = flash_bhsd(q, k, v)
             torch.cuda.synchronize()
+            variant = ran_on("flash_bhsd", dt, _plan(dt, d))
             err = rel_err(got, flash_bhsd_plain(q, k, v))
             flops = 4.0 * n * sq * sk * d
             nbytes = (2 * n * sq * d + 2 * n * sk * d) * isz
@@ -439,7 +509,7 @@ def main() -> None:
             t_p = cuda_ms(lambda: flash_bhsd_plain(q, k, v), 3)
             t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), n_rep)
             record("flash_bhsd", label, (n, sq, sk, d), dt, err, t_k, t_p, t_l, flops, nbytes,
-                   tol[("attn", dt)])
+                   tol[("attn", dt)], variant=variant, tflops=flops / t_k / 1e9)
         torch.cuda.empty_cache()
         for label, (m, kd, nd) in geglu_shapes:
             proj = randn(m, 2 * kd, dtype=dt)
@@ -629,15 +699,19 @@ def main() -> None:
         if i == 0:
             launches = {kname: w.launches for kname, w in wrappers.items()}
             shapes = {kname: dict(w.shapes) for kname, w in wrappers.items()}
+            flash_variants = variants()
             first = img
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if img.dtype != torch.uint8 or tuple(img.shape) != (1, 512, 512, 3):
         fail(f"image {img.dtype} {tuple(img.shape)}, want uint8 (1, 512, 512, 3)")
     want = {"flash_packed": 400, "flash_bhsd": 1, "geglu": 320, "quant_matmul": 0,
             "quant_matmul_int4": 0}
-    say(f"[main] launches in one image: {launches} (want {want})")
-    if launches != want:
-        fail("the main path did not launch each kernel the expected number of times")
+    want_variants = {"flash_packed": {"wgmma": 400}, "flash_bhsd": {"wgmma_wide": 1}}
+    say(f"[main] launches in one image: {launches} (want {want}); flash launches by "
+        f"variant {flash_variants}")
+    if launches != want or flash_variants != want_variants:
+        fail("the main path did not launch each kernel the expected number of times "
+             f"on the expected variants ({want_variants})")
     for kname, counted in shapes.items():
         unmeasured = set(counted) - measured(kname)
         if unmeasured or sum(counted.values()) != launches[kname]:
@@ -688,6 +762,7 @@ def main() -> None:
             if i == 0:
                 counts = {kn: w.launches for kn, w in wrappers.items()}
                 counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+                q_variants = variants()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if img.dtype != torch.uint8 or tuple(img.shape) != (1, 512, 512, 3):
             fail(f"{qname} image {img.dtype} {tuple(img.shape)}, want uint8 (1, 512, 512, 3)")
@@ -695,8 +770,9 @@ def main() -> None:
                 "quant_matmul_int4": 0}
         want[kname] = sum(quant_shapes.values())
         want_shapes = {row_key(*mkn): n for mkn, n in quant_shapes.items()}
-        say(f"[main-{qname}] launches in one image: {counts} (want {want})")
-        if counts != want or counted[kname] != want_shapes:
+        say(f"[main-{qname}] launches in one image: {counts} (want {want}); flash "
+            f"launches by variant {q_variants}")
+        if counts != want or counted[kname] != want_shapes or q_variants != want_variants:
             fail(f"{qname}: launches {counts}, shapes {counted[kname]} against {want}, "
                  f"{want_shapes}")
         for kn in ("flash_packed", "flash_bhsd"):
@@ -784,6 +860,7 @@ def main() -> None:
             if i == 0:
                 counts3 = {kn: w.launches for kn, w in wrappers.items()}
                 counted3 = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+                variants3 = variants()
                 first3 = img3
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if img3.dtype != torch.uint8 or tuple(img3.shape) != (1, 1024, 1024, 3):
@@ -793,9 +870,11 @@ def main() -> None:
         want.update(flash_packed=n_joint, flash_bhsd=1)
         want_shapes = {kn: {} for kn in wrappers}
         want_shapes.update(flash_packed={joint_key: n_joint}, flash_bhsd={bhsd_1024: 1})
+        want_variants3 = {"flash_packed": {"wgmma": n_joint}, "flash_bhsd": {"wgmma_wide": 1}}
         say(f"[{tag}] launches in one image: {counts3} (want {want}); shapes "
-            f"flash_packed {counted3['flash_packed']}, flash_bhsd {counted3['flash_bhsd']}")
-        if counts3 != want or counted3 != want_shapes:
+            f"flash_packed {counted3['flash_packed']}, flash_bhsd {counted3['flash_bhsd']}; "
+            f"flash launches by variant {variants3}")
+        if counts3 != want or counted3 != want_shapes or variants3 != want_variants3:
             fail(f"{tag}: launches {counts3}, shapes {counted3} against {want}, {want_shapes}")
         for kn, by_shape in counted3.items():
             if set(by_shape) - measured(kn):
@@ -810,13 +889,13 @@ def main() -> None:
         return model3, run, counts3, counted3
 
     model3, run3, sd3_launches, sd3_shapes = sd3_images(
-        "main-sd3", sd3.SD3_MEDIUM_CFG, 8, 2, multik_shapes[0][1])
+        "main-sd3", sd3.SD3_MEDIUM_CFG, 8, 2, MULTIK_SHAPES[0][1])
     prof = profile(run3)
     say(f"[profile] one SD3-medium 1024x1024 image under torch.profiler: {json.dumps(prof)}")
     del model3, run3
     torch.cuda.empty_cache()
     model3, run3, t5_launches, t5_shapes = sd3_images(
-        "main-sd3-t5", sd3.SD3_MEDIUM_T5_CFG, 12, 1, multik_shapes[1][1])
+        "main-sd3-t5", sd3.SD3_MEDIUM_T5_CFG, 12, 1, MULTIK_SHAPES[1][1])
     del model3, run3
     torch.cuda.empty_cache()
 

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from tinyfusers_tpu_torch.kernels.flash_attention import (
-    flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
+    LOG2E, _prescale, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
 from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
 from tinyfusers_tpu_torch.kernels.quant_matmul import (
     quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
@@ -62,7 +62,7 @@ QFORMAT_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8", torch.float8_e5
     (2, 4096, 4096, 8, 40, None), (2, 4096, 77, 8, 40, None),
     (2, 1024, 1024, 8, 80, None), (2, 1024, 77, 8, 80, None),
     (1, 300, 80, 2, 40, 77), (1, 100, 200, 3, 128, 0),
-    (2, 130, 70, 3, 36, 50),  # d % 8 != 0: element-wise tile loads
+    (2, 130, 70, 3, 36, 50),  # d % 8 != 0: read zero-padded to 40
     (2, 4224, 4224, 24, 64, 4173),  # SD3's joint attention (the TPU's multi-k kernel)
     (2, 4352, 4352, 24, 64, 4250),  # the same with T5's 77 tokens
 ])
@@ -88,7 +88,9 @@ def test_cuda_packed_matches_plain(cuda, dtype, b, sq, sk, heads, d, kv_len):
 @pytest.mark.parametrize("lead,sq,sk,d,causal,kv_len", [
     ((1, 1), 4096, 4096, 512, False, None), ((2, 3), 300, 300, 64, True, None),
     ((2,), 130, 300, 96, False, 250), ((1,), 256, 256, 200, True, 180),
-    ((3,), 90, 150, 20, True, None),  # d % 8 != 0: element-wise tile loads
+    ((3,), 90, 150, 20, True, None),  # d % 8 != 0: read zero-padded to 24
+    ((1,), 200, 300, 512, False, 250),  # d = 512: ragged kv_len, Sq % 64 != 0
+    ((2,), 130, 130, 512, True, None),
 ])
 def test_cuda_bhsd_matches_plain(cuda, dtype, lead, sq, sk, d, causal, kv_len):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -101,6 +103,92 @@ def test_cuda_bhsd_matches_plain(cuda, dtype, lead, sq, sk, d, causal, kv_len):
     assert flash_bhsd.shapes[key] == s0 + 1
     assert _rel(got, flash_bhsd_plain(q, k, v, causal=causal, kv_len=kv_len)) \
         <= ATTN_REL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_bhsd_vae_1024_matches_plain(cuda):
+    """The 1024x1024 SD3 VAE's mid attention: one d = 512 head over 16384
+    tokens, through the wgmma_wide kernel."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(1, 1, 16384, 512, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    v0 = flash_bhsd.variants["wgmma_wide"]
+    got = flash_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_bhsd.variants["wgmma_wide"] == v0 + 1
+    assert _rel(got, flash_bhsd_plain(q, k, v)) <= ATTN_REL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80])
+def test_cuda_packed_reads_no_other_batch_or_head(cuda, d):
+    """77 keys, B = 2: a 64-key tile past key 77 and a 64-column box past d
+    must read zeros, never batch 1's keys or the next head's columns. So
+    batch 0's output does not move, bit for bit, when batch 1's k / v or
+    another head's change."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    heads = 8
+    q, k, v = (torch.randn(2, s, heads * d, generator=g, device=cuda).to(torch.bfloat16)
+               for s in (1024, 77, 77))
+    base = flash_packed(q, k, v, heads=heads)
+    k2, v2 = k.clone(), v.clone()
+    k2[1], v2[1] = k2[1] * 3 + 1, v2[1] * 3 + 1  # batch 1
+    k2[0, :, d:], v2[0, :, d:] = 7.0, -7.0        # heads 1.. of batch 0
+    got = flash_packed(q, k2, v2, heads=heads)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0, :, :d], base[0, :, :d])
+    assert not torch.equal(got[1], base[1])
+    assert _rel(base, flash_packed_plain(q, k, v, heads=heads)) <= ATTN_REL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d", [((2, 4096, 320), 40), ((2, 1024, 640), 80),
+                                     ((2, 4224, 1536), 64), ((1, 4096, 512), 512)])
+def test_cuda_prescale_in_kernel_matches_prescale_bit_for_bit(cuda, shape, d):
+    """The kernels round q * scale * log2(e) to bf16 in shared memory as
+    the plain versions' _prescale does in device memory: the kernel on q
+    equals the kernel on _prescale(q) with a factor of exactly 1."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    scale = d ** -0.5
+    if d == 512:  # flash_bhsd: one head
+        got = flash_bhsd(q, k, v, scale=scale)
+        want = flash_bhsd(_prescale(q, scale), k, v, scale=1 / LOG2E)
+    else:
+        heads = shape[-1] // d
+        got = flash_packed(q, k, v, heads=heads, scale=scale)
+        want = flash_packed(_prescale(q, scale), k, v, heads=heads, scale=1 / LOG2E)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 512])
+def test_cuda_rows_with_no_key_give_zeros(cuda, d):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(1, 130, d, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    assert not flash_bhsd(q, k, v, kv_len=0).any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_main_path_shapes_run_on_the_wgmma_kernels(cuda):
+    """Every bf16 shape of the main paths goes to a TMA + wgmma variant."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    before = (dict(flash_packed.variants), dict(flash_bhsd.variants))
+    for b, sq, sk, heads, d, kv_len in [(2, 4096, 4096, 8, 40, None), (2, 4096, 77, 8, 40, None),
+                                        (2, 1024, 1024, 8, 80, None), (2, 1024, 77, 8, 80, None),
+                                        (2, 4224, 4224, 24, 64, 4173)]:
+        q, k, v = (torch.randn(b, s, heads * d, generator=g, device=cuda).to(torch.bfloat16)
+                   for s in (sq, sk, sk))
+        flash_packed(q, k, v, heads=heads, kv_len=kv_len)
+    q = torch.randn(1, 1, 4096, 512, generator=g, device=cuda).to(torch.bfloat16)
+    flash_bhsd(q, q, q)
+    torch.cuda.synchronize()
+    assert flash_packed.variants["wgmma"] == before[0].get("wgmma", 0) + 5
+    assert flash_bhsd.variants["wgmma_wide"] == before[1].get("wgmma_wide", 0) + 1
 
 
 @pytest.mark.cuda
@@ -131,6 +219,9 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         geglu_matmul(x, x, torch.zeros(16, 4, device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError):
         flash_bhsd(x.float(), x.float(), x.float(), kv_len=9)
+    odd = torch.zeros(1 + 8 * 64, device=cuda, dtype=torch.bfloat16)[1:].view(1, 8, 64)
+    with pytest.raises(ValueError, match="aligned"):  # TMA reads 16-byte aligned rows
+        flash_packed(odd, odd, odd, heads=1)
     with pytest.raises(ValueError):  # no plain fallback for a weight it cannot take
         geglu_linear(x.float(), x.float(), torch.zeros(2, 16, 4, device=cuda))
 

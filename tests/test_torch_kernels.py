@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from tinyfusers_tpu.kernels.flash_attention import flash_attention
 from tinyfusers_tpu.kernels.geglu_ff import geglu_matmul as pallas_geglu
 from tinyfusers_tpu_torch.kernels.flash_attention import (
-    flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
+    _plan, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
 from tinyfusers_tpu_torch.kernels.geglu_ff import (
     erf_as, geglu_matmul, geglu_matmul_plain)
 
@@ -156,6 +156,7 @@ def test_erf_as_is_within_its_bound_of_erf():
 
 def test_cpu_wrappers_use_the_plain_versions_and_count_nothing():
     counts = (flash_packed.launches, flash_bhsd.launches, geglu_matmul.launches)
+    variants = (dict(flash_packed.variants), dict(flash_bhsd.variants))
     q, k = to_t(rand(0, 1, 64, 32)), to_t(rand(1, 1, 20, 32))
     assert torch.equal(flash_packed(q, k, k, heads=2, kv_len=17),
                        flash_packed_plain(q, k, k, heads=2, kv_len=17))
@@ -166,3 +167,32 @@ def test_cpu_wrappers_use_the_plain_versions_and_count_nothing():
     assert torch.equal(geglu_matmul(gx, gx, w), geglu_matmul_plain(gx, gx, w))
     assert (flash_packed.launches, flash_bhsd.launches,
             geglu_matmul.launches) == counts
+    assert (dict(flash_packed.variants), dict(flash_bhsd.variants)) == variants
+
+
+# -- the CUDA wrappers' shape rule (no card needed) ---------------------------
+
+@pytest.mark.parametrize("dtype,d,want", [
+    # every bf16 attention of the main paths goes to the TMA + wgmma kernels
+    (torch.bfloat16, 40, ("wgmma", 40)),        # SD1.5 64x64 self / cross
+    (torch.bfloat16, 80, ("wgmma", 80)),        # SD1.5 32x32 self / cross
+    (torch.bfloat16, 64, ("wgmma", 64)),        # SD3 joint, with or without T5
+    (torch.bfloat16, 512, ("wgmma_wide", 512)),  # the VAEs' mid attention
+    # fp32 goes to the exact FMA kernel at any width
+    (torch.float32, 40, ("fma", 40)),
+    (torch.float32, 36, ("fma", 36)),
+    (torch.float32, 1000, ("fma", 1000)),
+    # a bf16 width that is not a multiple of 8 is read zero-padded to one
+    (torch.bfloat16, 36, ("wgmma", 40)),
+    (torch.bfloat16, 20, ("wgmma", 24)),
+    (torch.bfloat16, 128, ("wgmma", 128)),
+    (torch.bfloat16, 130, ("wgmma_wide", 136)),
+    (torch.bfloat16, 200, ("wgmma_wide", 200)),
+])
+def test_variant_rule(dtype, d, want):
+    assert _plan(dtype, d) == want
+
+
+def test_variant_rule_refuses_bf16_heads_wider_than_512():
+    with pytest.raises(ValueError, match="512"):
+        _plan(torch.bfloat16, 520)

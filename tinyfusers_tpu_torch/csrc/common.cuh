@@ -1,6 +1,6 @@
 // Helpers shared by the port's CUDA kernels: dtype codes, float
 // conversion for the two element types the kernels take, and the warp-level
-// bf16 tensor-core pieces (ldmatrix, mma.sync m16n8k16, 16-byte tile loads).
+// bf16 tensor-core pieces (ldmatrix, mma.sync m16n8k16, bf16 packing).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,13 +51,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
-// The same, each matrix transposed.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 // c += a (16x16, row-major) . b (16x8, column-major); bf16 in, fp32 sums.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -72,33 +65,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// dst[r][c] = src[(r0 + r) * rstride + c] for r < rows, c < wp, zero where
-// r0 + r >= nrows or c >= w. With vec, 16-byte copies (w, wp, rstride and
-// ld multiples of 8, src and dst 16-byte aligned); else element by element.
-template <int NT>
-__device__ __forceinline__ void load_rows_bf16(bf16* dst, int ld, const bf16* src,
-                                               long long rstride, int r0, int nrows,
-                                               int w, int wp, int rows, bool vec) {
-  if (vec) {
-    const int cpr = wp / 8;
-    for (int i = threadIdx.x; i < rows * cpr; i += NT) {
-      const int r = i / cpr, c = (i - r * cpr) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < nrows && c < w)
-        val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rstride + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-  } else {
-    const bf16 zero = __float2bfloat16(0.f);
-    for (int i = threadIdx.x; i < rows * wp; i += NT) {
-      const int r = i / wp, c = i - r * wp;
-      bf16 val = zero;
-      if (r0 + r < nrows && c < w) val = src[(long long)(r0 + r) * rstride + c];
-      dst[r * ld + c] = val;
-    }
-  }
 }
 
 }  // namespace tf

@@ -1,46 +1,61 @@
-// Flash attention forward for Hopper (sm_90a): two kernels (bf16, fp32)
-// behind two C entry points.
+// Flash attention forward for Hopper (sm_90a) behind one C entry point,
+// tf_flash, in three variants (kernels/flash_attention.py::_plan picks one
+// by a shape rule and passes its code):
+//
+//   wgmma       bf16, head width d <= 128 (every UNet and MMDiT call)
+//   wgmma_wide  bf16, 128 < d <= 512 (the VAE's single d = 512 head)
+//   fma         fp32, any d (exact fp32 for the comparisons; not on a
+//               main path)
 //
 // Replaces tinyfusers_tpu/kernels/flash_attention.py:
-//   tf_flash_packed -> _kernel_packed and _kernel_packed_multik
-//                      (heads-packed (B, S, H*d) layout; the TPU split it
-//                      in two by whether all keys fit one VMEM block, the
-//                      64-key tile walk below takes any key length, so
-//                      SD3's joint attention, (2, 4224, 24 x 64) with
-//                      kv_len 4173, runs here as SD1.5's UNet does)
-//   tf_flash_bhsd   -> _kernel         ((N, S, d) layout, causal, kv_len)
-// and computes what they compute: q arrives prescaled by scale*log2(e)
-// (rounded in q's dtype by the caller), logits are fp32, softmax runs in
-// base 2 (exp2) with fp32 statistics, P is rounded to v's dtype before
-// the P.V product, key columns >= sk_real (and, when causal, above the
-// diagonal) are masked with -1e30, and a row with no unmasked key gives 0.
-// The packed layout is read in place through a row stride of H*d and a
-// head offset of h*d: no head transpose is ever materialized.
+//   _kernel_packed, _kernel_packed_multik -> the heads-packed (B, S, H*d)
+//       calls (flash_packed): any key length, kv_len, so SD1.5's UNet and
+//       SD3's joint attention, (2, 4224, 24 x 64) with kv_len 4173, take
+//       the same kernel;
+//   _kernel -> the (N, S, d) calls (flash_bhsd, causal, kv_len), read as
+//       the packed layout with one head.
+// and computes what they compute: q is prescaled by scale*log2(e) and
+// rounded in q's dtype (here, in shared memory: q * f in fp32, rounded to
+// bf16, as torch computes the wrapper's plain `q * f`), logits are fp32,
+// softmax runs in base 2 (exp2) with fp32 statistics, P is rounded to v's
+// dtype before the P.V product, key columns >= sk_real (and, when causal,
+// above the diagonal) are masked with -1e30, and a row with no unmasked
+// key gives 0.
 //
-// What bounds it on an H100: at SD1.5's shapes the self-attention calls
-// are bound by tensor-core operations (4096 x 4096 x d per head), the
-// cross-attention calls (77 keys) by the bytes of q and o; SD3's joint
-// calls (4224 x 4173 x 64 per head, 24 heads) by operations. Design:
-//   * a block of 4 warps owns 64 query rows of one (batch, head) and walks
-//     the keys in 64-row tiles with an online softmax, so any key length
-//     runs; tiles wholly past kv_len or above the causal diagonal are
-//     skipped;
-//   * bf16 (the main path) is register-resident, in the FlashAttention-2
-//     form: each warp owns 16 query rows; Q.K^T, the softmax statistics,
-//     P and the output accumulator stay in registers; the fp32 logits of
-//     an m16n8k16 accumulator are re-packed as P's bf16 A fragments
-//     without a trip through shared memory; K and V come from shared
-//     memory through ldmatrix (V transposed on the way);
-//   * d is zero-padded to a multiple of 16 in shared memory (d = 40 -> 48),
-//     so ragged head widths and ragged key counts (77) need no padding in
-//     device memory;
-//   * the output's d is split across blocks in chunks of at most 128
-//     columns (grid.y), each block recomputing the logits for its chunk:
-//     the accumulator stays at 16 x 128 per warp, and the VAE's d = 512
-//     single head runs as 4 chunks (its Q.K^T computed 4 times);
-//   * fp32 keeps exact fp32 arithmetic with plain FMA loops through shared
-//     memory (no TF32): it serves the comparisons, not the main path.
-// Later work: wgmma, TMA, a multi-stage K/V pipeline.
+// What bounds it on an H100: tensor-core operations and, at d = 40 and 64,
+// the exp2 unit (one exp per logit against 4d multiply-adds) at every
+// self- and joint-attention shape of the main paths (SD1.5 64^2: 4096 x
+// 4096 x 40 per head; SD3: 4224 x 4173 x 64 per head, 24 heads; the VAE:
+// 4096^2 or 16384^2 x 512); the bytes of q and o at the 77-key
+// cross-attention shapes. The bf16 design, in FlashAttention-3's shape:
+//   * TMA reads q, k and v in place: each is described to the copy engine
+//     as a 4-D map (d, H, S, B) with byte strides 2d, 2Hd and 2SHd, and
+//     boxes of 64 head columns by 32 to 128 rows, 128-byte swizzled. The
+//     engine fills what lies outside the map with zeros, so a box past
+//     d = 40 or 80 gets zero columns (never the next head's), a key tile
+//     past Sk = 77 zero rows (never the next batch's), and no head is
+//     transposed or padded in device memory;
+//   * one producer thread keeps K and V tiles in flight in two rings of
+//     stages (full and empty mbarriers each, so a K tile is refilled as
+//     soon as Q.K^T has read it); its warpgroup gives registers to the
+//     consumers (setmaxnreg);
+//   * consumer warpgroups run S = Q.K^T as wgmma from shared memory, keep
+//     the online softmax in registers (m, l per row), re-pack S's fp32
+//     accumulator as P's bf16 A fragments in registers and run O += P.V
+//     as wgmma with V read transposed from shared memory. Each step issues
+//     S of key tile j, then P.V of tile j - 1, and runs tile j's softmax
+//     while the tensor cores work on that P.V;
+//   * wgmma: each consumer warpgroup owns 64 query rows, and a block takes
+//     128-key tiles and 192 rows at d <= 64 (three warpgroups, so one's
+//     softmax hides under another's products), 128 rows at d <= 128;
+//   * wgmma_wide: the 64 x 512 fp32 accumulator of one query tile does not
+//     fit one warpgroup's registers, so two warpgroups share the 64 rows:
+//     each owns half of d, computes the partial S over its half, and the
+//     two add their partials through shared memory, so Q.K^T is computed
+//     once per key tile; both then run the same softmax and multiply P by
+//     their own half of V. 32-key tiles keep Q (64 KB) and two stages of
+//     K and V (32 KB each) in shared memory.
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
 #include <stdint.h>
 
 #include "common.cuh"
@@ -48,10 +63,12 @@
 namespace tf {
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 128;  // threads per block, 4 warps
 constexpr float NEG_INF = -1e30f;
+
+// Variant codes, as kernels/flash_attention.py::_VARIANTS numbers them.
+constexpr int kFma = 0;
+constexpr int kWgmma = 1;
+constexpr int kWgmmaWide = 2;
 
 struct Params {
   const void* q;
@@ -59,42 +76,18 @@ struct Params {
   const void* v;
   void* o;
   int B, H, Sq, Sk, sk_real, d, causal;
-  long long q_bstride, q_rstride;    // elements; a head starts at h*d
-  long long kv_bstride, kv_rstride;
-  int DO;     // output columns per block (multiple of 16, <= 128)
-  int n_out;  // output column chunks per head
-  int vec;    // 16-byte loads are aligned (bf16)
+  float qscale;      // bf16 (or fp32) value of scale * log2(e)
+  long long rstride;  // elements between rows of q, k, v and o: H*d
+  int DO;     // fma: output columns per block (<= 128)
+  int n_out;  // fma: output column chunks per head
 };
 
-struct Block {
-  int q0, o0, ow;
-  const void *q, *k, *v;
-  void* o;
-};
-
-// This block's query tile, output chunk and (batch, head) base pointers.
-template <typename T>
-__device__ __forceinline__ Block block_of(const Params& p) {
-  Block s;
-  s.q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y / p.n_out;
-  s.o0 = (blockIdx.y % p.n_out) * p.DO;
-  s.ow = min(p.DO, p.d - s.o0);  // real output columns of this block
-  const long long hoff = (long long)h * p.d;
-  const int b = blockIdx.z;
-  s.q = static_cast<const T*>(p.q) + b * p.q_bstride + hoff;
-  s.k = static_cast<const T*>(p.k) + b * p.kv_bstride + hoff;
-  s.v = static_cast<const T*>(p.v) + b * p.kv_bstride + hoff;
-  s.o = static_cast<T*>(p.o) + b * p.q_bstride + hoff;
-  return s;
-}
-
-// Key tiles this block visits: later tiles are past kv_len, or all above
-// the causal diagonal.
-__device__ __forceinline__ int key_tiles(const Params& p, int q0) {
+// Key tiles a block of query rows q0 .. q0 + bq - 1 visits: later tiles are
+// past kv_len, or all above the causal diagonal.
+__device__ __forceinline__ int key_tiles(const Params& p, int q0, int bq, int bk) {
   int kend = p.sk_real;
-  if (p.causal) kend = min(kend, q0 + BQ);
-  return (kend + BK - 1) / BK;
+  if (p.causal) kend = min(kend, q0 + bq);
+  return (kend + bk - 1) / bk;
 }
 
 __device__ __forceinline__ bool masked(const Params& p, int row, int col) {
@@ -102,152 +95,497 @@ __device__ __forceinline__ bool masked(const Params& p, int row, int col) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: register-resident (FlashAttention-2 form), mma.sync m16n8k16
+// Hopper pieces: mbarrier, TMA, wgmma (PTX ISA 8.0)
 // ---------------------------------------------------------------------------
 
-// Shared memory: Q [BQ][dp + 8], K [BK][dp + 8], V [BK][DO + 8] (bf16).
-// The 8-element pad makes ldmatrix's 8 rows fall in 8 distinct 16-byte
-// bank groups.
-__host__ __device__ inline size_t smem_bf16(int dp, int DO) {
-  return sizeof(bf16) * ((size_t)(BQ + BK) * (dp + 8) + (size_t)BK * (DO + 8));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
 }
 
-template <int NO>  // 8-column output tiles per block: DO = 8 * NO
-__global__ void __launch_bounds__(NT) flash_fwd_bf16(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int DO = 8 * NO;
-  const int dp = (p.d + 15) / 16 * 16;
-  const int ldq = dp + 8, ldv = DO + 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * ldq;
-  bf16* Vs = Ks + BK * ldq;
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
 
-  const Block blk = block_of<bf16>(p);
-  const bf16* qb = static_cast<const bf16*>(blk.q);
-  const bf16* kb = static_cast<const bf16*>(blk.k);
-  const bf16* vb = static_cast<const bf16*>(blk.v) + blk.o0;
-  const bool vec = p.vec;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = blk.q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
 
-  load_rows_bf16<NT>(Qs, ldq, qb, p.q_rstride, blk.q0, p.Sq, p.d, dp, BQ, vec);
+// Returns once the barrier's phase of this parity has completed. A phase
+// that never completes (a lost copy) traps after about 30 s of waiting
+// rather than holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 36)) __trap();
+  }
+}
 
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+// One box of a 4-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
 
-  const int nkt = key_tiles(p, blk.q0);
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K and V
-    load_rows_bf16<NT>(Ks, ldq, kb, p.kv_rstride, k0, p.Sk, p.d, dp, BK, vec);
-    load_rows_bf16<NT>(Vs, ldv, vb, p.kv_rstride, k0, p.Sk, blk.ow, DO, BK, vec);
-    __syncthreads();
+__device__ __forceinline__ void bar_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(nthreads) : "memory");
+}
 
-    // S (16 x 64 per warp) = Q . K^T
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    for (int kk = 0; kk < dp; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, Qs + (warp * 16 + lane % 16) * ldq + kk + (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {  // keys 8j .. 8j + 15
-        uint32_t b[4];
-        ldsm_x4(b, Ks + (8 * j + lane % 8 + (lane / 16) * 8) * ldq + kk + ((lane / 8) % 2) * 8);
-        mma_bf16(s[j], a, b[0], b[1]);
-        mma_bf16(s[j + 1], a, b[2], b[3]);
-      }
-    }
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
 
-    // mask, then the online-softmax update of rows row0 (i = 0), row0 + 8
-    float mx[2] = {NEG_INF, NEG_INF};
+// Keeps the compiler from moving register accesses across the asynchronous
+// wgmma that reads or writes them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        if (masked(p, row0 + 8 * i, k0 + 8 * j + 2 * t + (e & 1))) s[j][e] = NEG_INF;
-        mx[i] = fmaxf(mx[i], s[j][e]);
-      }
-    }
-    float m_new[2], corr[2], sum[2] = {0.f, 0.f};
-    bool none[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      m_new[i] = fmaxf(m_run[i], mx[i]);
-      none[i] = m_new[i] <= NEG_INF;  // no unmasked key yet
-      corr[i] = none[i] ? 1.f : exp2f(m_run[i] - m_new[i]);
-      m_run[i] = m_new[i];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const float pe = none[i] ? 0.f : exp2f(s[j][e] - m_new[i]);
-        s[j][e] = pe;
-        sum[i] += pe;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l_run[i] = corr[i] * l_run[i] + sum[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
 
-    // O += P . V, P rounded to bf16 straight from S's accumulators
+// Descriptor of a wgmma operand as TMA's 128-byte swizzle lays it out:
+// rows of 128 bytes (64 bf16), 8-row groups 1024 bytes apart (the stride
+// byte offset); the leading byte offset is unused at these widths. For a
+// K-major operand (Q, K: d contiguous) a k16 step moves the start by 32
+// bytes; for the MN-major V (read transposed) by 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d (64 x 32 fp32) += A (64 x 16, shared) . B (32 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 128 fp32) += A (64 x 16, shared) . B (128 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 64 fp32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major:
+// read transposed)
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// bf16: TMA + wgmma, warp-specialized (variants wgmma and wgmma_wide)
+// ---------------------------------------------------------------------------
+
+// 2^x in one MUFU op; flushes results below 2^-126 to 0 (a P that small
+// is lost in the row sum anyway).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// NR consumer row groups of 64 query rows; NCG consumer warpgroups share a
+// row group, each owning DW of the padded head's columns (for both Q.K^T
+// and P.V); BK keys per tile; ST stages in each of the K and V rings.
+template <int NR_, int NCG_, int DW_, int BK_, int ST_>
+struct Cfg {
+  static constexpr int NR = NR_, NCG = NCG_, DW = DW_, BK = BK_, ST = ST_;
+  static_assert(NCG == 1 || (NCG == 2 && NR == 1), "two column groups: one row group");
+  static_assert(DW % 64 == 0 && (BK == 32 || BK == 128), "tile shapes (wgmma_ss's widths)");
+  static constexpr int NCONS = NR * NCG;  // consumer warpgroups
+  static_assert(NCONS == 2 || NCONS == 3, "two or three consumer warpgroups");
+  static constexpr int THREADS = 128 * (NCONS + 1);
+  // Registers per thread after setmaxnreg: the consumers take what the
+  // producer warpgroup gives up, so the two must fit the block's allocation
+  // at launch, THREADS x LAUNCH.
+  static constexpr int LAUNCH = (65536 / THREADS) / 8 * 8;
+  static constexpr int PROD_REGS = NCONS == 2 ? 24 : 32;
+  static constexpr int CONS_REGS = NCONS == 2 ? 240 : 160;
+  static_assert(128 * PROD_REGS + NCONS * 128 * CONS_REGS <= THREADS * LAUNCH,
+                "setmaxnreg asks for more registers than the block holds");
+  static constexpr int BQ = 64 * NR;
+  static constexpr int NB = NCG * DW / 64;  // 64-column boxes across the head
+  static constexpr int QBOX = 64 * 128;     // bytes of a 64-row box
+  static constexpr int KVBOX = BK * 128;    // bytes of a BK-row box
+  static constexpr int TILE = NB * KVBOX;   // one K (or V) tile
+  static constexpr int XS = 64 * BK * 4;    // one partial S, fp32
+  static constexpr int OFF_K = NR * NB * QBOX;
+  static constexpr int OFF_V = OFF_K + ST * TILE;
+  static constexpr int OFF_X = OFF_V + ST * TILE;
+  static constexpr int OFF_BAR = OFF_X + (NCG > 1 ? NCONS * 2 * XS : 0);
+  // + 1024 so the base can be rounded up to the swizzle's 1024-byte period
+  static constexpr int SMEM = OFF_BAR + 8 * (4 * ST + 1) + 1024;
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// The online-softmax update of one S tile in place (rows row0 and row0 + 8
+// of this thread; sc[4j + e] is row row0 + 8 (e / 2), key k0 + 8j + 2 tq4 +
+// e % 2): masks, updates the running max and sum, leaves P = 2^(S - m) in
+// sc and the factor the earlier output must be scaled by in corr.
+template <int NJ>
+__device__ __forceinline__ void softmax_tile(float (&sc)[NJ * 4], float (&m_run)[2],
+                                             float (&l_run)[2], float (&corr)[2],
+                                             const Params& p, bool edge, int row0, int k0,
+                                             int tq4) {
+  float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // keys 16kk .. 16kk + 15
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+  for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-      for (int n = 0; n < NO; n += 2) {  // output columns 8n .. 8n + 15
-        uint32_t b[4];
-        ldsm_x4_t(b, Vs + (16 * kk + lane % 8 + ((lane / 8) % 2) * 8) * ldv + 8 * n + (lane / 16) * 8);
-        mma_bf16(acc[n], a, b[0], b[1]);
-        mma_bf16(acc[n + 1], a, b[2], b[3]);
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int i = e / 2;
+      if (edge && masked(p, row0 + 8 * i, k0 + 8 * j + 2 * tq4 + (e & 1)))
+        sc[4 * j + e] = NEG_INF;
+      mx[i] = fmaxf(mx[i], sc[4 * j + e]);
     }
   }
-
-  bf16* ob = static_cast<bf16*>(blk.o) + blk.o0;
+  float m_new[2], sum[2] = {0.f, 0.f};
+  bool none[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (row >= p.Sq) continue;
-    const float inv = 1.f / (l_run[i] == 0.f ? 1.f : l_run[i]);
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    m_new[i] = fmaxf(m_run[i], mx[i]);
+    none[i] = m_new[i] <= NEG_INF;  // no unmasked key yet
+    corr[i] = none[i] ? 1.f : ex2(m_run[i] - m_new[i]);
+    m_run[i] = m_new[i];
+  }
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
+  for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * n + 2 * t + e;
-        if (col < blk.ow)
-          ob[(long long)row * p.q_rstride + col] = __float2bfloat16(acc[n][2 * i + e] * inv);
+    for (int e = 0; e < 4; ++e) {
+      const int i = e / 2;
+      const float pe = none[i] ? 0.f : ex2(sc[4 * j + e] - m_new[i]);
+      sc[4 * j + e] = pe;
+      sum[i] += pe;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    l_run[i] = corr[i] * l_run[i] + sum[i];
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Params p) {
+  constexpr int NR = C::NR, NCG = C::NCG, DW = C::DW, BK = C::BK, ST = C::ST;
+  constexpr int NJ = BK / 8;   // 8-key column blocks of S
+  constexpr int NO = DW / 64;  // 64-column blocks of this warpgroup's O
+  constexpr int NP = BK / 16;  // 16-key steps of P.V
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // full / empty barriers of the K ring, then of the V ring, then Q's
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* empty_k = full_k + ST;
+  uint64_t* full_v = empty_k + ST;
+  uint64_t* empty_v = full_v + ST;
+  uint64_t* qbar = empty_v + ST;
+
+  const int q0 = blockIdx.x * C::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int nkt = key_tiles(p, q0, C::BQ, BK);
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], C::NCONS * 4);  // one arrival per consumer warp
+      mbar_init(&empty_v[s], C::NCONS * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == C::NCONS) {
+    // producer warpgroup: one thread issues every copy, K(kt) ahead of V(kt)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(C::PROD_REGS));
+    if (threadIdx.x == C::NCONS * 128) {
+      mbar_expect_tx(qbar, NR * C::NB * C::QBOX);
+      for (int r = 0; r < NR; ++r)
+        for (int c = 0; c < C::NB; ++c)
+          tma_load(smem + (r * C::NB + c) * C::QBOX, &tq, qbar, 64 * c, h, q0 + 64 * r, b);
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % ST, free = ((kt / ST) & 1) ^ 1;  // the first round passes
+        mbar_wait(&empty_k[s], free);
+        mbar_expect_tx(&full_k[s], C::TILE);
+        for (int c = 0; c < C::NB; ++c)
+          tma_load(smem + C::OFF_K + s * C::TILE + c * C::KVBOX, &tk, &full_k[s], 64 * c, h,
+                   kt * BK, b);
+        mbar_wait(&empty_v[s], free);
+        mbar_expect_tx(&full_v[s], C::TILE);
+        for (int c = 0; c < C::NB; ++c)
+          tma_load(smem + C::OFF_V + s * C::TILE + c * C::KVBOX, &tv, &full_v[s], 64 * c, h,
+                   kt * BK, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(C::CONS_REGS));
+    const int r = wg / NCG, cg = wg % NCG;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, tq4 = lane % 4;
+    const int rq0 = q0 + 64 * r;           // this warpgroup's first row
+    const int row0 = rq0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    unsigned char* qs = smem + (r * C::NB + cg * NO) * C::QBOX;
+    // k16 steps of Q.K^T over this warpgroup's columns that hold real d
+    const int dk = min(DW, max(0, (p.d + 15) / 16 * 16 - cg * DW)) / 16;
+
+    // Q arrives, then is prescaled in place: q * f in fp32, rounded to bf16.
+    mbar_wait(qbar, 0);
+    {
+      uint4* q4 = reinterpret_cast<uint4*>(qs);
+      for (int i = t; i < NO * C::QBOX / 16; i += 128) {
+        uint4 v = q4[i];
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(e[j]);
+          e[j] = __floats2bfloat162_rn(f.x * p.qscale, f.y * p.qscale);
+        }
+        q4[i] = v;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma
+      bar_sync(1 + wg, 128);
+    }
+
+    float o[NO][32];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+    float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f}, corr[2];
+    float sc[NJ * 4];
+    uint32_t pa[NP * 4];  // P of the previous tile, as P.V's A fragments
+
+    // Tile kt: S(kt) = Q.K^T is issued, then P.V of tile kt - 1, so the
+    // softmax of S(kt) runs while the tensor cores multiply P(kt - 1) by V.
+    for (int kt = 0; kt <= nkt; ++kt) {
+      const int s = kt % ST, sp = (kt + ST - 1) % ST;
+      const bool has_s = kt < nkt, has_pv = kt > 0;
+      if (has_s) mbar_wait(&full_k[s], (kt / ST) & 1);
+      if (has_pv) mbar_wait(&full_v[sp], ((kt - 1) / ST) & 1);
+#pragma unroll
+      for (int i = 0; i < NJ * 4; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(pa);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) fence_regs(o[n]);
+      wg_fence();
+      if (has_s) {
+        const unsigned char* ks = smem + C::OFF_K + s * C::TILE + cg * NO * C::KVBOX;
+        for (int kk = 0; kk < dk; ++kk)
+          wgmma_ss(sc, sw128_desc(qs + (kk / 4) * C::QBOX + (kk % 4) * 32),
+                   sw128_desc(ks + (kk / 4) * C::KVBOX + (kk % 4) * 32));
+      }
+      wg_commit();
+      if (has_pv) {
+        const unsigned char* vs = smem + C::OFF_V + sp * C::TILE + cg * NO * C::KVBOX;
+#pragma unroll
+        for (int kk = 0; kk < NP; ++kk)
+#pragma unroll
+          for (int n = 0; n < NO; ++n)
+            wgmma_rs_t(o[n], pa + 4 * kk, sw128_desc(vs + n * C::KVBOX + kk * 2048));
+      }
+      wg_commit();
+      wg_wait1();  // S(kt) is done; P.V may still run
+      fence_regs(sc);
+      if (has_s) {
+        if (lane == 0) mbar_arrive(&empty_k[s]);  // this warp is done with K(kt)
+        if constexpr (NCG > 1) {
+          // add the partner's partial S: both then hold the same sums
+          float* x = reinterpret_cast<float*>(smem + C::OFF_X);
+          float* mine = x + (wg * 2 + (kt & 1)) * (C::XS / 4);
+          const float* other = x + ((r * NCG + (cg ^ 1)) * 2 + (kt & 1)) * (C::XS / 4);
+#pragma unroll
+          for (int i = 0; i < NJ * 4; ++i) mine[i * 128 + t] = sc[i];
+          bar_sync(1 + C::NCONS + r, 128 * NCG);  // double-buffered: one barrier a tile
+#pragma unroll
+          for (int i = 0; i < NJ * 4; ++i) sc[i] += other[i * 128 + t];
+        }
+        const int k0 = kt * BK;
+        const bool edge = k0 + BK > p.sk_real || (p.causal && k0 + BK - 1 > rq0);
+        softmax_tile<NJ>(sc, m_run, l_run, corr, p, edge, row0, k0, tq4);
+      }
+      wg_wait0();
+#pragma unroll
+      for (int n = 0; n < NO; ++n) fence_regs(o[n]);
+      fence_regs(pa);
+      if (has_pv && lane == 0) mbar_arrive(&empty_v[sp]);  // done with V(kt - 1)
+      if (has_s) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[n][i] *= corr[(i / 2) % 2];
+        // P rounded to bf16 straight from S's accumulator: the A fragments
+        // of each 16-key step (rows row0 / row0 + 8, keys 2 tq4 and
+        // 2 tq4 + 8 of the step)
+#pragma unroll
+        for (int kk = 0; kk < NP; ++kk) {
+          pa[4 * kk + 0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+          pa[4 * kk + 1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[4 * kk + 2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[4 * kk + 3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+      }
+    }
+
+    bf16* ob = static_cast<bf16*>(p.o) + (long long)b * p.Sq * p.rstride + (long long)h * p.d;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= p.Sq) continue;
+      const float inv = 1.f / (l_run[i] == 0.f ? 1.f : l_run[i]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = cg * DW + 64 * n + 8 * j + 2 * tq4;  // d is even: both or neither
+          if (col < p.d)
+            *reinterpret_cast<uint32_t*>(ob + (long long)row * p.rstride + col) =
+                pack_bf16(o[n][4 * j + 2 * i] * inv, o[n][4 * j + 2 * i + 1] * inv);
+        }
       }
     }
   }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The (B, S, H*d) bf16 tensor at `base` as a 4-D map (d, H, S, B), boxes of
+// 64 columns of one head by `rows` rows, 128-byte swizzled; zeros outside.
+int encode(CUtensorMap* map, const void* base, const Params& p, int S, int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)p.d, (cuuint64_t)p.H, (cuuint64_t)S, (cuuint64_t)p.B};
+  const cuuint64_t strides[3] = {2ull * p.d, 2ull * p.H * p.d, 2ull * S * p.H * p.d};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <class C>
+int run_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, p.q, p, p.Sq, 64);
+  if (err == cudaSuccess) err = encode(&tk, p.k, p, p.Sk, C::BK);
+  if (err == cudaSuccess) err = encode(&tv, p.v, p, p.Sk, C::BK);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_wgmma<C>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + C::BQ - 1) / C::BQ, p.H, p.B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+// Calls f(Cfg<...>{}) with the configuration that bf16 variant `variant`
+// runs for head width d (a multiple of 8); cudaErrorInvalidValue for a
+// width the variant does not take.
+template <typename F>
+int with_config(int variant, int d, F&& f) {
+  if (variant == kWgmma && d <= 64) return f(Cfg<3, 1, 64, 128, 2>{});
+  if (variant == kWgmma && d > 64 && d <= 128) return f(Cfg<2, 1, 128, 128, 2>{});
+  if (variant == kWgmmaWide && d > 128 && d <= 256) return f(Cfg<1, 2, 128, 32, 2>{});
+  if (variant == kWgmmaWide && d > 256 && d <= 512) return f(Cfg<1, 2, 256, 32, 2>{});
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
 // fp32: exact fp32 FMA loops through shared memory
 // ---------------------------------------------------------------------------
 
-constexpr int DC = 64;  // d chunk of the Q.K^T sum
+constexpr int BQ = 64;   // query rows per block
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 128;  // threads per block
+constexpr int DC = 64;   // d chunk of the Q.K^T sum
 
 // Shared-memory layout, computed identically on host and device.
 struct LayoutF32 {
@@ -271,14 +609,15 @@ struct LayoutF32 {
   }
 };
 
-// dst[r][c] = src[(r0 + r) * rstride + c0 + c] for r < rows, c < w;
+// dst[r][c] = src[(r0 + r) * rstride + c0 + c] * mul for r < rows, c < w;
 // zero where the row is past nrows or the column past w.
 __device__ void load_tile_f32(float* dst, int ld, const float* src, long long rstride,
-                              int r0, int nrows, int c0, int w, int wp, int rows) {
+                              int r0, int nrows, int c0, int w, int wp, int rows,
+                              float mul) {
   for (int i = threadIdx.x; i < rows * wp; i += NT) {
     const int r = i / wp, c = i - (i / wp) * wp;
     float val = 0.f;
-    if (r0 + r < nrows && c < w) val = src[(long long)(r0 + r) * rstride + c0 + c];
+    if (r0 + r < nrows && c < w) val = src[(long long)(r0 + r) * rstride + c0 + c] * mul;
     dst[r * ld + c] = val;
   }
 }
@@ -297,10 +636,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32(Params p) {
 
   const int tid = threadIdx.x;
   const int DO = p.DO;
-  const Block blk = block_of<float>(p);
-  const float* qb = static_cast<const float*>(blk.q);
-  const float* kb = static_cast<const float*>(blk.k);
-  const float* vb = static_cast<const float*>(blk.v);
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y / p.n_out;
+  const int o0 = (blockIdx.y % p.n_out) * DO;
+  const int ow = min(DO, p.d - o0);  // real output columns of this block
+  const long long hoff = (long long)h * p.d;
+  const int b = blockIdx.z;
+  const float* qb = static_cast<const float*>(p.q) + (long long)b * p.Sq * p.rstride + hoff;
+  const float* kb = static_cast<const float*>(p.k) + (long long)b * p.Sk * p.rstride + hoff;
+  const float* vb = static_cast<const float*>(p.v) + (long long)b * p.Sk * p.rstride + hoff;
 
   for (int i = tid; i < BQ * DO; i += NT) Os[(i / DO) * L.ld_o + i % DO] = 0.f;
   if (tid < BQ) {
@@ -308,29 +652,29 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32(Params p) {
     l_s[tid] = 0.f;
   }
 
-  const int nkt = key_tiles(p, blk.q0);
+  const int nkt = key_tiles(p, q0, BQ, BK);
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BK;
-    // S = Q . K^T, summed over d in DC-wide chunks
+    // S = Q . K^T, summed over d in DC-wide chunks; q prescaled as it loads
     for (int dc = 0; dc < p.d; dc += DC) {
       const int w = min(DC, p.d - dc);
       __syncthreads();
-      load_tile_f32(Qs, L.ld_in, qb, p.q_rstride, blk.q0, p.Sq, dc, w, w, BQ);
-      load_tile_f32(Ks, L.ld_in, kb, p.kv_rstride, k0, p.Sk, dc, w, w, BK);
+      load_tile_f32(Qs, L.ld_in, qb, p.rstride, q0, p.Sq, dc, w, w, BQ, p.qscale);
+      load_tile_f32(Ks, L.ld_in, kb, p.rstride, k0, p.Sk, dc, w, w, BK, 1.f);
       __syncthreads();
       for (int i = tid; i < BQ * BK; i += NT) {
         const int r = i / BK, c = i % BK;
         const float* a = Qs + r * L.ld_in;
-        const float* b = Ks + c * L.ld_in;
+        const float* bk = Ks + c * L.ld_in;
         float s = dc > 0 ? Ss[r * L.ld_s + c] : 0.f;
-        for (int k = 0; k < w; ++k) s = fmaf(a[k], b[k], s);
+        for (int k = 0; k < w; ++k) s = fmaf(a[k], bk[k], s);
         Ss[r * L.ld_s + c] = s;
       }
     }
     __syncthreads();
     // online softmax update, one thread per query row
     if (tid < BQ) {
-      const int row = blk.q0 + tid;
+      const int row = q0 + tid;
       float* srow = Ss + tid * L.ld_s;
       float mx = NEG_INF;
       for (int c = 0; c < BK; ++c) {
@@ -352,7 +696,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32(Params p) {
       m_s[tid] = m_new;
       c_s[tid] = corr;
     }
-    load_tile_f32(Vs, L.ld_v, vb, p.kv_rstride, k0, p.Sk, blk.o0, blk.ow, DO, BK);
+    load_tile_f32(Vs, L.ld_v, vb, p.rstride, k0, p.Sk, o0, ow, DO, BK, 1.f);
     __syncthreads();
     // O = O * corr + P . V
     for (int i = tid; i < BQ * DO; i += NT) {
@@ -364,87 +708,52 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32(Params p) {
     }
   }
   __syncthreads();
-  float* ob = static_cast<float*>(blk.o);
+  float* ob = static_cast<float*>(p.o) + (long long)b * p.Sq * p.rstride + hoff;
   for (int i = tid; i < BQ * DO; i += NT) {
     const int r = i / DO, c = i % DO;
-    const int row = blk.q0 + r;
-    if (row < p.Sq && c < blk.ow) {
+    const int row = q0 + r;
+    if (row < p.Sq && c < ow) {
       float l = l_s[r];
       l = (l == 0.f) ? 1.f : l;
-      ob[(long long)row * p.q_rstride + blk.o0 + c] = Os[r * L.ld_o + c] / l;
+      ob[(long long)row * p.rstride + o0 + c] = Os[r * L.ld_o + c] / l;
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-
-template <typename K>
-int run(K kernel, const Params& p, size_t smem, cudaStream_t stream) {
+int run_f32(Params p, cudaStream_t stream) {
+  p.DO = p.d <= 128 ? p.d : 128;
+  p.n_out = (p.d + p.DO - 1) / p.DO;
+  const size_t smem = LayoutF32(p.DO).total;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H * p.n_out, p.B);
-  kernel<<<grid, NT, smem, stream>>>(p);
+  flash_fwd_f32<<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <int NO>
-int run_bf16(const Params& p, cudaStream_t stream) {
-  const int dp = (p.d + 15) / 16 * 16;
-  return run(flash_fwd_bf16<NO>, p, smem_bf16(dp, 8 * NO), stream);
-}
-
-int dispatch(int dtype, Params p, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.Sq == 0 || p.B == 0) return cudaSuccess;
-  const int dp = (p.d + 15) / 16 * 16;
-  p.DO = dp <= 128 ? dp : 128;
-  p.n_out = (dp + p.DO - 1) / p.DO;
-  if (dtype == kFloat32) return run(flash_fwd_f32, p, LayoutF32(p.DO).total, st);
-  if (dtype != kBFloat16) return cudaErrorInvalidValue;
-  p.vec = p.d % 8 == 0 && p.q_rstride % 8 == 0 && p.kv_rstride % 8 == 0 &&
-          aligned16(p.q) && aligned16(p.k) && aligned16(p.v);
-  switch (p.DO / 8) {
-    case 2: return run_bf16<2>(p, st);
-    case 4: return run_bf16<4>(p, st);
-    case 6: return run_bf16<6>(p, st);
-    case 8: return run_bf16<8>(p, st);
-    case 10: return run_bf16<10>(p, st);
-    case 12: return run_bf16<12>(p, st);
-    case 14: return run_bf16<14>(p, st);
-    default: return run_bf16<16>(p, st);
-  }
 }
 
 }  // namespace
 }  // namespace tf
 
-// q (B, Sq, H*d), k/v (B, Sk, H*d), o like q; all contiguous.
-extern "C" int tf_flash_packed(int dtype, const void* q, const void* k,
-                               const void* v, void* o, int B, int Sq, int Sk,
-                               int sk_real, int H, int d, void* stream) {
+// q (B, Sq, H*d), k/v (B, Sk, H*d), o like q; all contiguous, 16-byte
+// aligned for the bf16 variants (the (N, S, d) layout is H = 1). `variant`
+// comes from the wrapper's shape rule; a shape the variant does not take is
+// refused.
+extern "C" int tf_flash(int variant, const void* q, const void* k, const void* v, void* o,
+                        int B, int H, int Sq, int Sk, int sk_real, int d, int causal,
+                        float qscale, void* stream) {
   tf::Params p{};
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.B = B; p.H = H; p.Sq = Sq; p.Sk = Sk; p.sk_real = sk_real; p.d = d;
-  p.causal = 0;
-  p.q_rstride = (long long)H * d;
-  p.q_bstride = (long long)Sq * H * d;
-  p.kv_rstride = (long long)H * d;
-  p.kv_bstride = (long long)Sk * H * d;
-  return tf::dispatch(dtype, p, stream);
+  p.causal = causal;
+  p.qscale = qscale;
+  p.rstride = (long long)H * d;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Sq == 0 || B == 0 || H == 0) return cudaSuccess;
+  if (variant == tf::kFma) return tf::run_f32(p, st);
+  if (d % 8 != 0 || !tf::aligned16(q) || !tf::aligned16(k) || !tf::aligned16(v))
+    return cudaErrorInvalidValue;
+  return tf::with_config(variant, d,
+                         [&](auto c) { return tf::run_wgmma<decltype(c)>(p, st); });
 }
 
-// q (N, Sq, d), k/v (N, Sk, d), o like q; all contiguous.
-extern "C" int tf_flash_bhsd(int dtype, const void* q, const void* k,
-                             const void* v, void* o, int N, int Sq, int Sk,
-                             int sk_real, int d, int causal, void* stream) {
-  tf::Params p{};
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.B = N; p.H = 1; p.Sq = Sq; p.Sk = Sk; p.sk_real = sk_real; p.d = d;
-  p.causal = causal;
-  p.q_rstride = d;
-  p.q_bstride = (long long)Sq * d;
-  p.kv_rstride = d;
-  p.kv_bstride = (long long)Sk * d;
-  return tf::dispatch(dtype, p, stream);
-}

@@ -6,30 +6,34 @@ tinyfusers_tpu/kernels/flash_attention.py).
 UNet) and ``_kernel_packed_multik`` (many k blocks with per-head online
 softmax statistics and ``kv_len``: SD3's joint attention, c = 1536). The
 TPU needed the second kernel only because the first holds every key in
-VMEM; the CUDA kernel walks 64-key tiles with per-(batch, head, row)
+VMEM; the CUDA kernels walk key tiles with per-(batch, head, row)
 statistics at any key length, so one kernel computes both.
 ``flash_bhsd`` replaces ``_kernel`` ((..., S, d) layout with ``causal``
-and ``kv_len``). Both launch the hand-written CUDA kernel in
-``csrc/flash_attention.cu`` for a CUDA tensor, and compute their plain
-PyTorch version for a CPU tensor; a CUDA tensor the kernel does not take
-raises, it never falls back. Each wrapper counts its launches in
-``.launches`` and, by call shape (with the real key count for
-``flash_packed``), in ``.shapes``.
+and ``kv_len``), read by the same kernels as the packed layout with one
+head. Both launch a hand-written CUDA kernel of
+``csrc/flash_attention.cu`` for a CUDA tensor, the variant ``_plan``
+chooses by shape, and compute their plain PyTorch version for a CPU
+tensor; a CUDA tensor no kernel takes raises, it never falls back. Each
+wrapper counts its launches in ``.launches``, by call shape (with the
+real key count for ``flash_packed``) in ``.shapes`` and by variant in
+``.variants``.
 
 Shared semantics, as in the Pallas kernels: q is prescaled by
-scale*log2(e) and rounded in q's dtype here in the wrapper; logits are
-fp32; the softmax is base 2 with fp32 statistics; P is rounded to v's
-dtype before P.V; key columns >= kv_len (and above the diagonal when
-causal) are masked with -1e30; a row with no unmasked key gives 0.
+scale*log2(e) and rounded in q's dtype (by the kernel, as it reads q; by
+``_prescale`` in the plain versions); logits are fp32; the softmax is
+base 2 with fp32 statistics; P is rounded to v's dtype before P.V; key
+columns >= kv_len (and above the diagonal when causal) are masked with
+-1e30; a row with no unmasked key gives 0.
 
 The plain versions take one softmax over all keys at once (the Pallas
-single-k-block form); the kernel's online softmax over 64-key tiles
+single-k-block form); the kernels' online softmax over key tiles
 equals it up to rounding.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -40,10 +44,15 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
 
+@functools.lru_cache(maxsize=None)
+def _factor(scale: float, dtype) -> float:
+    """scale * log2(e) rounded to q's dtype, on the host: a device tensor
+    made here would be a blocking copy on every launch."""
+    return float(torch.tensor(scale * LOG2E, dtype=dtype))
+
+
 def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
-    # The factor is rounded to q's dtype on the host: a device tensor made
-    # here would be a blocking copy on every launch.
-    return q * float(torch.tensor(scale * LOG2E, dtype=q.dtype))
+    return q * _factor(scale, q.dtype)
 
 
 def _softmax_pv(s: torch.Tensor, v: torch.Tensor, sk_real: int,
@@ -88,8 +97,27 @@ def flash_bhsd_plain(q, k, v, *, scale: Optional[float] = None,
     return o.to(q.dtype)
 
 
-# (dtype, q, k, v, o, six ints, stream): both C entry points take this shape
-_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# Variant -> the code tf_flash takes.
+_VARIANTS = {"fma": 0, "wgmma": 1, "wgmma_wide": 2}
+# (variant, q, k, v, o, B, H, Sq, Sk, kv_len, d, causal, factor, stream)
+_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+         + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _plan(dtype, d: int):
+    """The kernel variant for head width ``d`` and the head width it reads.
+
+    fp32 goes to the exact FMA kernel (any d). bf16 goes to the TMA +
+    wgmma kernels: ``wgmma`` for d <= 128, ``wgmma_wide`` for
+    128 < d <= 512. TMA needs 16-byte row strides, so a bf16 head width
+    that is not a multiple of 8 is read zero-padded to one (a copy, off
+    every main path). bf16 heads wider than 512 raise."""
+    if dtype == torch.float32:
+        return "fma", d
+    width = -(-d // 8) * 8
+    if width > 512:
+        raise ValueError(f"flash attention: bf16 head width {d} > 512")
+    return ("wgmma" if width <= 128 else "wgmma_wide"), width
 
 
 def _check_inputs(q, k, v):
@@ -97,6 +125,7 @@ def _check_inputs(q, k, v):
         raise ValueError("flash attention: q, k and v must be on one CUDA device")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash attention: mixed dtypes {q.dtype} {k.dtype} {v.dtype}")
+    _build.dtype_code(q.dtype)  # raises on a dtype no kernel takes
     if k.shape != v.shape:
         raise ValueError(f"flash attention: k {tuple(k.shape)} != v {tuple(v.shape)}")
 
@@ -107,6 +136,36 @@ def _sk_real(kv_len, sk):
     if not 0 <= kv_len <= sk:
         raise ValueError(f"kv_len={kv_len} outside [0, {sk}]")
     return kv_len
+
+
+def _dense(x: torch.Tensor, heads: int, d: int, width: int) -> torch.Tensor:
+    """x (..., H*d) as the kernels read it: contiguous, each head
+    zero-padded to ``width`` columns."""
+    if width != d:
+        x = torch.nn.functional.pad(x.reshape(*x.shape[:-1], heads, d), (0, width - d))
+        return x.reshape(*x.shape[:-2], heads * width)
+    return x.contiguous()
+
+
+def _launch(fn, q, k, v, *, b, heads, d, causal, kv_len, scale):
+    """q (..., Sq, H*d), k / v (..., Sk, H*d), the leading dims b in all,
+    through the variant ``_plan`` picks -> (..., Sq, H*d) like q."""
+    sq, sk = q.shape[-2], k.shape[-2]
+    variant, width = _plan(q.dtype, d)
+    factor = _factor(scale if scale is not None else 1.0 / (d ** 0.5), q.dtype)
+    qd, kd, vd = (_dense(x, heads, d, width) for x in (q, k, v))
+    if variant != "fma" and any(x.data_ptr() % 16 for x in (qd, kd, vd)):
+        raise ValueError("flash attention: bf16 q, k and v must be 16-byte aligned (TMA)")
+    out = torch.empty_like(qd)
+    _build.entry("flash_attention", "tf_flash", _ARGS)(
+        _VARIANTS[variant], qd.data_ptr(), kd.data_ptr(), vd.data_ptr(), out.data_ptr(),
+        b, heads, sq, sk, _sk_real(kv_len, sk), width, int(causal), factor,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    fn.launches += 1
+    fn.variants[variant] += 1
+    if width != d:
+        out = out.reshape(*out.shape[:-1], heads, width)[..., :d].reshape(q.shape)
+    return out
 
 
 def flash_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -124,23 +183,16 @@ def flash_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.dim() != 3 or k.shape[0] != b or k.shape[2] != c:
         raise ValueError(f"packed k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     sk = k.shape[1]
-    d = c // heads
-    sk_real = _sk_real(kv_len, sk)
-    qs = _prescale(q, scale if scale is not None else 1.0 / (d ** 0.5)).contiguous()
-    k, v = k.contiguous(), v.contiguous()
-    out = torch.empty_like(qs)
-    _build.entry("flash_attention", "tf_flash_packed", _ARGS)(
-        _build.dtype_code(q.dtype), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, sq, sk, sk_real, heads, d,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    flash_packed.launches += 1
-    flash_packed.shapes[(b, sq, sk, c, heads, sk_real)] += 1
+    out = _launch(flash_packed, q, k, v, b=b, heads=heads, d=c // heads, causal=False,
+                  kv_len=kv_len, scale=scale)
+    flash_packed.shapes[(b, sq, sk, c, heads, _sk_real(kv_len, sk))] += 1
     return out
 
 
 flash_packed.launches = 0
 # (B, Sq, Sk, H*d, H, real keys) -> launches
 flash_packed.shapes = collections.Counter()
+flash_packed.variants = collections.Counter()  # variant -> launches
 
 
 def flash_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -155,18 +207,13 @@ def flash_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk = k.shape[-2]
     if tuple(k.shape[:-2]) != tuple(lead) or k.shape[-1] != d:
         raise ValueError(f"bhsd k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    qs = _prescale(q, scale if scale is not None else 1.0 / (d ** 0.5)).contiguous()
-    k, v = k.contiguous(), v.contiguous()
-    out = torch.empty_like(qs)
-    n = qs.numel() // max(1, sq * d)
-    _build.entry("flash_attention", "tf_flash_bhsd", _ARGS)(
-        _build.dtype_code(q.dtype), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), n, sq, sk, _sk_real(kv_len, sk), d, int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    flash_bhsd.launches += 1
+    n = q.numel() // max(1, sq * d)
+    out = _launch(flash_bhsd, q, k, v, b=n, heads=1, d=d, causal=causal, kv_len=kv_len,
+                  scale=scale)
     flash_bhsd.shapes[(n, sq, sk, d)] += 1
     return out
 
 
 flash_bhsd.launches = 0
 flash_bhsd.shapes = collections.Counter()  # (batch*heads, Sq, Sk, d) -> launches
+flash_bhsd.variants = collections.Counter()  # variant -> launches
