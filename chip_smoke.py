@@ -34,7 +34,15 @@ Phases, one or more lines each:
    the flash_packed wrapper's host microseconds per call at SD1.5's 64x64
    self-attention shape;
    for the quant matmuls in bf16 also the error of a planted rounding
-   deviation, which the tolerance must catch;
+   deviation (int4: two, the weight not rounded to bf16 before the
+   product and the scale rounded to bf16 before it), which the tolerance
+   must catch; for each int4 row the variant, tile and split that
+   ``kernels/quant_matmul.py::_plan`` gives it (every bf16 main-path shape
+   must run on wgmma), its TFLOP/s and its time over tinygemm's and dense
+   cuBLAS's, then int4 per image (launches x ms) against tinygemm and
+   dense over all 19 shapes and over the M <= 154 ones; every attention
+   and quant row is also held to a per-row limit (the worst row's
+   relative error);
 4. unet: one full-width SD1.5 UNet forward at 256x256 (32x32 latents, so
    the 1024-token level takes the packed kernel) in fp32 on the card,
    against the same weights on the CPU: dense (every FF through the GEGLU
@@ -60,8 +68,9 @@ Phases, one or more lines each:
    and quantized there by ``io/quantize_tree.quantize_params`` to int8,
    fp8 and int4 in turn; for each a warm-up (latents compared with the
    dense ones), one image with the counts checked exactly (3,680 quant
-   matmuls at the 19 shapes of phase 3, 0 geglu, 400 flash_packed, 1
-   flash_bhsd), one more image; s/image, peak and held device memory;
+   matmuls at the 19 shapes of phase 3, for int4 all on the wgmma
+   variant, 0 geglu, 400 flash_packed, 1 flash_bhsd), one more image;
+   s/image, peak and held device memory;
 6q. profile: one int4 image under ``torch.profiler``, as phase 6;
 5s. SD3 main path: ``sd3.generate`` at SD3-medium without T5, 1024x1024,
    28-step Euler rectified flow, CFG 5.0, bf16, batch 1: a warm-up through
@@ -131,9 +140,25 @@ MULTIK_SHAPES = [("SD3 joint", (2, 4224, 4224, 1536, 24, 4173)),
 BHSD_SHAPES = [("VAE mid 512x512", (1, 4096, 4096, 512)),
                ("VAE mid 1024x1024", (1, 16384, 16384, 512))]
 
+# (M, K, N) of the SD1.5 UNet's linears at bf16, CFG batch 2, and their
+# launches in one 20-step image: 184 per forward, 3,680 per image. Every
+# one runs the int4 kernel's wgmma variant (g = 64).
+QUANT_SHAPES = {
+    (8192, 320, 320): 600, (154, 768, 320): 200, (8192, 320, 2560): 100,
+    (8192, 1280, 320): 100, (2048, 640, 640): 600, (154, 768, 640): 200,
+    (2048, 640, 5120): 100, (2048, 2560, 640): 100, (512, 1280, 1280): 600,
+    (154, 768, 1280): 240, (512, 1280, 10240): 100, (512, 5120, 1280): 100,
+    (128, 1280, 1280): 120, (128, 1280, 10240): 20, (128, 5120, 1280): 20,
+    (2, 1280, 320): 100, (2, 1280, 640): 100, (2, 1280, 1280): 260,
+    (2, 320, 1280): 20}
+QUANT_F32 = [(2, 1280, 320), (154, 768, 640), (2048, 640, 640), (512, 5120, 1280)]
+# The int4 shapes whose weight bytes, not x's, dominate (the tinygemm regime).
+SMALL_M = 154
+
 # Device-kernel name fragments -> group, for the profile phase.
 GROUPS = (
     ("quant_mm", "port: quant matmul"),
+    ("int4_mm", "port: quant matmul"),  # the int4 wgmma kernel
     ("flash_fwd", "port: flash attention"),
     ("geglu_ff", "port: geglu"),
     ("conv", "convolution (cuDNN)"),
@@ -209,9 +234,15 @@ def wrapper_host_us(fn, calls: int = 200, runs: int = 5) -> float:
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
+    """(max |got - want|, ||got - want|| / ||want||, the largest such
+    relative error of one row (last axis; rows of zeros in want skipped))."""
     g, w = got.float(), want.float()
     d = g - w
-    return d.abs().max().item(), (d.norm() / w.norm().clamp_min(1e-30)).item()
+    rows = w.reshape(-1, w.shape[-1]).norm(dim=1)
+    keep = rows > 0
+    row = ((d.reshape(-1, d.shape[-1]).norm(dim=1)[keep] / rows[keep]).max().item()
+           if keep.any() else 0.0)
+    return d.abs().max().item(), (d.norm() / w.norm().clamp_min(1e-30)).item(), row
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -230,6 +261,26 @@ def short_kernel_name(mangled: str) -> str:
     name, rest = rest[:int(m.group(1))], rest[int(m.group(1)):]
     args = re.findall(r"Li(\d+)E", rest[:rest.find("Ev") + 1])
     return name + (f"<{','.join(args)}>" if args else "")
+
+
+def int4pack_mm(x, w):
+    """torch._weight_int4pack_mm (tinygemm) on the int4 weight ``w`` (an
+    Int4Tensor packed on axis 0): (callable, None), or (None, why) where this
+    PyTorch build has no CUDA kernel for it. It decodes (q - 8) * scale +
+    zero per group of K, so q = nibble ^ 8 and zero = 0 give ((v & 0xF) ^ 8)
+    - 8 times the scale; its scales are in x's dtype, and it adds no bias.
+    The weight is packed once, here, with even k in the high nibble, as the
+    op's input takes it."""
+    p = w.packed.t().contiguous()  # (N, K/2), even k in the low nibble
+    q = (((p & 0xF) ^ 8) << 4) | ((p >> 4) ^ 8)
+    tiles = next((t for t in (8, 4, 2) if w.orig_dim % (16 * t) == 0), 2)
+    sz = torch.stack([w.scales, torch.zeros_like(w.scales)], -1).to(x.dtype).contiguous()
+    try:
+        packed = torch._convert_weight_to_int4pack(q.contiguous(), tiles)
+        torch._weight_int4pack_mm(x, packed, w.group_size, sz)
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return (lambda: torch._weight_int4pack_mm(x, packed, w.group_size, sz)), None
 
 
 def profile(run) -> dict:
@@ -269,6 +320,7 @@ def main() -> None:
         _plan, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
     from tinyfusers_tpu_torch.io.quantize_tree import quantize_params
     from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
+    from tinyfusers_tpu_torch.kernels.quant_matmul import _plan as int4_plan
     from tinyfusers_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
     from tinyfusers_tpu_torch.models import mmdit as mmdit_mod
@@ -355,6 +407,12 @@ def main() -> None:
     tol = {("attn", torch.bfloat16): 1e-2, ("attn", torch.float32): 1e-5,
            ("geglu", torch.bfloat16): 2e-3, ("geglu", torch.float32): 1e-5,
            ("quant", torch.bfloat16): 5e-4, ("quant", torch.float32): 1e-5}
+    # Per-row limits (the worst row's relative error), so that a fault in a
+    # few rows of a large output shows. Measured on an H100 at these shapes:
+    # bf16 attention rows at most 3.6e-3, fp32 1.8e-6; bf16 quant rows at
+    # most 1.2e-3 (int4, K = 1280 over N = 320), int8 / fp8 8.7e-4.
+    row_tol = {("attn", torch.bfloat16): 1e-2, ("attn", torch.float32): 1e-5,
+               ("quant", torch.bfloat16): 3e-3, ("quant", torch.float32): 1e-5}
     # A library call counts as computing the same function within this
     # (its scales are in x's dtype, which moves each weight by up to 2^-8).
     lib_tol = 1e-2
@@ -364,17 +422,6 @@ def main() -> None:
                     ("32x32", (2048, 2560, 640)),
                     ("16x16", (512, 5120, 1280)),
                     ("8x8 mid", (128, 5120, 1280))]
-    # (M, K, N) of the UNet's linears at bf16, CFG batch 2, and their
-    # launches in one 20-step image: 184 per forward, 3,680 per image.
-    quant_shapes = {
-        (8192, 320, 320): 600, (154, 768, 320): 200, (8192, 320, 2560): 100,
-        (8192, 1280, 320): 100, (2048, 640, 640): 600, (154, 768, 640): 200,
-        (2048, 640, 5120): 100, (2048, 2560, 640): 100, (512, 1280, 1280): 600,
-        (154, 768, 1280): 240, (512, 1280, 10240): 100, (512, 5120, 1280): 100,
-        (128, 1280, 1280): 120, (128, 1280, 10240): 20, (128, 5120, 1280): 20,
-        (2, 1280, 320): 100, (2, 1280, 640): 100, (2, 1280, 1280): 260,
-        (2, 320, 1280): 20}
-    quant_f32 = [(2, 1280, 320), (154, 768, 640), (2048, 640, 640), (512, 5120, 1280)]
     report = {kname: {} for kname in [*wrappers, *wrapper_of]}  # entry -> shape -> bf16 row
 
     def measured(wname):
@@ -386,21 +433,24 @@ def main() -> None:
         return 10 if flops < 1e11 else 3
 
     def record(kname, label, key, dt, err, t_k, t_p, t_lib, flops, nbytes, limit,
-               **extra):
+               row_limit=None, **extra):
         b_ms, b_by = bound(flops, nbytes, dt)
         lib = "n/a" if t_lib is None else f"{t_lib:.4f}"
         more = "".join(f" {k}={v:.4g}" if isinstance(v, float) else f" {k}={v}"
                        for k, v in extra.items() if v is not None)
+        row = "" if row_limit is None else f" row={err[2]:.3e} (tol {row_limit:.0e})"
         say(f"[kernel] {kname} {label} {str(dt)[6:]}: max_abs={err[0]:.3e} "
-            f"rel={err[1]:.3e} (tol {limit:.0e}) kernel_ms={t_k:.4f} "
+            f"rel={err[1]:.3e} (tol {limit:.0e}){row} kernel_ms={t_k:.4f} "
             f"plain_ms={t_p:.4f} library_ms={lib}{more} bound_ms={b_ms:.4f} ({b_by})")
         if not err[1] <= limit:
             fail(f"{kname} {label} {dt}: rel err {err[1]:.3e} > {limit:.0e}")
+        if row_limit is not None and not err[2] <= row_limit:
+            fail(f"{kname} {label} {dt}: a row's rel err {err[2]:.3e} > {row_limit:.0e}")
         if dt == torch.bfloat16:
             report[kname][key] = dict(
                 shape=label, call=list(key), max_abs_err=err[0], rel_err=err[1],
-                ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
-                **extra)
+                row_rel_err=err[2], ms=t_k, plain_ms=t_p, library_ms=t_lib, bound_ms=b_ms,
+                bound_by=b_by, **extra)
 
     def int8pack_mm(x, leaf):
         """torch._weight_int8pack_mm on the same int8 weight (no bias, its
@@ -412,31 +462,19 @@ def main() -> None:
             return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
         return (lambda: torch._weight_int8pack_mm(x, w8, sc)), None
 
-    def int4pack_mm(x, leaf):
-        """torch._weight_int4pack_mm (tinygemm) on the same int4 weight. It
-        decodes (q - 8) * scale + zero per group of K, so q = nibble ^ 8 and
-        zero = 0 give ((v & 0xF) ^ 8) - 8 times the scale; its scales are
-        in x's dtype, and it adds no bias. The weight is packed once, here,
-        with even k in the high nibble, as the op's input takes it."""
-        w = leaf.w
-        p = w.packed.t().contiguous()  # (N, K/2), even k in the low nibble
-        q = (((p & 0xF) ^ 8) << 4) | ((p >> 4) ^ 8)
-        tiles = next((t for t in (8, 4, 2) if w.orig_dim % (16 * t) == 0), 2)
-        sz = torch.stack([w.scales, torch.zeros_like(w.scales)], -1).to(x.dtype).contiguous()
-        try:
-            packed = torch._convert_weight_to_int4pack(q.contiguous(), tiles)
-            torch._weight_int4pack_mm(x, packed, w.group_size, sz)
-        except (RuntimeError, NotImplementedError, AttributeError) as e:
-            return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
-        return (lambda: torch._weight_int4pack_mm(x, packed, w.group_size, sz)), None
-
-    def planted(x, w, b):
+    def planted(x, w, b, hazard="product"):
         """The plain version with the format's rounding hazard planted:
         int4 with the scaled weight left in fp32 (not rounded to x's dtype
-        before the product); int8 / fp8 with the scale folded into the
-        weight in x's dtype."""
-        wd = (w.dequantize(torch.float32) if isinstance(w, Int4Tensor)
-              else w.dequantize(x.dtype).float())
+        before the product), or (hazard "scale") with each scale rounded to
+        x's dtype before the fp32 product, as a bf16 __hmul2 decode would;
+        int8 / fp8 with the scale folded into the weight in x's dtype."""
+        if not isinstance(w, Int4Tensor):
+            wd = w.dequantize(x.dtype).float()
+        elif hazard == "scale":
+            wd = Int4Tensor(w.packed, w.scales.to(x.dtype).float(), axis=w.axis,
+                            group_size=w.group_size, orig_dim=w.orig_dim).dequantize(x.dtype).float()
+        else:
+            wd = w.dequantize(torch.float32)
         return (x.float() @ wd + b.float()).to(x.dtype)
 
     def quant_leaf(k, n, qname):
@@ -464,7 +502,7 @@ def main() -> None:
 
     lib_notes = {}  # format -> why its library call was not timed
     libraries = {"int8": ("torch._weight_int8pack_mm", int8pack_mm),
-                 "int4": ("torch._weight_int4pack_mm", int4pack_mm)}
+                 "int4": ("torch._weight_int4pack_mm", lambda x, leaf: int4pack_mm(x, leaf.w))}
 
     for dt in (torch.bfloat16, torch.float32):
         isz = torch.tensor([], dtype=dt).element_size()
@@ -487,7 +525,8 @@ def main() -> None:
             qh, kh, vh = split(q, sq), split(k, sk)[:, :, :kvl], split(v, sk)[:, :, :kvl]
             t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), n_rep)
             record(entry, label, (b, sq, sk, c, h, kvl), dt, err, t_k, t_p, t_l, flops, nbytes,
-                   tol[("attn", dt)], variant=variant, tflops=flops / t_k / 1e9)
+                   tol[("attn", dt)], row_tol[("attn", dt)], variant=variant,
+                   tflops=flops / t_k / 1e9)
             if (label, dt) == ("64x64 self", torch.bfloat16):
                 host_us = wrapper_host_us(lambda: flash_packed(q, k, v, heads=h, kv_len=kvl))
                 say(f"[host] flash_packed wrapper at SD1.5 64x64 self {(b, sq, sk, c, h, kvl)}: "
@@ -509,7 +548,8 @@ def main() -> None:
             t_p = cuda_ms(lambda: flash_bhsd_plain(q, k, v), 3)
             t_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), n_rep)
             record("flash_bhsd", label, (n, sq, sk, d), dt, err, t_k, t_p, t_l, flops, nbytes,
-                   tol[("attn", dt)], variant=variant, tflops=flops / t_k / 1e9)
+                   tol[("attn", dt)], row_tol[("attn", dt)], variant=variant,
+                   tflops=flops / t_k / 1e9)
         torch.cuda.empty_cache()
         for label, (m, kd, nd) in geglu_shapes:
             proj = randn(m, 2 * kd, dtype=dt)
@@ -526,18 +566,29 @@ def main() -> None:
             record("geglu", label, (m, kd, nd), dt, err, t_k, t_p, None, flops, nbytes,
                    tol[("geglu", dt)])
         del q, k, v, proj, gx, gate, w, got
-        for (m, kd, nd) in (quant_shapes if dt == torch.bfloat16 else quant_f32):
+        for (m, kd, nd) in (QUANT_SHAPES if dt == torch.bfloat16 else QUANT_F32):
             x = randn(m, kd, dtype=dt)
             for qname, (_, kname, plain, row_key) in qformats.items():
                 leaf, dense = quant_leaf(kd, nd, qname)
                 w, bias = leaf.w, leaf.bias.to(dt)
                 fn = wrappers[kname]
+                reset_counts()
                 got = fn(x, w, bias)
                 torch.cuda.synchronize()
+                extra = {}
+                if qname == "int4":  # the variant the plan names, and the one that ran
+                    plan = int4_plan(dt, m, kd, nd, w.group_size)
+                    ran = dict(quant_matmul_int4.variants)
+                    if ran != {plan[0]: 1} or (dt == torch.bfloat16 and plan[0] != "wgmma"):
+                        fail(f"int4 ({m},{kd},{nd}) {dt}: launches by variant {ran}, plan "
+                             f"{plan}; every main-path bf16 shape must run on wgmma")
+                    extra = dict(variant=plan[0], tile=plan[1], split=plan[2])
                 want = plain(x, w, bias)
                 err = rel_err(got, want)
                 planted_rel = (rel_err(planted(x, w, bias), want)[1]
                                if dt == torch.bfloat16 else None)
+                if qname == "int4" and dt == torch.bfloat16:
+                    extra["planted_scale_rel"] = rel_err(planted(x, w, bias, "scale"), want)[1]
                 t_k = cuda_ms(lambda: fn(x, w, bias), 20)
                 t_p = cuda_ms(lambda: plain(x, w, bias), 5)
                 wd = dense.to(dt)
@@ -555,9 +606,14 @@ def main() -> None:
                         t_l = cuda_ms(lib_fn, 20)
                 wbytes = kd * nd if qname != "int4" else kd * nd // 2 + 4 * nd * kd // 64
                 nbytes = (m * kd + m * nd + nd) * isz + wbytes + (4 * nd if qname != "int4" else 0)
+                flops = 2.0 * m * kd * nd
+                if qname == "int4":
+                    extra.update(tflops=flops / t_k / 1e9, x_dense=t_k / t_d,
+                                 x_library=None if t_l is None else t_k / t_l)
                 record(kname, f"{qname} ({m},{kd},{nd})", row_key(m, kd, nd), dt, err, t_k,
-                       t_p, t_l, 2.0 * m * kd * nd, nbytes, tol[("quant", dt)], dense_ms=t_d,
-                       library_rel=lib_rel, planted_rel=planted_rel)
+                       t_p, t_l, flops, nbytes, tol[("quant", dt)], row_tol[("quant", dt)],
+                       dense_ms=t_d,
+                       library_rel=lib_rel, planted_rel=planted_rel, **extra)
                 del leaf, dense, wd, got, want
         del x
         torch.cuda.empty_cache()
@@ -567,12 +623,27 @@ def main() -> None:
     qrows = [r for kn in ("quant_matmul", "quant_matmul_int4") for r in report[kn].values()]
     worst = max(r["rel_err"] for r in qrows)
     caught = min(r["planted_rel"] for r in qrows)
+    caught_scale = min(r["planted_scale_rel"] for r in report["quant_matmul_int4"].values())
     say(f"[kernel] quant matmuls bf16, tolerance {tol[('quant', torch.bfloat16)]:.0e}: "
         f"largest kernel error {worst:.3e}; smallest error of a planted rounding "
         f"deviation {caught:.3e} (int4 not rounded before the product, int8 / fp8 "
-        f"scale folded into the weight)")
-    if not caught > tol[("quant", torch.bfloat16)]:
+        f"scale folded into the weight), {caught_scale:.3e} (int4 scale rounded to bf16 "
+        f"before the product)")
+    if not min(caught, caught_scale) > tol[("quant", torch.bfloat16)]:
         fail("the quant-matmul tolerance does not catch a planted rounding deviation")
+    # int4 per image (launches x ms) against tinygemm and dense cuBLAS, over
+    # all 19 shapes and over the M <= 154 ones (the tinygemm regime)
+    for label, keep in (("all 19 shapes", lambda m: True),
+                        (f"the {sum(m <= SMALL_M for m, _, _ in QUANT_SHAPES)} M <= {SMALL_M} "
+                         f"shapes", lambda m: m <= SMALL_M)):
+        rows = [(n, report["quant_matmul_int4"][(m, k, nn, 64)])
+                for (m, k, nn), n in QUANT_SHAPES.items() if keep(m)]
+        per = {f: sum(n * r[f] for n, r in rows) if all(r[f] is not None for _, r in rows)
+               else None for f in ("ms", "library_ms", "dense_ms", "bound_ms")}
+        lib = "n/a" if per["library_ms"] is None else f"{per['library_ms']:.3f}"
+        say(f"[kernel] quant_matmul_int4 per image over {label}: kernel {per['ms']:.3f} ms, "
+            f"tinygemm {lib}, dense {per['dense_ms']:.3f}, bound {per['bound_ms']:.3f} "
+            f"({sum(n for n, _ in rows)} launches)")
 
     # 4. kernels inside the model: UNet fp32, card vs CPU -----------------
     cfg = sd.SD15
@@ -763,16 +834,20 @@ def main() -> None:
                 counts = {kn: w.launches for kn, w in wrappers.items()}
                 counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
                 q_variants = variants()
+                int4_variants = dict(quant_matmul_int4.variants)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if img.dtype != torch.uint8 or tuple(img.shape) != (1, 512, 512, 3):
             fail(f"{qname} image {img.dtype} {tuple(img.shape)}, want uint8 (1, 512, 512, 3)")
         want = {"flash_packed": 400, "flash_bhsd": 1, "geglu": 0, "quant_matmul": 0,
                 "quant_matmul_int4": 0}
-        want[kname] = sum(quant_shapes.values())
-        want_shapes = {row_key(*mkn): n for mkn, n in quant_shapes.items()}
+        want[kname] = sum(QUANT_SHAPES.values())
+        want_shapes = {row_key(*mkn): n for mkn, n in QUANT_SHAPES.items()}
+        want_int4 = {"wgmma": want[kname]} if qname == "int4" else {}
         say(f"[main-{qname}] launches in one image: {counts} (want {want}); flash "
-            f"launches by variant {q_variants}")
-        if counts != want or counted[kname] != want_shapes or q_variants != want_variants:
+            f"launches by variant {q_variants}; int4 launches by variant {int4_variants} "
+            f"(want {want_int4})")
+        if (counts != want or counted[kname] != want_shapes or q_variants != want_variants
+                or int4_variants != want_int4):
             fail(f"{qname}: launches {counts}, shapes {counted[kname]} against {want}, "
                  f"{want_shapes}")
         for kn in ("flash_packed", "flash_bhsd"):

@@ -27,6 +27,7 @@ from tinyfusers_tpu.pipeline import sd as jsd
 from tinyfusers_tpu_torch import ops as tops
 from tinyfusers_tpu_torch.io.from_jax import load_params, load_sd
 from tinyfusers_tpu_torch.io.quantize_tree import quantize_params
+from tinyfusers_tpu_torch.kernels import quant_matmul as qmm
 from tinyfusers_tpu_torch.kernels.quant_matmul import (
     quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
 from tinyfusers_tpu_torch.models import unet as tunet
@@ -187,6 +188,49 @@ def test_wrappers_raise_on_bad_weights_on_any_device():
         quant_matmul(x[:, :32], tops.quantize(w))
     with pytest.raises(ValueError, match="per-output-channel"):
         quant_matmul(x, tops.quantize(w, axis=0))
+
+
+# (M, K, N, g), dtype -> (variant, x rows per block, K splits) of the int4
+# kernel. The 19 SD1.5 UNet shapes (bf16, g = 64) all run wgmma: n = 8 at
+# M = 2, 64 at M = 154, 128 at M = 128 / 512, 160 above; K is split over a
+# cluster toward about 100 blocks of at most 20 K steps each.
+INT4_PLANS = [
+    ((8192, 320, 320, 64), "bfloat16", ("wgmma", 160, 1)),
+    ((154, 768, 320, 64), "bfloat16", ("wgmma", 64, 7)),
+    ((8192, 320, 2560, 64), "bfloat16", ("wgmma", 160, 1)),
+    ((8192, 1280, 320, 64), "bfloat16", ("wgmma", 160, 1)),
+    ((2048, 640, 640, 64), "bfloat16", ("wgmma", 160, 1)),
+    ((154, 768, 640, 64), "bfloat16", ("wgmma", 64, 3)),
+    ((2048, 640, 5120, 64), "bfloat16", ("wgmma", 160, 1)),
+    ((2048, 2560, 640, 64), "bfloat16", ("wgmma", 160, 2)),
+    ((512, 1280, 1280, 64), "bfloat16", ("wgmma", 128, 1)),
+    ((154, 768, 1280, 64), "bfloat16", ("wgmma", 64, 2)),
+    ((512, 1280, 10240, 64), "bfloat16", ("wgmma", 128, 1)),
+    ((512, 5120, 1280, 64), "bfloat16", ("wgmma", 128, 4)),
+    ((128, 1280, 1280, 64), "bfloat16", ("wgmma", 128, 5)),
+    ((128, 1280, 10240, 64), "bfloat16", ("wgmma", 128, 1)),
+    ((128, 5120, 1280, 64), "bfloat16", ("wgmma", 128, 5)),
+    ((2, 1280, 320, 64), "bfloat16", ("wgmma", 8, 8)),
+    ((2, 1280, 640, 64), "bfloat16", ("wgmma", 8, 8)),
+    ((2, 1280, 1280, 64), "bfloat16", ("wgmma", 8, 5)),
+    ((2, 320, 1280, 64), "bfloat16", ("wgmma", 8, 5)),
+    # the groups of scales a block holds (32) push the split up
+    ((8192, 5120, 320, 32), "bfloat16", ("wgmma", 160, 5)),
+    ((37, 768, 40, 64), "bfloat16", ("wgmma", 64, 8)),  # ragged M and N inside wgmma
+    ((37, 96, 40, 32), "bfloat16", ("mma", 0, 1)),      # K % 64 != 0
+    ((5, 72, 33, 64), "bfloat16", ("mma", 0, 1)),       # ragged K, odd N
+    ((37, 130, 40, 2), "bfloat16", ("mma", 0, 1)),      # g = 2
+    ((2, 1280, 320, 64), "float32", ("fma", 0, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,want", INT4_PLANS)
+def test_int4_plan(shape, dtype, want):
+    m, k, n, g = shape
+    plan = qmm._plan(getattr(torch, dtype), m, k, n, g)
+    assert plan == want
+    if plan[0] == "wgmma":  # the block's scales fit its shared memory
+        assert qmm._groups(k, g, plan[2]) <= qmm._MAX_GROUPS
 
 
 # -- quantized ops -------------------------------------------------------------------

@@ -55,10 +55,9 @@
 //     once per key tile; both then run the same softmax and multiply P by
 //     their own half of V. 32-key tiles keep Q (64 KB) and two stages of
 //     K and V (32 KB each) in shared memory.
-#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
 #include <stdint.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace tf {
 namespace {
@@ -92,142 +91,6 @@ __device__ __forceinline__ int key_tiles(const Params& p, int q0, int bq, int bk
 
 __device__ __forceinline__ bool masked(const Params& p, int row, int col) {
   return col >= p.sk_real || (p.causal && col > row);
-}
-
-// ---------------------------------------------------------------------------
-// Hopper pieces: mbarrier, TMA, wgmma (PTX ISA 8.0)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// Returns once the barrier's phase of this parity has completed. A phase
-// that never completes (a lost copy) traps after about 30 s of waiting
-// rather than holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if (start == 0) start = clock64();
-    else if (clock64() - start > (1ll << 36)) __trap();
-  }
-}
-
-// One box of a 4-D tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int nthreads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(nthreads) : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory"); }
-
-// Keeps the compiler from moving register accesses across the asynchronous
-// wgmma that reads or writes them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-// Descriptor of a wgmma operand as TMA's 128-byte swizzle lays it out:
-// rows of 128 bytes (64 bf16), 8-row groups 1024 bytes apart (the stride
-// byte offset); the leading byte offset is unused at these widths. For a
-// K-major operand (Q, K: d contiguous) a k16 step moves the start by 32
-// bytes; for the MN-major V (read transposed) by 16 rows, 2048 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t a = smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// d (64 x 32 fp32) += A (64 x 16, shared) . B (32 x 16, shared, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x 128 fp32) += A (64 x 16, shared) . B (128 x 16, shared, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x 64 fp32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major:
-// read transposed)
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // ---------------------------------------------------------------------------
@@ -508,31 +371,6 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // The (B, S, H*d) bf16 tensor at `base` as a 4-D map (d, H, S, B), boxes of

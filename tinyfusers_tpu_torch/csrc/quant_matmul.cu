@@ -5,38 +5,82 @@
 // Replaces tinyfusers_tpu/kernels/quant_matmul.py::_kernel (int8 and fp8)
 // and ::_int4_kernel, and computes what they compute. The weight bytes are
 // what device memory holds and what the kernel reads: each weight tile is
-// converted to the compute dtype on its way from registers into shared
-// memory and never reaches device memory dequantized.
+// converted to the compute dtype on chip and never reaches device memory
+// dequantized.
 // - int8, e4m3 and e5m2 convert to bf16 exactly (dequantize to the compute
 //   dtype, no native-fp8 MMA); sums are fp32; the epilogue is acc * scale[n], then
 //   + bias[n], each rounded in fp32, then one rounding to the output dtype.
 // - int4: byte r of a row holds k = 2r (low nibble) and 2r + 1 (high), each
-//   decoded as ((v & 0xF) ^ 8) - 8, multiplied by its group's fp32 scale and
-//   rounded to the compute dtype BEFORE the MMA, as the Pallas kernel does
-//   (quant_matmul.py:130-133); the bias is the only epilogue.
+//   decoded as ((v & 0xF) ^ 8) - 8, multiplied by its group's fp32 scale in
+//   fp32 and rounded once to the compute dtype BEFORE the MMA, as the Pallas
+//   kernel does (quant_matmul.py:130-133); the bias is the only epilogue.
+//   Rounding the scale to bf16 first (a bf16 __hmul2 / __hfma2 decode) would
+//   change the result, so every variant keeps the fp32 product.
 //
 // What bounds it on an H100: at SD1.5's UNet shapes in bf16 the large-M
 // calls (M = 8192 / 2048 / 512 rows of activations) are bound by the bytes of
-// x and the output more than by the weight; the small-M calls (M = 2 for the
-// time and ResBlock embeddings, M = 154 for the cross-attention k/v
-// projections of the 77-token CFG context) by the weight bytes, which int8 /
-// fp8 halve and int4 quarters against bf16. Design, bf16 (the main path), as
-// csrc/geglu_ff.cu: 64 x 64 output tiles, 4 warps of 32 x 32, 64-deep K
-// steps, mma.sync m16n8k16 with ldmatrix operands; x and the weight bytes
-// arrive as 16-byte loads into registers one K step ahead, so the next
-// step's device-memory reads are in flight while the tensor cores work on
-// this one; the weight is decoded between registers and shared memory.
-// fp32 keeps exact fp32 arithmetic with plain FMA loops (no TF32): it serves
-// the comparisons. Ragged M, N and K are masked in the loads and the
-// epilogue (element-wise loads when K breaks 16-byte vectors); the int4
-// group size may be any divisor of K (per-element scale lookup unless it is
-// a multiple of 32).
-// Later work: wgmma, TMA, a deeper pipeline, and split-K for the small-M
-// calls (N = 320 gives 5 output tiles for 132 SMs).
+// x and the output, or by the tensor cores, more than by the weight; the
+// small-M calls (M = 2 for the time and ResBlock embeddings, M = 128 / 154
+// for the mid block and the cross-attention k/v projections of the 77-token
+// CFG context) by the weight bytes, which int8 / fp8 halve and int4
+// quarters against bf16, and in practice by latency: a few K steps per
+// output tile, and few output tiles for 132 SMs.
+//
+// Three kernels; kernels/quant_matmul.py::_plan names the one a call runs:
+//   mma    (bf16, every format; int4 where wgmma does not take the shape)
+//          as csrc/geglu_ff.cu: 64 x 64 output tiles, 4 warps of 32 x 32,
+//          64-deep K steps, mma.sync m16n8k16 with ldmatrix operands; x and
+//          the weight bytes arrive as 16-byte loads into registers one K
+//          step ahead and are decoded between registers and shared memory.
+//          Ragged M, N and K are masked in the loads and the epilogue
+//          (element-wise loads when K breaks 16-byte vectors); the int4
+//          group size may be any divisor of K.
+//   wgmma  (bf16 int4 where TMA reads the operands in place and K is a
+//          whole number of 64-deep steps: K % 64 == 0, N % 8 == 0, g % 16
+//          == 0 with g dividing or a multiple of 64; every SD1.5 UNet shape). It computes out^T (N x M) = W^T . x^T,
+//          so the weight is wgmma's A operand, from registers:
+//          * one producer warp issues TMA copies of (x tile: BN rows x 64 of
+//            K, 128-byte swizzled; packed weight tile: 64 rows x 32 bytes)
+//            into a ring of ST stages with full / empty mbarriers;
+//          * one consumer warpgroup owns 64 weight rows (output columns).
+//            In the m64k16 A fragment a thread holds rows g and g + 8 at k
+//            2t..2t+1 and 2t+8..2t+9: each pair is one packed byte, so it
+//            decodes 4 bytes of the shared weight tile per k16 (the nibble
+//            to float step exact through the 2^23 magic number, the scale
+//            an fp32 product, then cvt.rn.bf16x2) into 4 registers. The
+//            next stage decodes while this stage's wgmmas run, and the
+//            decoded weight never touches shared memory; it serves the
+//            whole n = BN tile of x rows (8, 64, 128 or 160 by M), so at
+//            large M a weight tile is decoded once per 160 rows of x;
+//          * TMA fills x rows past M with zeros, so M = 2 runs as n = 8
+//            with no pad in device memory; the block's group scales are
+//            read once into shared memory (a (N, K/g) row of 5 fp32 is no
+//            TMA box);
+//          * split-K for shapes whose output tiles do not fill the card
+//            (the plan's `split`, up to 8): the splits of one tile form a
+//            thread block cluster. After a cluster barrier each block
+//            stores its fp32 partial of every 8-row group j of x rows into
+//            the shared memory of the group's owner, the block of rank
+//            j % split (distributed shared memory, one slot per sender);
+//            after a second barrier each owner sums its slots in rank order
+//            0, 1, ... and adds the bias. Stores, not loads, cross the
+//            cluster, so no block waits on a remote round trip. One launch,
+//            no workspace, no atomics: every call and every CUDA-graph
+//            replay gives the same bits;
+//          * the epilogue writes the bf16 tile into 128-byte swizzled
+//            shared memory (conflict-free) and TMA stores it (the map
+//            clips rows past M and columns past N).
+//          Two blocks fit an SM (160 threads of <= 200 registers, <= 113 KB
+//          of shared memory each), so one block's loads and epilogue
+//          overlap the other's products.
+//   fma    (fp32, every format) exact fp32 arithmetic with plain FMA loops
+//          (no TF32): it serves the comparisons.
 #include <cuda_fp8.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace tf {
 namespace {
@@ -303,6 +347,296 @@ __global__ void __launch_bounds__(NT) quant_mm_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 int4: TMA ring + wgmma with the decoded weight as A from registers
+// ---------------------------------------------------------------------------
+
+namespace w4 {
+
+constexpr int NW = 64;              // weight rows (output columns) per block
+constexpr int KS = 64;              // K per stage
+constexpr int WT = NW * KS / 2;     // bytes of a packed weight tile: 2 KB
+constexpr int SCALE_BYTES = 8192;   // the block's group scales, fp32
+constexpr int MAX_GROUPS = SCALE_BYTES / 4 / NW;  // 32 groups per block
+// A consumer warpgroup and one producer warp: two blocks an SM leave up to
+// 200 registers a thread, and the 160-row tile takes 136. A producer
+// warpgroup would cap the block at 128 (setmaxnreg does not help: ptxas
+// sizes every instruction to the launch bound).
+constexpr int THREADS = 160;
+constexpr int MAX_SMEM = 115712;    // two blocks an SM (228 KB, 1 KB each reserved)
+
+struct Params {
+  const float* scales;  // (N, K/g)
+  const void* bias;     // (N,) fp32, or bf16 when bias_bf16 (converts exactly), or null
+  int bias_bf16;
+  int M, N, K, g;
+};
+
+// BN x rows (wgmma's n) per block, ST ring stages.
+template <int BN_, int ST_>
+struct Cfg {
+  static constexpr int BN = BN_, ST = ST_;
+  static_assert(BN % 8 == 0 && BN <= 256, "wgmma n");
+  static constexpr int XT = BN * 128;  // x tile: BN rows x 64 bf16, 128-byte swizzled
+  static constexpr int OFF_W = ST * XT;
+  static constexpr int RING = ST * (XT + WT);
+  // After the main loop the ring holds the epilogue: with split-K, the
+  // partials the cluster sends this block (split x JL 8-row groups of 2 KB,
+  // JL = ceil(NJ / split) the groups it owns, split x JL <= NJ + 7), then
+  // its bf16 output groups of 1 KB each.
+  static constexpr int NJ = BN / 8;
+  static constexpr int EPI = (NJ + 7) * 2048 + NJ * 1024;
+  static constexpr int OFF_S = RING > EPI ? RING : EPI;
+  static constexpr int OFF_BAR = OFF_S + SCALE_BYTES;
+  // + 1024 so the base can be rounded up to the swizzle's 1024-byte period
+  static constexpr int SMEM = OFF_BAR + 16 * ST + 1024;
+  static_assert(SMEM <= MAX_SMEM, "two blocks an SM");
+};
+
+// Byte `t` of `word` (k pair 2j, 2j + 1 of one weight row) times fp32 scale
+// `s`, as the A fragment's bf16 pair (the lower k in the low half).
+// (v ^ 8) - 8 of a nibble v is exactly 2^23 + (v ^ 8) - (2^23 + 8) in fp32.
+__device__ __forceinline__ uint32_t decode_pair(uint32_t word, int t, float s) {
+  const uint32_t b = word >> (8 * t);
+  const float lo = __uint_as_float(0x4B000000u | ((b & 0xFu) ^ 8u)) - 8388616.f;
+  const float hi = __uint_as_float(0x4B000000u | (((b >> 4) & 0xFu) ^ 8u)) - 8388616.f;
+  return pack_bf16(__fmul_rn(lo, s), __fmul_rn(hi, s));
+}
+
+// A fragments of the four k16 steps of global stage `kt` for this thread's
+// weight rows r0 and r0 + 8: a[4kk + 0..3] = (r0, 2t), (r0 + 8, 2t),
+// (r0, 2t + 8), (r0 + 8, 2t + 8) of step kk, each a k pair = one byte.
+__device__ __forceinline__ void decode_stage(uint32_t (&a)[16], const unsigned char* ws,
+                                             const float* ssc, const Params& p, int kt,
+                                             int gb, int r0, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // bytes 8kk .. 8kk + 7 of each row: k 16kk .. 16kk + 15
+    const uint2 w0 = *reinterpret_cast<const uint2*>(ws + r0 * 32 + 8 * kk);
+    const uint2 w8 = *reinterpret_cast<const uint2*>(ws + (r0 + 8) * 32 + 8 * kk);
+    const float* sc = ssc + ((kt * KS + 16 * kk) / p.g - gb) * NW;
+    const float s0 = sc[r0], s8 = sc[r0 + 8];
+    a[4 * kk + 0] = decode_pair(w0.x, t, s0);
+    a[4 * kk + 1] = decode_pair(w8.x, t, s8);
+    a[4 * kk + 2] = decode_pair(w0.y, t, s0);
+    a[4 * kk + 3] = decode_pair(w8.y, t, s8);
+  }
+}
+
+// One 8-row group of the bf16 output tile in shared memory (1 KB, 1 KB
+// aligned): row m (x row, 0..7), 64 columns (weight rows) of 128 bytes,
+// 16-byte chunks XOR-swizzled by m as TMA's 128-byte swizzle lays them out.
+__device__ __forceinline__ void put_out(unsigned char* tile, int m, int r, float v) {
+  const int chunk = (r / 8) ^ m;
+  *reinterpret_cast<bf16*>(tile + m * 128 + chunk * 16 + (r % 8) * 2) = __float2bfloat16(v);
+}
+
+template <class C>
+__global__ void __launch_bounds__(THREADS, 2)
+    int4_mm_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                  const __grid_constant__ CUtensorMap to, const Params p) {
+  constexpr int BN = C::BN, ST = C::ST, NA = BN / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* empty = full + ST;
+  float* ssc = reinterpret_cast<float*>(smem + C::OFF_S);
+
+  const int n0 = blockIdx.x * NW, m0 = blockIdx.y * BN;
+  const int split = gridDim.z, rank = blockIdx.z;  // the cluster is (1, 1, split)
+  const int ks = p.K / KS;
+  const int kb = rank * ks / split, ke = (rank + 1) * ks / split;  // this block's stages
+  const int nst = ke - kb;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warp: one thread issues every copy
+    if (threadIdx.x == 128) {
+      for (int i = 0; i < nst; ++i) {
+        const int s = i % ST;
+        mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(&full[s], C::XT + WT);
+        tma_load_2d(smem + s * C::XT, &tx, &full[s], (kb + i) * KS, m0);
+        tma_load_2d(smem + C::OFF_W + s * WT, &tw, &full[s], (kb + i) * (KS / 2), n0);
+      }
+    }
+    if (split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+    const int tq = lane % 4;
+    const int r0 = 16 * warp + lane / 4;  // this thread's weight rows: r0, r0 + 8
+
+    // the group scales of this block's rows over its K range, group-major
+    const int G = p.K / p.g;
+    const int gb = kb * KS / p.g;
+    const int ng = min(G, (ke * KS + p.g - 1) / p.g) - gb;  // <= MAX_GROUPS (host)
+    for (int i = t; i < ng * NW; i += 128) {
+      const int r = i / ng, j = i - (i / ng) * ng, n = n0 + r;
+      ssc[j * NW + r] = n < p.N ? p.scales[(long long)n * G + gb + j] : 0.f;
+    }
+    float bias[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + r0 + 8 * h;
+      if (p.bias == nullptr || n >= p.N) bias[h] = 0.f;
+      else if (p.bias_bf16) bias[h] = __bfloat162float(static_cast<const bf16*>(p.bias)[n]);
+      else bias[h] = static_cast<const float*>(p.bias)[n];
+    }
+    bar_sync(1, 128);
+
+    float acc[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+    uint32_t fa[16], fb[16];
+    mbar_wait(&full[0], 0);
+    decode_stage(fa, smem + C::OFF_W, ssc, p, kb, gb, r0, tq);
+    for (int i = 0; i < nst; ++i) {
+      const int s = i % ST;
+      const unsigned char* xs = smem + s * C::XT;
+      fence_regs(acc);
+      fence_regs(fa);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, fa + 4 * kk, sw128_desc(xs + 32 * kk));
+      wg_commit();
+      if (i + 1 < nst) {  // decode the next stage while the tensor cores run
+        const int s1 = (i + 1) % ST;
+        mbar_wait(&full[s1], ((i + 1) / ST) & 1);
+        decode_stage(fb, smem + C::OFF_W + s1 * WT, ssc, p, kb + i + 1, gb, r0, tq);
+      }
+      wg_wait0();
+      fence_regs(acc);
+      fence_regs(fa);
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+#pragma unroll
+      for (int j = 0; j < 16; ++j) fa[j] = fb[j];
+    }
+
+    // acc[4j + e]: weight row r0 + 8 (e / 2), x row 8j + 2 tq + e % 2. The
+    // block of rank r owns the 8-row groups j with j % split == r; its jl-th
+    // (j = r + jl * split) goes out from tile + jl * 1 KB.
+    const int nj = min(C::NJ, (p.M - m0 + 7) / 8);  // groups holding rows < M
+    const int jl_count = (C::NJ + split - 1) / split;
+    unsigned char* tile = smem + split * jl_count * (split > 1 ? 2048 : 0);
+    if (split == 1) {
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          put_out(tile + j * 1024, 2 * tq + (e & 1), r0 + 8 * (e / 2),
+                  __fadd_rn(acc[4 * j + e], bias[e / 2]));
+    } else {
+      // each block sends its partial of group j into the owner's slot
+      // [rank][j / split]; the owner then sums the slots in rank order
+      float4* slots = reinterpret_cast<float4*>(smem);
+      cluster_sync();  // every block is done with its ring
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+        if (j < nj)
+          st_cluster(slots + (rank * jl_count + j / split) * 128 + t, j % split,
+                     make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
+      cluster_sync();  // every partial has arrived; no remote access follows
+      for (int jl = 0; rank + jl * split < nj; ++jl) {
+        float4 v = slots[jl * 128 + t];
+        for (int q = 1; q < split; ++q) {
+          const float4 o = slots[(q * jl_count + jl) * 128 + t];
+          v = make_float4(__fadd_rn(v.x, o.x), __fadd_rn(v.y, o.y), __fadd_rn(v.z, o.z),
+                          __fadd_rn(v.w, o.w));
+        }
+        const float y[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          put_out(tile + jl * 1024, 2 * tq + (e & 1), r0 + 8 * (e / 2),
+                  __fadd_rn(y[e], bias[e / 2]));
+      }
+    }
+    fence_async_smem();
+    bar_sync(1, 128);
+    if (t == 0) {
+      for (int jl = 0; rank + jl * split < nj; ++jl)
+        tma_store_2d(&to, tile + jl * 1024, n0, m0 + 8 * (rank + jl * split));
+      tma_store_wait();
+    }
+  }
+}
+
+// A 2-D row-major tensor (dim0 contiguous, dim1 rows of `row_bytes`) as a
+// tensor map with boxes of box0 x box1; zeros outside on loads.
+int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, int dim0, int dim1,
+              long long row_bytes, int box0, int box1, CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)dim0, (cuuint64_t)dim1};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box0, (cuuint32_t)box1};
+  const cuuint32_t ones[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Groups of scales the block of split rank `r` reads (kernel: ng).
+inline int groups_of(int K, int g, int split, int r) {
+  const int ks = K / KS, kb = r * ks / split, ke = (r + 1) * ks / split;
+  return std::min(K / g, (ke * KS + g - 1) / g) - kb * KS / g;
+}
+
+template <class C>
+int run(const void* x, const void* packed, void* out, const Params& p, int split,
+        cudaStream_t stream) {
+  CUtensorMap tx, tw, to;
+  int err = encode_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, p.K, p.M, 2ll * p.K, KS, C::BN,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, p.K / 2, p.N, p.K / 2, KS / 2,
+                    NW, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == cudaSuccess)
+    err = encode_2d(&to, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, p.N, p.M, 2ll * p.N, NW, 8,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  auto kernel = int4_mm_wgmma<C>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.N + NW - 1) / NW, (p.M + C::BN - 1) / C::BN, split);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = split;
+  cfg.attrs = cluster;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, to, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Calls run<Cfg> for x-row tile `bn` (the plan's tile); cudaErrorInvalidValue
+// for a tile no configuration has.
+int launch(int bn, const void* x, const void* packed, void* out, const Params& p, int split,
+           cudaStream_t st) {
+  if (bn == 8) return run<Cfg<8, 8>>(x, packed, out, p, split, st);
+  if (bn == 64) return run<Cfg<64, 6>>(x, packed, out, p, split, st);
+  if (bn == 128) return run<Cfg<128, 4>>(x, packed, out, p, split, st);
+  if (bn == 160) return run<Cfg<160, 4>>(x, packed, out, p, split, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace w4
+
+// ---------------------------------------------------------------------------
 // fp32: exact fp32 FMA loops through shared memory
 // ---------------------------------------------------------------------------
 
@@ -384,17 +718,45 @@ extern "C" int tf_quant_matmul(int dtype, int fmt, const void* x, const void* w,
   return cudaErrorInvalidValue;
 }
 
+// Kernel variants of the int4 entry, as kernels/quant_matmul.py::_VARIANTS
+// numbers them.
+constexpr int kVarFma = 0;
+constexpr int kVarMma = 1;
+constexpr int kVarWgmma = 2;
+
 // x as above; packed (N, K/2) contiguous bytes, byte r of a row holding
 // k = 2r (low nibble) and 2r + 1 (high); scales (N, K/g) fp32 contiguous;
-// g divides K; bias and out as above.
-extern "C" int tf_quant_matmul_int4(int dtype, const void* x, const void* packed,
-                                    const float* scales, const float* bias, void* out,
-                                    int M, int N, int K, int g, void* stream) {
+// g divides K; bias (N,) of dtype code `bias_dtype` (fp32; bf16 for wgmma
+// only) or null; out as above. `variant` comes from the wrapper's
+// shape rule (fma: fp32; mma, wgmma: bf16), and for wgmma `tile` (x rows
+// per block: 8, 64, 128 or 160) and `split` (K splits, 1..8, one cluster);
+// a shape the variant does not take is refused.
+extern "C" int tf_quant_matmul_int4(int variant, int dtype, const void* x, const void* packed,
+                                    const float* scales, const void* bias, int bias_dtype,
+                                    void* out, int M, int N, int K, int g, int tile, int split,
+                                    void* stream) {
   if (M == 0 || N == 0) return cudaSuccess;
   if (K % 2 != 0 || g <= 0 || K % g != 0) return cudaErrorInvalidValue;
+  if ((variant == kVarFma) != (dtype == tf::kFloat32)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == kVarWgmma) {
+    namespace w4 = tf::w4;
+    const bool takes = K % w4::KS == 0 && N % 8 == 0 && g % 16 == 0 &&
+                       (w4::KS % g == 0 || g % w4::KS == 0) && split >= 1 && split <= 8 &&
+                       split <= K / w4::KS && tf::aligned16(x) &&
+                       tf::aligned16(packed) && tf::aligned16(out);
+    if (!takes) return cudaErrorInvalidValue;
+    for (int r = 0; r < split; ++r)
+      if (w4::groups_of(K, g, split, r) > w4::MAX_GROUPS) return cudaErrorInvalidValue;
+    const w4::Params p{scales, bias, bias_dtype == tf::kBFloat16, M, N, K, g};
+    return w4::launch(tile, x, packed, out, p, split, st);
+  }
+  if ((variant != kVarMma && variant != kVarFma) || bias_dtype != tf::kFloat32)
+    return cudaErrorInvalidValue;
   const int xbytes = dtype == tf::kBFloat16 ? 2 : 4;
-  tf::Params p{x, static_cast<const uint8_t*>(packed), scales, bias, out, M, N, K, g,
+  tf::Params p{x, static_cast<const uint8_t*>(packed), scales, static_cast<const float*>(bias),
+               out, M, N, K, g,
                (K * xbytes) % 16 == 0 && tf::aligned16(x),
                (K / 2) % 16 == 0 && tf::aligned16(packed)};
-  return tf::launch<tf::kInt4>(dtype, p, static_cast<cudaStream_t>(stream));
+  return tf::launch<tf::kInt4>(dtype, p, st);
 }

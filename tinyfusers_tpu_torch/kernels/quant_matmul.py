@@ -5,11 +5,19 @@ tinyfusers_tpu/kernels/quant_matmul.py).
 fp8-e5m2 weights, per-output-channel scales in the epilogue) and
 ``quant_matmul_int4`` replaces ``_int4_kernel`` (nibble pairs along K,
 per-group scales applied to the weight before the product). For a CUDA
-tensor each launches its hand-written kernel in ``csrc/quant_matmul.cu``,
+tensor each launches a hand-written kernel in ``csrc/quant_matmul.cu``,
 which reads the quantized bytes and converts each weight tile on chip;
 for a CPU tensor each computes its plain version. A CUDA tensor the
-kernel does not take raises; it never falls back. ``.launches`` counts a
-wrapper's launches and ``.shapes`` counts them by call.
+kernels do not take raises; nothing falls back. ``.launches`` counts a
+wrapper's launches and ``.shapes`` counts them by call;
+``quant_matmul_int4.variants`` counts its launches by kernel variant.
+
+The int4 wrapper's kernel comes from ``_plan``, a shape rule: ``wgmma``
+(TMA ring, the decoded weight as wgmma's register A operand, split-K over
+a thread block cluster for shapes whose output tiles do not fill the
+card) for bf16 where TMA reads the operands in place, which every SD1.5
+UNet shape satisfies; ``mma`` (mma.sync, masked loads) for the other bf16
+shapes; ``fma`` (exact fp32) for fp32.
 
 Semantics, as in the Pallas kernels (and the JAX package's XLA path off
 the TPU): the weight is dequantized to x's dtype (int8 and fp8 exactly;
@@ -105,9 +113,72 @@ def _stream(x: torch.Tensor) -> int:
 # (dtype, fmt, x, w, scales, bias, out, M, N, K, stream)
 _ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
          + [ctypes.c_void_p])
-# (dtype, x, packed, scales, bias, out, M, N, K, g, stream)
-_ARGS_INT4 = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-              + [ctypes.c_void_p])
+# (variant, dtype, x, packed, scales, bias, bias dtype, out, M, N, K, g, tile,
+#  split, stream)
+_ARGS_INT4 = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+# int4 variant -> the code tf_quant_matmul_int4 takes.
+_VARIANTS = {"fma": 0, "mma": 1, "wgmma": 2}
+# wgmma: x rows per block (wgmma's n) by M, and the splits of K (one
+# thread block cluster, at most 8). Both rules were fitted to times of every
+# (tile, split) at the 19 SD1.5 UNet shapes on an H100 (tools/kernel_ab.py
+# --sweep): about 100 blocks (two fit an SM) with at most 20 K steps each,
+# 64-row tiles where a block has few K steps (M = 154), 128 at M <= 1024,
+# 160 above. A block holds at most 32 groups of scales.
+_SPLIT_BLOCKS = 100
+_MAX_STEPS = 20
+_K_STEP = 64
+_MAX_GROUPS = 32
+
+
+def _tile(m: int) -> int:
+    if m <= 8:
+        return 8
+    if m <= 64:
+        return 64
+    if m <= 128:
+        return 128
+    if m <= 256:
+        return 64
+    return 128 if m <= 1024 else 160
+
+
+def _groups(k: int, g: int, split: int) -> int:
+    """The most groups of scales one block of a split reads (K % 64 == 0)."""
+    ks, most = k // _K_STEP, 0
+    for r in range(split):
+        kb, ke = r * ks // split * _K_STEP, (r + 1) * ks // split * _K_STEP
+        most = max(most, min(k // g, -(-ke // g)) - kb // g)
+    return most
+
+
+def _plan(dtype, m: int, k: int, n: int, g: int):
+    """(variant, tile, split) of the int4 kernel for x (m, k) @ w (k, n)
+    with group size g.
+
+    fp32 goes to the exact FMA kernel. bf16 goes to ``wgmma`` where TMA
+    can read the operands in place and the K step and the group size suit
+    each other: K % 64 == 0 (whole 64-deep steps; packed rows of K/2 bytes
+    and x rows of 2K bytes are then multiples of 16), N % 8 == 0 (the
+    output's rows), g % 16 == 0 and g dividing 64 or a multiple of it.
+    Every SD1.5 UNet shape (K in 320 .. 5120, N in 320 .. 10240, g = 64)
+    does. Other bf16 shapes (ragged K, odd N, g = 2) run the ``mma``
+    kernel. tile and split are 0 and 1 outside ``wgmma``."""
+    if dtype == torch.float32:
+        return "fma", 0, 1
+    if not (k % _K_STEP == 0 and n % 8 == 0 and g % 16 == 0
+            and (_K_STEP % g == 0 or g % _K_STEP == 0)):
+        return "mma", 0, 1
+    tile = _tile(m)
+    tiles = -(-m // tile) * -(-n // 64)
+    ks = k // _K_STEP
+    most = min(8, ks)
+    split = min(most, max(1, int(_SPLIT_BLOCKS / tiles + 0.5), -(-ks // _MAX_STEPS)))
+    while _groups(k, g, split) > _MAX_GROUPS and split < most:
+        split += 1
+    if _groups(k, g, split) > _MAX_GROUPS:
+        return "mma", 0, 1
+    return "wgmma", tile, split
 
 
 def quant_matmul(x: torch.Tensor, w: QuantizedTensor,
@@ -158,15 +229,28 @@ def quant_matmul_int4(x: torch.Tensor, w: Int4Tensor,
     m = x2.shape[0]
     packed = w.packed.t().contiguous()                       # (N, K/2)
     scales = w.scales.t().to(torch.float32).contiguous()     # (N, K/g)
-    bias = _bias(b, x)
+    variant, tile, split = _plan(x.dtype, m, k, n, g)
+    if variant == "wgmma" and any(t.data_ptr() % 16 for t in (x2, packed)):
+        raise ValueError("quant_matmul_int4: bf16 x and the packed weight must be 16-byte "
+                         "aligned (TMA)")
+    if variant == "wgmma" and b is not None and b.dtype in (torch.bfloat16, torch.float32):
+        # read in its own dtype (bf16 -> fp32 is exact): no cast launch per call
+        _on_device(x, b)
+        bias = b.reshape(-1).contiguous()
+    else:
+        bias = _bias(b, x)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     _build.entry("quant_matmul", "tf_quant_matmul_int4", _ARGS_INT4)(
-        dtype, x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k, g, _stream(x))
+        _VARIANTS[variant], dtype, x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        _build.dtype_code(torch.float32 if bias is None else bias.dtype), out.data_ptr(),
+        m, n, k, g, tile, split, _stream(x))
     quant_matmul_int4.launches += 1
     quant_matmul_int4.shapes[(m, k, n, g)] += 1
+    quant_matmul_int4.variants[variant] += 1
     return out.reshape(*lead, n)
 
 
 quant_matmul_int4.launches = 0
 quant_matmul_int4.shapes = collections.Counter()  # (M, K, N, g) -> launches
+quant_matmul_int4.variants = collections.Counter()  # "wgmma" | "mma" | "fma" -> launches
