@@ -34,15 +34,16 @@ Phases, one or more lines each:
    the flash_packed wrapper's host microseconds per call at SD1.5's 64x64
    self-attention shape;
    for the quant matmuls in bf16 also the error of a planted rounding
-   deviation (int4: two, the weight not rounded to bf16 before the
-   product and the scale rounded to bf16 before it), which the tolerance
-   must catch; for each int4 row the variant, tile and split that
-   ``kernels/quant_matmul.py::_plan`` gives it (every bf16 main-path shape
-   must run on wgmma), its TFLOP/s and its time over tinygemm's and dense
-   cuBLAS's, then int4 per image (launches x ms) against tinygemm and
-   dense over all 19 shapes and over the M <= 154 ones; every attention
-   and quant row is also held to a per-row limit (the worst row's
-   relative error);
+   deviation (int8 / fp8: the scale folded into the bf16 weight; int4:
+   two, the weight not rounded to bf16 before the product and the scale
+   rounded to bf16 before it), which the tolerance must catch; for each
+   quant row the variant, tile and split that
+   ``kernels/quant_matmul.py::_plan`` gives it (every bf16 main-path int8,
+   fp8 and int4 shape must run on wgmma), its TFLOP/s and its time over
+   the library call's and dense cuBLAS's, then each format per image
+   (launches x ms) against its library call, dense and its bound over all
+   19 shapes and over the M <= 154 ones; every attention and quant row is
+   also held to a per-row limit (the worst row's relative error);
 4. unet: one full-width SD1.5 UNet forward at 256x256 (32x32 latents, so
    the 1024-token level takes the packed kernel) in fp32 on the card,
    against the same weights on the CPU: dense (every FF through the GEGLU
@@ -68,10 +69,12 @@ Phases, one or more lines each:
    and quantized there by ``io/quantize_tree.quantize_params`` to int8,
    fp8 and int4 in turn; for each a warm-up (latents compared with the
    dense ones), one image with the counts checked exactly (3,680 quant
-   matmuls at the 19 shapes of phase 3, for int4 all on the wgmma
-   variant, 0 geglu, 400 flash_packed, 1 flash_bhsd), one more image;
-   s/image, peak and held device memory;
-6q. profile: one int4 image under ``torch.profiler``, as phase 6;
+   matmuls at the 19 shapes of phase 3, all on the wgmma variant, 0
+   geglu, 400 flash_packed, 1 flash_bhsd), one more image; s/image, peak
+   and held device memory; for int8 also the bias casts per image that
+   the wgmma variant's reading of a bf16 bias leaves out;
+6q. profile: one int8 and one int4 image under ``torch.profiler``, as
+   phase 6;
 5s. SD3 main path: ``sd3.generate`` at SD3-medium without T5, 1024x1024,
    28-step Euler rectified flow, CFG 5.0, bf16, batch 1: a warm-up through
    the pipeline's stages (finite latents), one image with the counts
@@ -158,7 +161,6 @@ SMALL_M = 154
 # Device-kernel name fragments -> group, for the profile phase.
 GROUPS = (
     ("quant_mm", "port: quant matmul"),
-    ("int4_mm", "port: quant matmul"),  # the int4 wgmma kernel
     ("flash_fwd", "port: flash attention"),
     ("geglu_ff", "port: geglu"),
     ("conv", "convolution (cuDNN)"),
@@ -252,13 +254,15 @@ def bound(flops: float, nbytes: float, dtype) -> tuple:
 
 
 def short_kernel_name(mangled: str) -> str:
-    """flash_fwd_wgmma<3,1,64,128,2> from ptxas's mangled name (the
-    template's integer arguments in order); other names as they are."""
-    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    """flash_fwd_wgmma<3,1,64,128,2> from ptxas's mangled name (the last
+    name of a nested one, the template's integer arguments in order);
+    other names as they are."""
+    m = re.search(r"_cu_[0-9a-f]{8}(?=\d)", mangled)
     if not m:
         return mangled.strip("'")
     rest = mangled[m.end():]
-    name, rest = rest[:int(m.group(1))], rest[int(m.group(1)):]
+    while (n := re.match(r"\d+", rest)):
+        name, rest = rest[n.end():n.end() + int(n.group())], rest[n.end() + int(n.group()):]
     args = re.findall(r"Li(\d+)E", rest[:rest.find("Ev") + 1])
     return name + (f"<{','.join(args)}>" if args else "")
 
@@ -320,14 +324,14 @@ def main() -> None:
         _plan, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
     from tinyfusers_tpu_torch.io.quantize_tree import quantize_params
     from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
-    from tinyfusers_tpu_torch.kernels.quant_matmul import _plan as int4_plan
+    from tinyfusers_tpu_torch.kernels.quant_matmul import _plan as quant_plan
     from tinyfusers_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
     from tinyfusers_tpu_torch.models import mmdit as mmdit_mod
     from tinyfusers_tpu_torch.models import unet as unet_mod
     from tinyfusers_tpu_torch.models import vae as vae_mod
     from tinyfusers_tpu_torch.models.layers import Linear, ZeroLinear, init_weights
-    from tinyfusers_tpu_torch.ops.quant import Int4Tensor, quantize, quantize_int4
+    from tinyfusers_tpu_torch.ops.quant import Int4Tensor, is_quantized, quantize, quantize_int4
     from tinyfusers_tpu_torch.pipeline import sd, sd3
 
     wrappers = {"flash_packed": flash_packed, "flash_bhsd": flash_bhsd,
@@ -575,14 +579,13 @@ def main() -> None:
                 reset_counts()
                 got = fn(x, w, bias)
                 torch.cuda.synchronize()
-                extra = {}
-                if qname == "int4":  # the variant the plan names, and the one that ran
-                    plan = int4_plan(dt, m, kd, nd, w.group_size)
-                    ran = dict(quant_matmul_int4.variants)
-                    if ran != {plan[0]: 1} or (dt == torch.bfloat16 and plan[0] != "wgmma"):
-                        fail(f"int4 ({m},{kd},{nd}) {dt}: launches by variant {ran}, plan "
-                             f"{plan}; every main-path bf16 shape must run on wgmma")
-                    extra = dict(variant=plan[0], tile=plan[1], split=plan[2])
+                # the variant the plan names, and the one that ran
+                plan = quant_plan(dt, m, kd, nd, w.group_size if qname == "int4" else None)
+                ran = dict(fn.variants)
+                if ran != {plan[0]: 1} or (dt == torch.bfloat16 and plan[0] != "wgmma"):
+                    fail(f"{qname} ({m},{kd},{nd}) {dt}: launches by variant {ran}, plan "
+                         f"{plan}; every main-path bf16 shape must run on wgmma")
+                extra = dict(variant=plan[0], tile=plan[1], split=plan[2])
                 want = plain(x, w, bias)
                 err = rel_err(got, want)
                 planted_rel = (rel_err(planted(x, w, bias), want)[1]
@@ -607,9 +610,8 @@ def main() -> None:
                 wbytes = kd * nd if qname != "int4" else kd * nd // 2 + 4 * nd * kd // 64
                 nbytes = (m * kd + m * nd + nd) * isz + wbytes + (4 * nd if qname != "int4" else 0)
                 flops = 2.0 * m * kd * nd
-                if qname == "int4":
-                    extra.update(tflops=flops / t_k / 1e9, x_dense=t_k / t_d,
-                                 x_library=None if t_l is None else t_k / t_l)
+                extra.update(tflops=flops / t_k / 1e9, x_dense=t_k / t_d,
+                             x_library=None if t_l is None else t_k / t_l)
                 record(kname, f"{qname} ({m},{kd},{nd})", row_key(m, kd, nd), dt, err, t_k,
                        t_p, t_l, flops, nbytes, tol[("quant", dt)], row_tol[("quant", dt)],
                        dense_ms=t_d,
@@ -631,19 +633,21 @@ def main() -> None:
         f"before the product)")
     if not min(caught, caught_scale) > tol[("quant", torch.bfloat16)]:
         fail("the quant-matmul tolerance does not catch a planted rounding deviation")
-    # int4 per image (launches x ms) against tinygemm and dense cuBLAS, over
-    # all 19 shapes and over the M <= 154 ones (the tinygemm regime)
-    for label, keep in (("all 19 shapes", lambda m: True),
-                        (f"the {sum(m <= SMALL_M for m, _, _ in QUANT_SHAPES)} M <= {SMALL_M} "
-                         f"shapes", lambda m: m <= SMALL_M)):
-        rows = [(n, report["quant_matmul_int4"][(m, k, nn, 64)])
-                for (m, k, nn), n in QUANT_SHAPES.items() if keep(m)]
-        per = {f: sum(n * r[f] for n, r in rows) if all(r[f] is not None for _, r in rows)
-               else None for f in ("ms", "library_ms", "dense_ms", "bound_ms")}
-        lib = "n/a" if per["library_ms"] is None else f"{per['library_ms']:.3f}"
-        say(f"[kernel] quant_matmul_int4 per image over {label}: kernel {per['ms']:.3f} ms, "
-            f"tinygemm {lib}, dense {per['dense_ms']:.3f}, bound {per['bound_ms']:.3f} "
-            f"({sum(n for n, _ in rows)} launches)")
+    # each format per image (launches x ms) against its library call, dense
+    # cuBLAS and its bound, over all 19 shapes and over the M <= 154 ones
+    # (where the weight's bytes, not x's, dominate)
+    for qname, (_, kname, _, row_key) in qformats.items():
+        for label, keep in (("all 19 shapes", lambda m: True),
+                            (f"the {sum(m <= SMALL_M for m, _, _ in QUANT_SHAPES)} M <= "
+                             f"{SMALL_M} shapes", lambda m: m <= SMALL_M)):
+            rows = [(n, report[kname][row_key(m, k, nn)])
+                    for (m, k, nn), n in QUANT_SHAPES.items() if keep(m)]
+            per = {f: sum(n * r[f] for n, r in rows) if all(r[f] is not None for _, r in rows)
+                   else None for f in ("ms", "library_ms", "dense_ms", "bound_ms")}
+            lib = "n/a" if per["library_ms"] is None else f"{per['library_ms']:.3f}"
+            say(f"[kernel] {kname} {qname} per image over {label}: kernel {per['ms']:.3f} ms, "
+                f"library {lib}, dense {per['dense_ms']:.3f}, bound {per['bound_ms']:.3f} "
+                f"({sum(n for n, _ in rows)} launches)")
 
     # 4. kernels inside the model: UNet fp32, card vs CPU -----------------
     cfg = sd.SD15
@@ -834,7 +838,8 @@ def main() -> None:
                 counts = {kn: w.launches for kn, w in wrappers.items()}
                 counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
                 q_variants = variants()
-                int4_variants = dict(quant_matmul_int4.variants)
+                quant_variants = {kn: dict(wrappers[kn].variants)
+                                  for kn in ("quant_matmul", "quant_matmul_int4")}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if img.dtype != torch.uint8 or tuple(img.shape) != (1, 512, 512, 3):
             fail(f"{qname} image {img.dtype} {tuple(img.shape)}, want uint8 (1, 512, 512, 3)")
@@ -842,12 +847,13 @@ def main() -> None:
                 "quant_matmul_int4": 0}
         want[kname] = sum(QUANT_SHAPES.values())
         want_shapes = {row_key(*mkn): n for mkn, n in QUANT_SHAPES.items()}
-        want_int4 = {"wgmma": want[kname]} if qname == "int4" else {}
+        want_quant = {"quant_matmul": {}, "quant_matmul_int4": {}}
+        want_quant[kname] = {"wgmma": want[kname]}
         say(f"[main-{qname}] launches in one image: {counts} (want {want}); flash "
-            f"launches by variant {q_variants}; int4 launches by variant {int4_variants} "
-            f"(want {want_int4})")
+            f"launches by variant {q_variants}; quant launches by variant {quant_variants} "
+            f"(want {want_quant})")
         if (counts != want or counted[kname] != want_shapes or q_variants != want_variants
-                or int4_variants != want_int4):
+                or quant_variants != want_quant):
             fail(f"{qname}: launches {counts}, shapes {counted[kname]} against {want}, "
                  f"{want_shapes}")
         for kn in ("flash_packed", "flash_bhsd"):
@@ -861,6 +867,19 @@ def main() -> None:
             f"{sum(secs) / 2:.4f}; peak device memory {peak_gb:.2f} GB ({held_gb:.2f} GB "
             f"held before the images); final latents vs the dense image's: rel "
             f"{lat_rel:.4e}; card {card}")
+        if qname == "int8":
+            # wgmma reads the model's bf16 bias as it is: one cast launch
+            # per biased call fewer than an fp32 copy would take
+            has_bias = [leaf.bias is not None for leaf in model.unet.modules()
+                        if isinstance(leaf, Linear) and is_quantized(leaf.w)]
+            say(f"[main-int8] {len(has_bias)} quantized Linear leaves ({len(has_bias) * STEPS} "
+                f"calls per image), {sum(has_bias)} with a bf16 bias: {sum(has_bias) * STEPS} "
+                f"bias casts per image not launched")
+            # 6q. profile: one int8 image
+            prof = profile(lambda: sd.generate(model, ids, uncond, latent, GUIDANCE,
+                                               num_steps=STEPS))
+            say(f"[profile] one SD1.5 image with int8 UNet weights under torch.profiler: "
+                f"{json.dumps(prof)}")
 
     # 6q. profile: one int4 image -------------------------------------------
     prof = profile(lambda: sd.generate(model, ids, uncond, latent, GUIDANCE,

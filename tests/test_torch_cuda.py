@@ -29,6 +29,8 @@ import torch
 
 from tinyfusers_tpu_torch.kernels.flash_attention import (
     LOG2E, _prescale, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
+from tinyfusers_tpu_torch.kernels import _build
+from tinyfusers_tpu_torch.kernels import quant_matmul as qm
 from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
 from tinyfusers_tpu_torch.kernels.quant_matmul import (
     _plan, quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
@@ -390,6 +392,158 @@ def test_cuda_int4_variants_are_counted(cuda):
         quant_matmul_int4(x, _int4_weight(cuda, gen, n, k))
     torch.cuda.synchronize()
     got = {v: quant_matmul_int4.variants[v] - before.get(v, 0) for v in ("wgmma", "mma", "fma")}
+    assert got == {"wgmma": 1, "mma": 1, "fma": 1}
+
+
+def _byte_weight(cuda, g, n, k, wdtype):
+    """Seeded int8 / fp8 weight in a model's layout: (N, K) values in
+    storage, seen as (K, N), as layers.Linear holds it."""
+    w = quantize(torch.randn(n, k, generator=g, device=cuda).t() * k ** -0.5, wdtype)
+    return QuantizedTensor(w.values.t().contiguous().t(), w.scales)
+
+
+def _byte_wgmma(x, w, b, tile, split):
+    """quant_matmul's wgmma variant at a given x-row tile and split,
+    through the C entry (the wrapper takes them from _plan)."""
+    m, k = x.shape
+    n = w.values.shape[1]
+    rows, scales = w.values.t().contiguous(), w.scales.reshape(-1).float().contiguous()
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
+    _build.entry("quant_matmul", "tf_quant_matmul", qm._ARGS)(
+        qm._VARIANTS["wgmma"], _build.dtype_code(x.dtype), qm._FORMATS[w.values.dtype][0],
+        x.data_ptr(), rows.data_ptr(), scales.data_ptr(), None if b is None else b.data_ptr(),
+        _build.dtype_code(torch.float32 if b is None else b.dtype), out.data_ptr(), m, n, k, 0,
+        tile, split, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+# x-row tile -> (an SD1.5 shape, a ragged M and N shape) of that tile
+BYTE_TILE_SHAPES = {8: [(2, 1280, 320), (5, 640, 72)], 64: [(154, 768, 640), (37, 768, 40)],
+                    128: [(128, 1280, 1280), (300, 512, 200)],
+                    160: [(2048, 2560, 640), (1100, 640, 136)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", list(QFORMAT_NAMES))
+@pytest.mark.parametrize("tile", list(BYTE_TILE_SHAPES))
+def test_cuda_quant_wgmma_tiles_and_splits_match_plain(cuda, wdtype, tile):
+    """Each x-row tile of quant_matmul's wgmma variant with every split
+    1-8, at an SD1.5 shape and at ragged M and N, against the plain
+    version with a bf16 bias; a bf16 and an fp32 bias give the same bits,
+    and no bias matches too."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for m, k, n in BYTE_TILE_SHAPES[tile]:
+        x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+        w = _byte_weight(cuda, gen, n, k, wdtype)
+        b = torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16)
+        want, want_nb = quant_matmul_plain(x, w, b), quant_matmul_plain(x, w)
+        for split in range(1, 9):
+            got = _byte_wgmma(x, w, b, tile, split)
+            torch.cuda.synchronize()
+            assert _rel(got, want) <= QUANT_REL[torch.bfloat16], (m, k, n, split)
+            assert _row_rel(got, want) <= QUANT_ROW_REL[torch.bfloat16], (m, k, n, split)
+            assert torch.equal(_byte_wgmma(x, w, b.float(), tile, split), got)
+            assert _rel(_byte_wgmma(x, w, None, tile, split), want_nb) \
+                <= QUANT_REL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", list(QFORMAT_NAMES))
+def test_cuda_quant_wgmma_decodes_every_byte_exactly(cuda, wdtype):
+    """All 256 byte values of the format through the wgmma variant with
+    one-hot x rows, scale 1 and no bias: each output is one weight, which
+    must equal values.to(bfloat16) exactly. Every value sits at every K
+    position of the fragment (W[k, n] = (k + n) % 256). A NaN or inf code
+    is kept once, in a column of its own (elsewhere it becomes 0), since 0
+    times it is NaN in the other rows; there the output must equal the
+    plain version NaN for NaN."""
+    k = n = m = 256
+    codes = (torch.arange(k)[:, None] + torch.arange(n)[None, :]) % 256
+    decoded = codes.to(torch.uint8).view(wdtype).float()
+    special = [v for v in range(256) if not torch.isfinite(decoded[v, 0])]
+    kept = {}  # special code -> (k, n) where it is kept
+    for i, v in enumerate(special):
+        codes[codes == v] = 0
+        col = 8 * i + 3
+        kept[v] = ((v - col) % 256, col)
+        codes[kept[v]] = v
+    values = codes.to(torch.uint8).t().contiguous().t().view(wdtype).to(cuda)  # (N, K) storage
+    w = QuantizedTensor(values, torch.ones(1, n, device=cuda))
+    x = torch.eye(m, device=cuda).to(torch.bfloat16)
+    v0 = quant_matmul.variants["wgmma"]
+    got = quant_matmul(x, w).float()
+    torch.cuda.synchronize()
+    assert quant_matmul.variants["wgmma"] == v0 + 1
+    want = values.to(torch.bfloat16).float()
+    clean = [c for c in range(n) if c not in {col for _, col in kept.values()}]
+    assert torch.equal(got[:, clean], want[:, clean])
+    for kk, col in kept.values():
+        assert torch.equal(got[kk, col], want[kk, col]) or (got[kk, col].isnan()
+                                                           and want[kk, col].isnan())
+    plain = quant_matmul_plain(x, w).float()
+    assert torch.equal(got.isnan(), plain.isnan())
+    assert torch.equal(got[~got.isnan()], plain[~plain.isnan()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", list(QFORMAT_NAMES))
+def test_cuda_quant_wgmma_is_deterministic_and_replays_bit_for_bit(cuda, wdtype):
+    """At every split 1-8, two eager calls and a CUDA-graph replay give the
+    same bits: split-K sums the cluster's partials in a fixed rank order,
+    then scales, with no atomics or workspace."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    m, k, n = 154, 768, 640
+    x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+    w = _byte_weight(cuda, gen, n, k, wdtype)
+    b = torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16)
+    for split in range(1, 9):
+        first = _byte_wgmma(x, w, b, 64, split)
+        second = _byte_wgmma(x, w, b, 64, split)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _byte_wgmma(x, w, b, 64, split)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            replayed = _byte_wgmma(x, w, b, 64, split)
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second) and torch.equal(first, replayed), split
+    tile, split = _plan(torch.bfloat16, m, k, n)[1:]  # the wrapper's own launch, too
+    assert torch.equal(quant_matmul(x, w, b), _byte_wgmma(x, w, b, tile, split))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", list(QFORMAT_NAMES))
+@pytest.mark.parametrize("m,k,n", [(2, 1280, 1280), (37, 768, 640)])
+def test_cuda_quant_wgmma_rows_do_not_leak(cuda, wdtype, m, k, n):
+    """Rows past M are TMA's zeros: changing x's last row leaves the other
+    output rows unchanged, bit for bit, and moves the last."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+    w = _byte_weight(cuda, gen, n, k, wdtype)
+    base = quant_matmul(x, w)
+    x2 = x.clone()
+    x2[-1] = x2[-1] * 3 + 1
+    got = quant_matmul(x2, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:-1], base[:-1]) and not torch.equal(got[-1], base[-1])
+
+
+@pytest.mark.cuda
+def test_cuda_quant_variants_are_counted(cuda):
+    """quant_matmul: wgmma for a main-path bf16 shape, mma for a ragged-K
+    bf16 shape, fma for fp32: each launch counted once under its variant."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    before = dict(quant_matmul.variants)
+    for m, k, n, dtype in [(2, 1280, 320, torch.bfloat16), (37, 96, 40, torch.bfloat16),
+                           (2, 1280, 320, torch.float32)]:
+        x = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+        quant_matmul(x, _byte_weight(cuda, gen, n, k, torch.int8))
+    torch.cuda.synchronize()
+    got = {v: quant_matmul.variants[v] - before.get(v, 0) for v in ("wgmma", "mma", "fma")}
     assert got == {"wgmma": 1, "mma": 1, "fma": 1}
 
 

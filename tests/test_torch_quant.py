@@ -233,6 +233,64 @@ def test_int4_plan(shape, dtype, want):
         assert qmm._groups(k, g, plan[2]) <= qmm._MAX_GROUPS
 
 
+# (M, K, N), dtype -> (variant, x rows per block, K splits) of the int8 /
+# fp8 kernel (no group size). The 19 SD1.5 UNet shapes (bf16) all run
+# wgmma, with int4's tiles and at most 40 K steps a block (int4: 20), as
+# the byte formats' sweep has it.
+BYTE_PLANS = [
+    ((8192, 320, 320), "bfloat16", ("wgmma", 160, 1)),
+    ((154, 768, 320), "bfloat16", ("wgmma", 64, 7)),
+    ((8192, 320, 2560), "bfloat16", ("wgmma", 160, 1)),
+    ((8192, 1280, 320), "bfloat16", ("wgmma", 160, 1)),
+    ((2048, 640, 640), "bfloat16", ("wgmma", 160, 1)),
+    ((154, 768, 640), "bfloat16", ("wgmma", 64, 3)),
+    ((2048, 640, 5120), "bfloat16", ("wgmma", 160, 1)),
+    ((2048, 2560, 640), "bfloat16", ("wgmma", 160, 1)),  # int4: split 2
+    ((512, 1280, 1280), "bfloat16", ("wgmma", 128, 1)),
+    ((154, 768, 1280), "bfloat16", ("wgmma", 64, 2)),
+    ((512, 1280, 10240), "bfloat16", ("wgmma", 128, 1)),
+    ((512, 5120, 1280), "bfloat16", ("wgmma", 128, 2)),  # int4: split 4
+    ((128, 1280, 1280), "bfloat16", ("wgmma", 128, 5)),
+    ((128, 1280, 10240), "bfloat16", ("wgmma", 128, 1)),
+    ((128, 5120, 1280), "bfloat16", ("wgmma", 128, 5)),
+    ((2, 1280, 320), "bfloat16", ("wgmma", 8, 8)),
+    ((2, 1280, 640), "bfloat16", ("wgmma", 8, 8)),
+    ((2, 1280, 1280), "bfloat16", ("wgmma", 8, 5)),
+    ((2, 320, 1280), "bfloat16", ("wgmma", 8, 5)),
+    # no group budget: 80 K steps split toward at most 40 a block
+    ((8192, 5120, 320), "bfloat16", ("wgmma", 160, 2)),
+    ((37, 768, 40), "bfloat16", ("wgmma", 64, 8)),   # ragged M and N inside wgmma
+    ((37, 96, 40), "bfloat16", ("mma", 0, 1)),       # K % 64 != 0
+    ((5, 72, 33), "bfloat16", ("mma", 0, 1)),        # ragged K, odd N
+    ((64, 1280, 36), "bfloat16", ("mma", 0, 1)),     # N % 8 != 0
+    ((2, 1280, 320), "float32", ("fma", 0, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,want", BYTE_PLANS)
+def test_byte_plan(shape, dtype, want):
+    assert qmm._plan(getattr(torch, dtype), *shape) == want
+
+
+@pytest.mark.parametrize("variant,bias_dtype,want_dtype,same", [
+    ("wgmma", torch.bfloat16, torch.bfloat16, True),  # a model's bias: read as it is
+    ("wgmma", torch.float32, torch.float32, True),
+    ("wgmma", torch.float16, torch.float32, False),   # other dtypes: an fp32 copy
+    ("mma", torch.bfloat16, torch.float32, False),    # mma and fma read fp32 only
+    ("fma", torch.float32, torch.float32, True),
+])
+def test_kernel_bias(variant, bias_dtype, want_dtype, same):
+    """The bias the kernel reads: wgmma takes bf16 or fp32 in place (bf16
+    -> fp32 is exact there), so a model's bf16 bias costs no cast launch."""
+    x = torch.zeros(2, 64, dtype=torch.bfloat16)
+    b = torch.arange(48, dtype=torch.float32).to(bias_dtype)
+    got = qmm._kernel_bias(b, x, variant)
+    assert got.dtype == want_dtype and got.shape == (48,) and got.is_contiguous()
+    assert (got.data_ptr() == b.data_ptr()) == same
+    assert torch.equal(got.float(), b.float())
+    assert qmm._kernel_bias(None, x, variant) is None
+
+
 # -- quantized ops -------------------------------------------------------------------
 
 def _both(name, w, axis):

@@ -27,7 +27,7 @@
 // output tile, and few output tiles for 132 SMs.
 //
 // Three kernels; kernels/quant_matmul.py::_plan names the one a call runs:
-//   mma    (bf16, every format; int4 where wgmma does not take the shape)
+//   mma    (bf16, every format, where wgmma does not take the shape)
 //          as csrc/geglu_ff.cu: 64 x 64 output tiles, 4 warps of 32 x 32,
 //          64-deep K steps, mma.sync m16n8k16 with ldmatrix operands; x and
 //          the weight bytes arrive as 16-byte loads into registers one K
@@ -35,27 +35,34 @@
 //          Ragged M, N and K are masked in the loads and the epilogue
 //          (element-wise loads when K breaks 16-byte vectors); the int4
 //          group size may be any divisor of K.
-//   wgmma  (bf16 int4 where TMA reads the operands in place and K is a
-//          whole number of 64-deep steps: K % 64 == 0, N % 8 == 0, g % 16
-//          == 0 with g dividing or a multiple of 64; every SD1.5 UNet shape). It computes out^T (N x M) = W^T . x^T,
-//          so the weight is wgmma's A operand, from registers:
+//   wgmma  (bf16, every format, where TMA reads the operands in place and K
+//          is a whole number of 64-deep steps: K % 64 == 0, N % 8 == 0; for
+//          int4 also g % 16 == 0 with g dividing or a multiple of 64; every
+//          SD1.5 UNet shape). One kernel template over the format. It
+//          computes out^T (N x M) = W^T . x^T, so the weight is wgmma's A
+//          operand, from registers:
 //          * one producer warp issues TMA copies of (x tile: BN rows x 64 of
-//            K, 128-byte swizzled; packed weight tile: 64 rows x 32 bytes)
-//            into a ring of ST stages with full / empty mbarriers;
+//            K, 128-byte swizzled; weight tile: 64 rows x 32 bytes of int4
+//            or 64 bytes of int8 / fp8, the latter 64-byte swizzled) into a
+//            ring of stages with full / empty mbarriers;
 //          * one consumer warpgroup owns 64 weight rows (output columns).
 //            In the m64k16 A fragment a thread holds rows g and g + 8 at k
-//            2t..2t+1 and 2t+8..2t+9: each pair is one packed byte, so it
-//            decodes 4 bytes of the shared weight tile per k16 (the nibble
-//            to float step exact through the 2^23 magic number, the scale
-//            an fp32 product, then cvt.rn.bf16x2) into 4 registers. The
-//            next stage decodes while this stage's wgmmas run, and the
-//            decoded weight never touches shared memory; it serves the
-//            whole n = BN tile of x rows (8, 64, 128 or 160 by M), so at
-//            large M a weight tile is decoded once per 160 rows of x;
+//            2t..2t+1 and 2t+8..2t+9. For int4 each pair is one packed byte
+//            (the nibble to float step exact through the 2^23 magic number,
+//            the scale an fp32 product, then cvt.rn.bf16x2); for int8 / fp8
+//            it is two bytes, read as 4-byte words of the swizzled tile
+//            (the 8 rows of a warp on distinct banks) and converted exactly,
+//            unscaled (int8 through the magic number, e4m3 / e5m2 through
+//            cvt.rn.f16x2.e4m3x2 / e5m2x2). The next stage decodes while
+//            this stage's wgmmas run, and the decoded weight never touches
+//            shared memory; it serves the whole n = BN tile of x rows (8,
+//            64, 128 or 160 by M), so at large M a weight tile is decoded
+//            once per 160 rows of x. No fp8 or int8 MMA: x stays bf16, as
+//            in the reference;
 //          * TMA fills x rows past M with zeros, so M = 2 runs as n = 8
-//            with no pad in device memory; the block's group scales are
-//            read once into shared memory (a (N, K/g) row of 5 fp32 is no
-//            TMA box);
+//            with no pad in device memory; int4's group scales are read
+//            once into shared memory (a (N, K/g) row of 5 fp32 is no TMA
+//            box), the byte formats' per-channel scales into registers;
 //          * split-K for shapes whose output tiles do not fill the card
 //            (the plan's `split`, up to 8): the splits of one tile form a
 //            thread block cluster. After a cluster barrier each block
@@ -63,10 +70,11 @@
 //            the shared memory of the group's owner, the block of rank
 //            j % split (distributed shared memory, one slot per sender);
 //            after a second barrier each owner sums its slots in rank order
-//            0, 1, ... and adds the bias. Stores, not loads, cross the
-//            cluster, so no block waits on a remote round trip. One launch,
-//            no workspace, no atomics: every call and every CUDA-graph
-//            replay gives the same bits;
+//            0, 1, ..., then (int8 / fp8) multiplies by the scale and adds
+//            the bias. Stores, not loads, cross the cluster, so no block
+//            waits on a remote round trip. One launch, no workspace, no
+//            atomics: every call and every CUDA-graph replay gives the same
+//            bits;
 //          * the epilogue writes the bf16 tile into 128-byte swizzled
 //            shared memory (conflict-free) and TMA stores it (the map
 //            clips rows past M and columns past N).
@@ -347,16 +355,15 @@ __global__ void __launch_bounds__(NT) quant_mm_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 int4: TMA ring + wgmma with the decoded weight as A from registers
+// bf16, every format: TMA ring + wgmma with the decoded weight as A from
+// registers
 // ---------------------------------------------------------------------------
 
-namespace w4 {
+namespace wg {
 
 constexpr int NW = 64;              // weight rows (output columns) per block
 constexpr int KS = 64;              // K per stage
-constexpr int WT = NW * KS / 2;     // bytes of a packed weight tile: 2 KB
-constexpr int SCALE_BYTES = 8192;   // the block's group scales, fp32
-constexpr int MAX_GROUPS = SCALE_BYTES / 4 / NW;  // 32 groups per block
+constexpr int MAX_GROUPS = 32;      // int4 group scales a block holds (8 KB of fp32)
 // A consumer warpgroup and one producer warp: two blocks an SM leave up to
 // 200 registers a thread, and the 160-row tile takes 136. A producer
 // warpgroup would cap the block at 128 (setmaxnreg does not help: ptxas
@@ -364,17 +371,43 @@ constexpr int MAX_GROUPS = SCALE_BYTES / 4 / NW;  // 32 groups per block
 constexpr int THREADS = 160;
 constexpr int MAX_SMEM = 115712;    // two blocks an SM (228 KB, 1 KB each reserved)
 
+// What the weight format changes: the bytes of one weight row per K step
+// (int4: two values a byte; int8 / fp8: one), hence the tile and its
+// layout, and the shared memory for int4's group scales (the byte formats'
+// per-channel scale is two registers a thread, applied in the epilogue).
+// The byte formats' 64-byte rows are stored with TMA's 64-byte swizzle
+// (the 16-byte chunk c of row r at chunk c ^ ((r / 2) % 4)), so the 8 rows
+// a warp decodes at once fall on distinct banks; int4's 32-byte rows do
+// without.
+template <int FMT>
+struct Fmt {
+  static constexpr bool NIBBLES = FMT == kInt4;
+  static constexpr int ROW = NIBBLES ? KS / 2 : KS;
+  static constexpr int WT = NW * ROW;  // 2 KB int4, 4 KB int8 / fp8
+  static constexpr int SCALE_BYTES = NIBBLES ? MAX_GROUPS * NW * 4 : 0;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      NIBBLES ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
 struct Params {
-  const float* scales;  // (N, K/g)
+  const float* scales;  // int4: (N, K/g); int8 / fp8: (N,)
   const void* bias;     // (N,) fp32, or bf16 when bias_bf16 (converts exactly), or null
   int bias_bf16;
   int M, N, K, g;
 };
 
-// BN x rows (wgmma's n) per block, ST ring stages.
-template <int BN_, int ST_>
+// Ring stages by x-row tile: as many as two blocks an SM leave room for,
+// up to 8 (int4's were fitted first and stay as they were).
+constexpr int stages(int fmt, int bn) {
+  return fmt == kInt4 ? (bn == 8 ? 8 : bn == 64 ? 6 : 4)
+                      : (bn == 8 ? 8 : bn == 64 ? 8 : bn == 128 ? 5 : 4);
+}
+
+// Format FMT, BN x rows (wgmma's n) per block.
+template <int FMT_, int BN_>
 struct Cfg {
-  static constexpr int BN = BN_, ST = ST_;
+  static constexpr int FMT = FMT_, BN = BN_, ST = stages(FMT_, BN_);
+  static constexpr int WT = Fmt<FMT>::WT;
   static_assert(BN % 8 == 0 && BN <= 256, "wgmma n");
   static constexpr int XT = BN * 128;  // x tile: BN rows x 64 bf16, 128-byte swizzled
   static constexpr int OFF_W = ST * XT;
@@ -386,7 +419,7 @@ struct Cfg {
   static constexpr int NJ = BN / 8;
   static constexpr int EPI = (NJ + 7) * 2048 + NJ * 1024;
   static constexpr int OFF_S = RING > EPI ? RING : EPI;
-  static constexpr int OFF_BAR = OFF_S + SCALE_BYTES;
+  static constexpr int OFF_BAR = OFF_S + Fmt<FMT>::SCALE_BYTES;
   // + 1024 so the base can be rounded up to the swizzle's 1024-byte period
   static constexpr int SMEM = OFF_BAR + 16 * ST + 1024;
   static_assert(SMEM <= MAX_SMEM, "two blocks an SM");
@@ -402,23 +435,66 @@ __device__ __forceinline__ uint32_t decode_pair(uint32_t word, int t, float s) {
   return pack_bf16(__fmul_rn(lo, s), __fmul_rn(hi, s));
 }
 
+// The low two bytes of `v` (weights at k and k + 1 of one row, k in the low
+// byte) as the A fragment's bf16 pair, exactly and unscaled: an int8 byte b
+// is 2^23 + (b ^ 0x80) - (2^23 + 128) in fp32; an fp8 pair converts to f16
+// (cvt.rn.f16x2.e4m3x2 / .e5m2x2, NaN and inf kept), then through fp32.
+template <int FMT>
+__device__ __forceinline__ uint32_t decode_bytes(uint32_t v) {
+  if constexpr (FMT == kInt8) {
+    const float lo = __uint_as_float(0x4B000000u | ((v & 0xFFu) ^ 0x80u)) - 8388736.f;
+    const float hi = __uint_as_float(0x4B000000u | (((v >> 8) & 0xFFu) ^ 0x80u)) - 8388736.f;
+    return pack_bf16(lo, hi);
+  } else {
+    constexpr __nv_fp8_interpretation_t kind = FMT == kE4M3 ? __NV_E4M3 : __NV_E5M2;
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(v), kind);
+    const float2 f = __half22float2(__half2(h));
+    return pack_bf16(f.x, f.y);
+  }
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
 // A fragments of the four k16 steps of global stage `kt` for this thread's
 // weight rows r0 and r0 + 8: a[4kk + 0..3] = (r0, 2t), (r0 + 8, 2t),
-// (r0, 2t + 8), (r0 + 8, 2t + 8) of step kk, each a k pair = one byte.
+// (r0, 2t + 8), (r0 + 8, 2t + 8) of step kk, each a k pair: one byte of
+// int4 (times its group's scale), two bytes of int8 / fp8.
+template <int FMT>
 __device__ __forceinline__ void decode_stage(uint32_t (&a)[16], const unsigned char* ws,
                                              const float* ssc, const Params& p, int kt,
                                              int gb, int r0, int t) {
+  if constexpr (FMT == kInt4) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    // bytes 8kk .. 8kk + 7 of each row: k 16kk .. 16kk + 15
-    const uint2 w0 = *reinterpret_cast<const uint2*>(ws + r0 * 32 + 8 * kk);
-    const uint2 w8 = *reinterpret_cast<const uint2*>(ws + (r0 + 8) * 32 + 8 * kk);
-    const float* sc = ssc + ((kt * KS + 16 * kk) / p.g - gb) * NW;
-    const float s0 = sc[r0], s8 = sc[r0 + 8];
-    a[4 * kk + 0] = decode_pair(w0.x, t, s0);
-    a[4 * kk + 1] = decode_pair(w8.x, t, s8);
-    a[4 * kk + 2] = decode_pair(w0.y, t, s0);
-    a[4 * kk + 3] = decode_pair(w8.y, t, s8);
+    for (int kk = 0; kk < 4; ++kk) {
+      // bytes 8kk .. 8kk + 7 of each row: k 16kk .. 16kk + 15
+      const uint2 w0 = *reinterpret_cast<const uint2*>(ws + r0 * 32 + 8 * kk);
+      const uint2 w8 = *reinterpret_cast<const uint2*>(ws + (r0 + 8) * 32 + 8 * kk);
+      const float* sc = ssc + ((kt * KS + 16 * kk) / p.g - gb) * NW;
+      const float s0 = sc[r0], s8 = sc[r0 + 8];
+      a[4 * kk + 0] = decode_pair(w0.x, t, s0);
+      a[4 * kk + 1] = decode_pair(w8.x, t, s8);
+      a[4 * kk + 2] = decode_pair(w0.y, t, s0);
+      a[4 * kk + 3] = decode_pair(w8.y, t, s8);
+    }
+  } else {
+    // chunk kk (16 bytes) of a 64-byte row holds k 16kk .. 16kk + 15; the
+    // pair 2t, 2t + 1 is half (t & 1) of the chunk's word t / 2, the pair
+    // 2t + 8, 2t + 9 the same half of word 2 + t / 2. Rows r0 and r0 + 8
+    // share the swizzle's XOR.
+    const int xr = (r0 >> 1) & 3;
+    const int sh = 16 * (t & 1);
+    const unsigned char* w0 = ws + r0 * KS + 4 * (t >> 1);
+    const unsigned char* w8 = w0 + 8 * KS;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c = (kk ^ xr) * 16;
+      a[4 * kk + 0] = decode_bytes<FMT>(lds32(w0 + c) >> sh);
+      a[4 * kk + 1] = decode_bytes<FMT>(lds32(w8 + c) >> sh);
+      a[4 * kk + 2] = decode_bytes<FMT>(lds32(w0 + c + 8) >> sh);
+      a[4 * kk + 3] = decode_bytes<FMT>(lds32(w8 + c + 8) >> sh);
+    }
   }
 }
 
@@ -432,9 +508,10 @@ __device__ __forceinline__ void put_out(unsigned char* tile, int m, int r, float
 
 template <class C>
 __global__ void __launch_bounds__(THREADS, 2)
-    int4_mm_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-                  const __grid_constant__ CUtensorMap to, const Params p) {
-  constexpr int BN = C::BN, ST = C::ST, NA = BN / 2;
+    quant_mm_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap to, const Params p) {
+  constexpr int FMT = C::FMT, BN = C::BN, ST = C::ST, NA = BN / 2;
+  constexpr int ROW = Fmt<FMT>::ROW;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
@@ -461,9 +538,9 @@ __global__ void __launch_bounds__(THREADS, 2)
       for (int i = 0; i < nst; ++i) {
         const int s = i % ST;
         mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);  // the first round passes
-        mbar_expect_tx(&full[s], C::XT + WT);
+        mbar_expect_tx(&full[s], C::XT + C::WT);
         tma_load_2d(smem + s * C::XT, &tx, &full[s], (kb + i) * KS, m0);
-        tma_load_2d(smem + C::OFF_W + s * WT, &tw, &full[s], (kb + i) * (KS / 2), n0);
+        tma_load_2d(smem + C::OFF_W + s * C::WT, &tw, &full[s], (kb + i) * ROW, n0);
       }
     }
     if (split > 1) {  // the consumers' two cluster barriers
@@ -475,22 +552,33 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int tq = lane % 4;
     const int r0 = 16 * warp + lane / 4;  // this thread's weight rows: r0, r0 + 8
 
-    // the group scales of this block's rows over its K range, group-major
-    const int G = p.K / p.g;
-    const int gb = kb * KS / p.g;
-    const int ng = min(G, (ke * KS + p.g - 1) / p.g) - gb;  // <= MAX_GROUPS (host)
-    for (int i = t; i < ng * NW; i += 128) {
-      const int r = i / ng, j = i - (i / ng) * ng, n = n0 + r;
-      ssc[j * NW + r] = n < p.N ? p.scales[(long long)n * G + gb + j] : 0.f;
+    // int4: the group scales of this block's rows over its K range,
+    // group-major; int8 / fp8: the per-channel scales of rows r0, r0 + 8
+    int gb = 0;
+    if constexpr (FMT == kInt4) {
+      const int G = p.K / p.g;
+      gb = kb * KS / p.g;
+      const int ng = min(G, (ke * KS + p.g - 1) / p.g) - gb;  // <= MAX_GROUPS (host)
+      for (int i = t; i < ng * NW; i += 128) {
+        const int r = i / ng, j = i - (i / ng) * ng, n = n0 + r;
+        ssc[j * NW + r] = n < p.N ? p.scales[(long long)n * G + gb + j] : 0.f;
+      }
     }
-    float bias[2];
+    float scale[2], bias[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int n = n0 + r0 + 8 * h;
+      scale[h] = (FMT != kInt4 && n < p.N) ? p.scales[n] : 1.f;
       if (p.bias == nullptr || n >= p.N) bias[h] = 0.f;
       else if (p.bias_bf16) bias[h] = __bfloat162float(static_cast<const bf16*>(p.bias)[n]);
       else bias[h] = static_cast<const float*>(p.bias)[n];
     }
+    // the sum over all of K, then (int8 / fp8) times the scale, then plus
+    // the bias, each rounded in fp32 as the reference does: no FMA
+    auto finish = [&](float y, int h) {
+      if constexpr (C::FMT != kInt4) y = __fmul_rn(y, scale[h]);
+      return __fadd_rn(y, bias[h]);
+    };
     bar_sync(1, 128);
 
     float acc[NA];
@@ -498,7 +586,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int i = 0; i < NA; ++i) acc[i] = 0.f;
     uint32_t fa[16], fb[16];
     mbar_wait(&full[0], 0);
-    decode_stage(fa, smem + C::OFF_W, ssc, p, kb, gb, r0, tq);
+    decode_stage<FMT>(fa, smem + C::OFF_W, ssc, p, kb, gb, r0, tq);
     for (int i = 0; i < nst; ++i) {
       const int s = i % ST;
       const unsigned char* xs = smem + s * C::XT;
@@ -511,7 +599,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       if (i + 1 < nst) {  // decode the next stage while the tensor cores run
         const int s1 = (i + 1) % ST;
         mbar_wait(&full[s1], ((i + 1) / ST) & 1);
-        decode_stage(fb, smem + C::OFF_W + s1 * WT, ssc, p, kb + i + 1, gb, r0, tq);
+        decode_stage<FMT>(fb, smem + C::OFF_W + s1 * C::WT, ssc, p, kb + i + 1, gb, r0, tq);
       }
       wg_wait0();
       fence_regs(acc);
@@ -533,7 +621,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           put_out(tile + j * 1024, 2 * tq + (e & 1), r0 + 8 * (e / 2),
-                  __fadd_rn(acc[4 * j + e], bias[e / 2]));
+                  finish(acc[4 * j + e], e / 2));
     } else {
       // each block sends its partial of group j into the owner's slot
       // [rank][j / split]; the owner then sums the slots in rank order
@@ -555,8 +643,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         const float y[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          put_out(tile + jl * 1024, 2 * tq + (e & 1), r0 + 8 * (e / 2),
-                  __fadd_rn(y[e], bias[e / 2]));
+          put_out(tile + jl * 1024, 2 * tq + (e & 1), r0 + 8 * (e / 2), finish(y[e], e / 2));
       }
     }
     fence_async_smem();
@@ -592,19 +679,21 @@ inline int groups_of(int K, int g, int split, int r) {
 }
 
 template <class C>
-int run(const void* x, const void* packed, void* out, const Params& p, int split,
+int run(const void* x, const void* w, void* out, const Params& p, int split,
         cudaStream_t stream) {
+  using F = Fmt<C::FMT>;
+  const int row_bytes = p.K / KS * F::ROW;  // K / 2 int4, K int8 / fp8
   CUtensorMap tx, tw, to;
   int err = encode_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, p.K, p.M, 2ll * p.K, KS, C::BN,
                       CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess)
-    err = encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, p.K / 2, p.N, p.K / 2, KS / 2,
-                    NW, CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, row_bytes, p.N, row_bytes, F::ROW,
+                    NW, F::SWIZZLE);
   if (err == cudaSuccess)
     err = encode_2d(&to, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, p.N, p.M, 2ll * p.N, NW, 8,
                     CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  auto kernel = int4_mm_wgmma<C>;
+  auto kernel = quant_mm_wgmma<C>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -625,16 +714,17 @@ int run(const void* x, const void* packed, void* out, const Params& p, int split
 
 // Calls run<Cfg> for x-row tile `bn` (the plan's tile); cudaErrorInvalidValue
 // for a tile no configuration has.
-int launch(int bn, const void* x, const void* packed, void* out, const Params& p, int split,
+template <int FMT>
+int launch(int bn, const void* x, const void* w, void* out, const Params& p, int split,
            cudaStream_t st) {
-  if (bn == 8) return run<Cfg<8, 8>>(x, packed, out, p, split, st);
-  if (bn == 64) return run<Cfg<64, 6>>(x, packed, out, p, split, st);
-  if (bn == 128) return run<Cfg<128, 4>>(x, packed, out, p, split, st);
-  if (bn == 160) return run<Cfg<160, 4>>(x, packed, out, p, split, st);
+  if (bn == 8) return run<Cfg<FMT, 8>>(x, w, out, p, split, st);
+  if (bn == 64) return run<Cfg<FMT, 64>>(x, w, out, p, split, st);
+  if (bn == 128) return run<Cfg<FMT, 128>>(x, w, out, p, split, st);
+  if (bn == 160) return run<Cfg<FMT, 160>>(x, w, out, p, split, st);
   return cudaErrorInvalidValue;
 }
 
-}  // namespace w4
+}  // namespace wg
 
 // ---------------------------------------------------------------------------
 // fp32: exact fp32 FMA loops through shared memory
@@ -700,63 +790,57 @@ int launch(int dtype, const Params& p, cudaStream_t st) {
 }  // namespace
 }  // namespace tf
 
-// x (M, K) contiguous in the compute dtype (0 fp32, 1 bf16); w (N, K)
-// contiguous bytes, format 0 int8, 1 e4m3 or 2 e5m2; scales (N,) fp32; bias (N,)
-// fp32 or null; out (M, N) contiguous, in x's dtype.
-extern "C" int tf_quant_matmul(int dtype, int fmt, const void* x, const void* w,
-                               const float* scales, const float* bias, void* out, int M,
-                               int N, int K, void* stream) {
-  if (M == 0 || N == 0) return cudaSuccess;
-  const int xbytes = dtype == tf::kBFloat16 ? 2 : 4;
-  tf::Params p{x, static_cast<const uint8_t*>(w), scales, bias, out, M, N, K, 1,
-               (K * xbytes) % 16 == 0 && tf::aligned16(x),
-               K % 16 == 0 && tf::aligned16(w)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fmt == tf::kInt8) return tf::launch<tf::kInt8>(dtype, p, st);
-  if (fmt == tf::kE4M3) return tf::launch<tf::kE4M3>(dtype, p, st);
-  if (fmt == tf::kE5M2) return tf::launch<tf::kE5M2>(dtype, p, st);
-  return cudaErrorInvalidValue;
-}
-
-// Kernel variants of the int4 entry, as kernels/quant_matmul.py::_VARIANTS
-// numbers them.
+// Kernel variants, as kernels/quant_matmul.py::_VARIANTS numbers them.
 constexpr int kVarFma = 0;
 constexpr int kVarMma = 1;
 constexpr int kVarWgmma = 2;
 
-// x as above; packed (N, K/2) contiguous bytes, byte r of a row holding
-// k = 2r (low nibble) and 2r + 1 (high); scales (N, K/g) fp32 contiguous;
-// g divides K; bias (N,) of dtype code `bias_dtype` (fp32; bf16 for wgmma
-// only) or null; out as above. `variant` comes from the wrapper's
-// shape rule (fma: fp32; mma, wgmma: bf16), and for wgmma `tile` (x rows
-// per block: 8, 64, 128 or 160) and `split` (K splits, 1..8, one cluster);
-// a shape the variant does not take is refused.
-extern "C" int tf_quant_matmul_int4(int variant, int dtype, const void* x, const void* packed,
-                                    const float* scales, const void* bias, int bias_dtype,
-                                    void* out, int M, int N, int K, int g, int tile, int split,
-                                    void* stream) {
+// x (M, K) contiguous in the compute dtype (0 fp32, 1 bf16). w: format 0
+// int8, 1 e4m3 or 2 e5m2, (N, K) contiguous bytes with scales (N,) fp32;
+// format 3 int4, (N, K/2) contiguous bytes, byte r of a row holding k = 2r
+// (low nibble) and 2r + 1 (high), with scales (N, K/g) fp32 contiguous, g
+// dividing K (g is not read for the byte formats). bias (N,) of dtype code
+// `bias_dtype` (fp32; bf16 for wgmma only) or null; out (M, N) contiguous,
+// in x's dtype. `variant` comes from the wrapper's shape rule (fma: fp32;
+// mma, wgmma: bf16), and for wgmma `tile` (x rows per block: 8, 64, 128 or
+// 160) and `split` (K splits, 1..8, one cluster); a shape the variant does
+// not take is refused.
+extern "C" int tf_quant_matmul(int variant, int dtype, int fmt, const void* x, const void* w,
+                               const float* scales, const void* bias, int bias_dtype,
+                               void* out, int M, int N, int K, int g, int tile, int split,
+                               void* stream) {
   if (M == 0 || N == 0) return cudaSuccess;
-  if (K % 2 != 0 || g <= 0 || K % g != 0) return cudaErrorInvalidValue;
+  if (fmt < tf::kInt8 || fmt > tf::kInt4) return cudaErrorInvalidValue;
+  const bool int4 = fmt == tf::kInt4;
+  if (int4 && (K % 2 != 0 || g <= 0 || K % g != 0)) return cudaErrorInvalidValue;
   if ((variant == kVarFma) != (dtype == tf::kFloat32)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (variant == kVarWgmma) {
-    namespace w4 = tf::w4;
-    const bool takes = K % w4::KS == 0 && N % 8 == 0 && g % 16 == 0 &&
-                       (w4::KS % g == 0 || g % w4::KS == 0) && split >= 1 && split <= 8 &&
-                       split <= K / w4::KS && tf::aligned16(x) &&
-                       tf::aligned16(packed) && tf::aligned16(out);
+    namespace wg = tf::wg;
+    const bool takes = K % wg::KS == 0 && N % 8 == 0 && split >= 1 && split <= 8 &&
+                       split <= K / wg::KS && tf::aligned16(x) && tf::aligned16(w) &&
+                       tf::aligned16(out) &&
+                       (!int4 || (g % 16 == 0 && (wg::KS % g == 0 || g % wg::KS == 0)));
     if (!takes) return cudaErrorInvalidValue;
-    for (int r = 0; r < split; ++r)
-      if (w4::groups_of(K, g, split, r) > w4::MAX_GROUPS) return cudaErrorInvalidValue;
-    const w4::Params p{scales, bias, bias_dtype == tf::kBFloat16, M, N, K, g};
-    return w4::launch(tile, x, packed, out, p, split, st);
+    if (int4)
+      for (int r = 0; r < split; ++r)
+        if (wg::groups_of(K, g, split, r) > wg::MAX_GROUPS) return cudaErrorInvalidValue;
+    const wg::Params p{scales, bias, bias_dtype == tf::kBFloat16, M, N, K, g};
+    if (fmt == tf::kInt8) return wg::launch<tf::kInt8>(tile, x, w, out, p, split, st);
+    if (fmt == tf::kE4M3) return wg::launch<tf::kE4M3>(tile, x, w, out, p, split, st);
+    if (fmt == tf::kE5M2) return wg::launch<tf::kE5M2>(tile, x, w, out, p, split, st);
+    return wg::launch<tf::kInt4>(tile, x, w, out, p, split, st);
   }
   if ((variant != kVarMma && variant != kVarFma) || bias_dtype != tf::kFloat32)
     return cudaErrorInvalidValue;
   const int xbytes = dtype == tf::kBFloat16 ? 2 : 4;
-  tf::Params p{x, static_cast<const uint8_t*>(packed), scales, static_cast<const float*>(bias),
-               out, M, N, K, g,
+  const int row_bytes = int4 ? K / 2 : K;
+  tf::Params p{x, static_cast<const uint8_t*>(w), scales, static_cast<const float*>(bias),
+               out, M, N, K, int4 ? g : 1,
                (K * xbytes) % 16 == 0 && tf::aligned16(x),
-               (K / 2) % 16 == 0 && tf::aligned16(packed)};
+               row_bytes % 16 == 0 && tf::aligned16(w)};
+  if (fmt == tf::kInt8) return tf::launch<tf::kInt8>(dtype, p, st);
+  if (fmt == tf::kE4M3) return tf::launch<tf::kE4M3>(dtype, p, st);
+  if (fmt == tf::kE5M2) return tf::launch<tf::kE5M2>(dtype, p, st);
   return tf::launch<tf::kInt4>(dtype, p, st);
 }

@@ -1,8 +1,8 @@
 """A/B of one kernel's wrappers in two checkouts on one NVIDIA GPU.
 
     python3 tools/kernel_ab.py --kernel flash --parent PATH
-    python3 tools/kernel_ab.py --kernel int4 --parent PATH
-    python3 tools/kernel_ab.py --kernel int4 --sweep
+    python3 tools/kernel_ab.py --kernel int8|fp8|int4 --parent PATH
+    python3 tools/kernel_ab.py --kernel int8|fp8|int4 --sweep
 
 PATH is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -15,20 +15,24 @@ call timed by events, as phase 3 of chip_smoke.py times them.
   (chip_smoke.py's PACKED_SHAPES, MULTIK_SHAPES and BHSD_SHAPES), and the
   host microseconds of one eager ``flash_packed`` call at SD1.5's 64x64
   self-attention shape (``chip_smoke.wrapper_host_us``).
-* ``int4``: ``quant_matmul_int4`` at the 19 UNet shapes of chip_smoke.py's
-  QUANT_SHAPES (bf16, g = 64, a bf16 bias, the weight in a model's
-  layout), with ``torch._weight_int4pack_mm`` (tinygemm) and dense
-  ``F.linear`` timed beside it in the same process, and the per-image sums
-  (launches x ms) over all 19 shapes and over the M <= 154 ones.
+* ``int8``, ``fp8`` (e4m3), ``int4``: ``quant_matmul`` or
+  ``quant_matmul_int4`` at the 19 UNet shapes of chip_smoke.py's
+  QUANT_SHAPES (bf16, int4 with g = 64, a bf16 bias, the weight in a
+  model's layout), with dense ``F.linear`` (and for int4
+  ``torch._weight_int4pack_mm``, tinygemm) timed beside it in the same
+  process, the per-image sums (launches x ms) over all 19 shapes and over
+  the M <= 154 ones, and a hash of each output's bits.
 
-Each run prints one JSON line; the last line holds all four runs and the
-card's name and power limit. ``--sweep`` instead times every (tile, split)
-of this checkout's int4 wgmma kernel at the 19 shapes (the data its plan's
-rule was fitted to), one JSON line per shape.
+Each run prints one JSON line; the last line holds all four runs, the
+card's name and power limit and, for the quant kernels, whether the four
+runs gave the same bits at each shape. ``--sweep`` instead times every
+(tile, split) of this checkout's wgmma variant for the format at the 19
+shapes (the data its plan's rule was fitted to), one JSON line per shape.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -77,37 +81,59 @@ def measure_flash(checkout: Path) -> dict:
     return out
 
 
-def _int4_case(gen, m, k, n, g=64):
-    """x, an int4 weight in a model's storage ((N, K/2) bytes, (N, K/g)
-    scales, seen as (K/2, N) and (K/g, N)) and a bf16 bias, seeded."""
+# --kernel -> (wrapper name, weight format: a torch dtype or "int4")
+QUANT = {"int8": ("quant_matmul", "int8"), "fp8": ("quant_matmul", "float8_e4m3fn"),
+         "int4": ("quant_matmul_int4", "int4")}
+
+
+def _quant_case(gen, kernel, m, k, n, g=64):
+    """x, a quantized weight in a model's storage (values (N, K), or int4's
+    (N, K/2) bytes and (N, K/g) scales, seen as (K, N), (K/2, N) and (K/g,
+    N), as layers.Linear holds them) and a bf16 bias, seeded."""
     import torch
-    from tinyfusers_tpu_torch.ops.quant import Int4Tensor, quantize_int4
+    from tinyfusers_tpu_torch.ops.quant import Int4Tensor, QuantizedTensor, quantize, quantize_int4
 
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-    w = quantize_int4(torch.randn(n, k, generator=gen, device="cuda").t() * k ** -0.5, axis=0,
-                      group_size=g)
-    w = Int4Tensor(w.packed.t().contiguous().t(), w.scales.t().contiguous().t(), axis=0,
-                   group_size=w.group_size, orig_dim=k)
+    dense = torch.randn(n, k, generator=gen, device="cuda").t() * k ** -0.5
+    if kernel == "int4":
+        w = quantize_int4(dense, axis=0, group_size=g)
+        w = Int4Tensor(w.packed.t().contiguous().t(), w.scales.t().contiguous().t(), axis=0,
+                       group_size=w.group_size, orig_dim=k)
+    else:
+        w = quantize(dense, getattr(torch, QUANT[kernel][1]))
+        w = QuantizedTensor(w.values.t().contiguous().t(), w.scales)
     b = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
     return x, w, b
 
 
-def measure_int4(checkout: Path) -> dict:
+def _digest(t) -> str:
+    """A short hash of a tensor's bits, to tell bit-identical outputs."""
+    import torch
+
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def measure_quant(checkout: Path, kernel: str) -> dict:
     import torch
     import torch.nn.functional as F
 
     cs, gen = _setup(checkout)
-    from tinyfusers_tpu_torch.kernels.quant_matmul import quant_matmul_int4
+    from tinyfusers_tpu_torch.kernels import quant_matmul as qm
 
-    out = {"checkout": str(checkout), "ms": {}, "library_ms": {}, "dense_ms": {}}
-    sums = {key: dict.fromkeys(("ms", "library_ms", "dense_ms"), 0.0)
+    fn = getattr(qm, QUANT[kernel][0])
+    out = {"checkout": str(checkout), "ms": {}, "dense_ms": {}, "digest": {}}
+    if kernel == "int4":
+        out["library_ms"] = {}
+    sums = {key: dict.fromkeys([f for f in ("ms", "library_ms", "dense_ms") if f in out], 0.0)
             for key in ("all", "small")}
     for (m, k, n), launches in cs.QUANT_SHAPES.items():
-        x, w, b = _int4_case(gen, m, k, n)
+        x, w, b = _quant_case(gen, kernel, m, k, n)
         label = f"{m},{k},{n}"
-        out["ms"][label] = cs.cuda_ms(lambda: quant_matmul_int4(x, w, b), 20)
-        lib, _ = cs.int4pack_mm(x, w)
-        out["library_ms"][label] = None if lib is None else cs.cuda_ms(lib, 20)
+        out["digest"][label] = _digest(fn(x, w, b))
+        out["ms"][label] = cs.cuda_ms(lambda: fn(x, w, b), 20)
+        if kernel == "int4":
+            lib, _ = cs.int4pack_mm(x, w)
+            out["library_ms"][label] = None if lib is None else cs.cuda_ms(lib, 20)
         wd = w.dequantize(torch.bfloat16).t().contiguous()
         out["dense_ms"][label] = cs.cuda_ms(lambda: F.linear(x, wd, b), 20)
         for key in ("all", "small") if m <= cs.SMALL_M else ("all",):
@@ -118,44 +144,51 @@ def measure_int4(checkout: Path) -> dict:
     return out
 
 
-def sweep_int4() -> None:
-    """Every (tile, split) the int4 wgmma kernel takes at each of the 19
-    shapes, through its C entry, each checked against the plain version."""
+def sweep(kernel: str) -> None:
+    """Every (tile, split) the wgmma variant takes at each of the 19 shapes,
+    through the C entry, each checked against the plain version."""
     import torch
 
     cs, gen = _setup(ROOT)
     from tinyfusers_tpu_torch.kernels import _build
     from tinyfusers_tpu_torch.kernels import quant_matmul as qm
 
-    entry = _build.entry("quant_matmul", "tf_quant_matmul_int4", qm._ARGS_INT4)
+    entry = _build.entry("quant_matmul", "tf_quant_matmul", qm._ARGS)
+    int4 = kernel == "int4"
+    plain = qm.quant_matmul_int4_plain if int4 else qm.quant_matmul_plain
+    g = 64 if int4 else None
     for (m, k, n), launches in cs.QUANT_SHAPES.items():
-        x, w, b = _int4_case(gen, m, k, n)
-        packed, scales = w.packed.t().contiguous(), w.scales.t().contiguous()
+        x, w, b = _quant_case(gen, kernel, m, k, n)
+        if int4:
+            fmt, rows, scales = qm._INT4, w.packed.t().contiguous(), w.scales.t().contiguous()
+        else:
+            fmt, rows = qm._FORMATS[w.values.dtype][0], w.values.t().contiguous()
+            scales = w.scales.reshape(-1).float().contiguous()
         out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
-        want = qm.quant_matmul_int4_plain(x, w, b)
+        want = plain(x, w, b)
         times = {}
         for tile in (8, 64, 128, 160):
             if (tile == 8) != (m <= 8):
                 continue
             for split in range(1, min(8, k // 64) + 1):
-                if qm._groups(k, 64, split) > qm._MAX_GROUPS:
+                if int4 and qm._groups(k, 64, split) > qm._MAX_GROUPS:
                     continue
 
                 def call():
-                    entry(qm._VARIANTS["wgmma"], 1, x.data_ptr(), packed.data_ptr(),
-                          scales.data_ptr(), b.data_ptr(), 1, out.data_ptr(), m, n, k, 64,
-                          tile, split, torch.cuda.current_stream().cuda_stream)
+                    entry(qm._VARIANTS["wgmma"], 1, fmt, x.data_ptr(), rows.data_ptr(),
+                          scales.data_ptr(), b.data_ptr(), 1, out.data_ptr(), m, n, k,
+                          g or 0, tile, split, torch.cuda.current_stream().cuda_stream)
 
                 call()
                 torch.cuda.synchronize()
                 err = ((out.float() - want.float()).norm() / want.float().norm()).item()
                 if not err <= 5e-4:
-                    raise SystemExit(f"({m},{k},{n}) tile {tile} split {split}: "
+                    raise SystemExit(f"{kernel} ({m},{k},{n}) tile {tile} split {split}: "
                                      f"rel err {err:.3e}")
                 times[f"{tile}/{split}"] = cs.cuda_ms(call, 20)
-        plan = qm._plan(torch.bfloat16, m, k, n, 64)
+        plan = qm._plan(torch.bfloat16, m, k, n, g)
         best = min(times, key=times.get)
-        print(json.dumps({"shape": [m, k, n], "launches": launches,
+        print(json.dumps({"kernel": kernel, "shape": [m, k, n], "launches": launches,
                           "plan": f"{plan[1]}/{plan[2]}",
                           "plan_ms": times[f"{plan[1]}/{plan[2]}"], "best": best,
                           "best_ms": times[best], "ms": times}), flush=True)
@@ -163,19 +196,22 @@ def sweep_int4() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("flash", "int4"), required=True)
+    ap.add_argument("--kernel", choices=("flash", *QUANT), required=True)
     ap.add_argument("--parent", type=Path, help="the other checkout")
-    ap.add_argument("--sweep", action="store_true", help="int4: time every (tile, split)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="int8 / fp8 / int4: time every (tile, split)")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    measure = {"flash": measure_flash, "int4": measure_int4}[args.kernel]
     if args.measure is not None:
-        print(json.dumps(measure(args.measure.resolve())), flush=True)
+        checkout = args.measure.resolve()
+        res = (measure_flash(checkout) if args.kernel == "flash"
+               else measure_quant(checkout, args.kernel))
+        print(json.dumps(res), flush=True)
         return
     if args.sweep:
-        if args.kernel != "int4":
-            ap.error("--sweep is for --kernel int4")
-        sweep_int4()
+        if args.kernel == "flash":
+            ap.error("--sweep is for the quant kernels")
+        sweep(args.kernel)
         return
     if args.parent is None:
         ap.error("--parent is required")
@@ -191,8 +227,12 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": card, "kernel": args.kernel,
-                      "order": ["parent", "this", "this", "parent"], "runs": runs}))
+    summary = {"card": card, "kernel": args.kernel,
+               "order": ["parent", "this", "this", "parent"], "runs": runs}
+    if "digest" in runs[0]:  # per shape: do the four runs give the same bits?
+        summary["bit_identical"] = {label: len({r["digest"][label] for r in runs}) == 1
+                                    for label in runs[0]["digest"]}
+    print(json.dumps(summary))
 
 
 if __name__ == "__main__":
