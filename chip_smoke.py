@@ -154,6 +154,13 @@ QUANT_SHAPES = {
     (128, 1280, 1280): 120, (128, 1280, 10240): 20, (128, 5120, 1280): 20,
     (2, 1280, 320): 100, (2, 1280, 640): 100, (2, 1280, 1280): 260,
     (2, 320, 1280): 20}
+# (label, (M, K, N), launches in one 20-step image): the SD1.5 UNet's FF
+# tails at bf16, CFG batch 2, 16 per forward. Phase 5 fails if the main
+# path gives geglu a shape not listed.
+GEGLU_SHAPES = [("64x64", (8192, 1280, 320), 100),
+                ("32x32", (2048, 2560, 640), 100),
+                ("16x16", (512, 5120, 1280), 100),
+                ("8x8 mid", (128, 5120, 1280), 20)]
 QUANT_F32 = [(2, 1280, 320), (154, 768, 640), (2048, 640, 640), (512, 5120, 1280)]
 # The int4 shapes whose weight bytes, not x's, dominate (the tinygemm regime).
 SMALL_M = 154
@@ -323,7 +330,8 @@ def main() -> None:
     from tinyfusers_tpu_torch.kernels.flash_attention import (
         _plan, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
     from tinyfusers_tpu_torch.io.quantize_tree import quantize_params
-    from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul, geglu_matmul_plain
+    from tinyfusers_tpu_torch.kernels.geglu_ff import _plan as geglu_plan
+    from tinyfusers_tpu_torch.kernels.geglu_ff import erf_as, geglu_matmul, geglu_matmul_plain
     from tinyfusers_tpu_torch.kernels.quant_matmul import _plan as quant_plan
     from tinyfusers_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
@@ -358,9 +366,10 @@ def main() -> None:
             if hasattr(w, "variants"):
                 w.variants.clear()
 
-    def variants():  # flash wrapper -> launches by kernel variant
+    def variants():  # flash and geglu wrapper -> launches by kernel variant
         return {"flash_packed": dict(flash_packed.variants),
-                "flash_bhsd": dict(flash_bhsd.variants)}
+                "flash_bhsd": dict(flash_bhsd.variants),
+                "geglu": dict(geglu_matmul.variants)}
 
     def fill_adaln(model, seed):
         """Seeded non-zero values in every adaLN-Zero leaf (weights normal
@@ -403,29 +412,28 @@ def main() -> None:
     # exact fp32 and differ only in summation order. bf16 attention: the
     # kernel rounds P to bf16 against a running (per 64-key tile) max, the
     # plain version against the row's global max, so P's roundings differ.
-    # bf16 GEGLU: fp32 sums in another order, then one bf16 rounding.
+    # bf16 GEGLU: h is the plain version's bit for bit, so only the fp32
+    # sums' order differs, then one bf16 rounding; the limit sits below the
+    # error of h left unrounded before the product (``planted_rel``), which
+    # the run measures and holds above it.
     # bf16 quant matmuls: the weight converts to bf16 identically on both
     # sides, so only the sums' order differs; the limit sits below the
     # error of either rounding hazard of the formats (``planted``), which
     # the run measures and holds above it.
     tol = {("attn", torch.bfloat16): 1e-2, ("attn", torch.float32): 1e-5,
-           ("geglu", torch.bfloat16): 2e-3, ("geglu", torch.float32): 1e-5,
+           ("geglu", torch.bfloat16): 5e-4, ("geglu", torch.float32): 1e-5,
            ("quant", torch.bfloat16): 5e-4, ("quant", torch.float32): 1e-5}
     # Per-row limits (the worst row's relative error), so that a fault in a
     # few rows of a large output shows. Measured on an H100 at these shapes:
     # bf16 attention rows at most 3.6e-3, fp32 1.8e-6; bf16 quant rows at
-    # most 1.2e-3 (int4, K = 1280 over N = 320), int8 / fp8 8.7e-4.
+    # most 1.2e-3 (int4, K = 1280 over N = 320), int8 / fp8 8.7e-4; bf16
+    # geglu rows at most 1.02e-3 (K = 2560 over N = 640), fp32 8.6e-7.
     row_tol = {("attn", torch.bfloat16): 1e-2, ("attn", torch.float32): 1e-5,
+               ("geglu", torch.bfloat16): 3e-3, ("geglu", torch.float32): 1e-5,
                ("quant", torch.bfloat16): 3e-3, ("quant", torch.float32): 1e-5}
     # A library call counts as computing the same function within this
     # (its scales are in x's dtype, which moves each weight by up to 2^-8).
     lib_tol = 1e-2
-    # (label, call shape as the wrapper counts it): every shape the main
-    # path gives each kernel; phase 5 fails if it gives one not listed.
-    geglu_shapes = [("64x64", (8192, 1280, 320)),
-                    ("32x32", (2048, 2560, 640)),
-                    ("16x16", (512, 5120, 1280)),
-                    ("8x8 mid", (128, 5120, 1280))]
     report = {kname: {} for kname in [*wrappers, *wrapper_of]}  # entry -> shape -> bf16 row
 
     def measured(wname):
@@ -555,21 +563,43 @@ def main() -> None:
                    tol[("attn", dt)], row_tol[("attn", dt)], variant=variant,
                    tflops=flops / t_k / 1e9)
         torch.cuda.empty_cache()
-        for label, (m, kd, nd) in geglu_shapes:
+        for label, (m, kd, nd), _ in GEGLU_SHAPES:
             proj = randn(m, 2 * kd, dtype=dt)
             gx, gate = proj.chunk(2, dim=-1)  # strided halves, as in the UNet
             w = (randn(nd, kd, dtype=torch.float32) * kd ** -0.5).to(dt).t()
             bias = randn(nd, dtype=dt)
+            reset_counts()
             got = geglu_matmul(gx, gate, w, bias)
             torch.cuda.synchronize()
-            err = rel_err(got, geglu_matmul_plain(gx, gate, w, bias))
+            plan = geglu_plan(dt, m, kd, nd, gx.stride(0) % 8 == 0)
+            ran = dict(geglu_matmul.variants)
+            if ran != {plan[0]: 1} or (dt == torch.bfloat16 and plan[0] != "wgmma"):
+                fail(f"geglu ({m},{kd},{nd}) {dt}: launches by variant {ran}, plan {plan}; "
+                     f"every main-path bf16 shape must run on wgmma")
+            want = geglu_matmul_plain(gx, gate, w, bias)
+            err = rel_err(got, want)
+            planted_rel = None
+            if dt == torch.bfloat16:  # h kept in fp32, not rounded before the product
+                g32 = gate.float()
+                h32 = gx.float() * (0.5 * g32 * (1.0 + erf_as(g32 * 0.7071067811865476)))
+                planted_rel = rel_err((h32 @ w.float() + bias.float()).to(dt), want)[1]
             t_k = cuda_ms(lambda: geglu_matmul(gx, gate, w, bias), 20)
             t_p = cuda_ms(lambda: geglu_matmul_plain(gx, gate, w, bias), 5)
+            # yardstick, not the same function (exact erf, h not fused): the
+            # two-call path a PyTorch user would write
+            wt = w.t()
+            t_u = cuda_ms(lambda: F.linear(gx * F.gelu(gate), wt, bias), 20)
             flops = 2.0 * m * kd * nd
             nbytes = (2 * m * kd + kd * nd + m * nd + nd) * isz
+            b_ms = bound(flops, nbytes, dt)[0]
+            extra = dict(variant=plan[0], tile=f"64/{plan[1]}" if plan[1] else None,
+                         split=plan[2], r=-(-nd // plan[1]) if plan[1] else None,
+                         tflops=flops / t_k / 1e9,
+                         gbps=nbytes / t_k / 1e6, x_bound=t_k / b_ms, unfused_exact_erf_ms=t_u,
+                         planted_rel=planted_rel)
             record("geglu", label, (m, kd, nd), dt, err, t_k, t_p, None, flops, nbytes,
-                   tol[("geglu", dt)])
-        del q, k, v, proj, gx, gate, w, got
+                   tol[("geglu", dt)], row_tol[("geglu", dt)], **extra)
+        del q, k, v, proj, gx, gate, w, wt, got, want
         for (m, kd, nd) in (QUANT_SHAPES if dt == torch.bfloat16 else QUANT_F32):
             x = randn(m, kd, dtype=dt)
             for qname, (_, kname, plain, row_key) in qformats.items():
@@ -633,6 +663,15 @@ def main() -> None:
         f"before the product)")
     if not min(caught, caught_scale) > tol[("quant", torch.bfloat16)]:
         fail("the quant-matmul tolerance does not catch a planted rounding deviation")
+    grows = report["geglu"].values()
+    say(f"[kernel] geglu bf16, tolerance {tol[('geglu', torch.bfloat16)]:.0e} (rows "
+        f"{row_tol[('geglu', torch.bfloat16)]:.0e}): largest kernel error "
+        f"{max(r['rel_err'] for r in grows):.3e} (worst row "
+        f"{max(r['row_rel_err'] for r in grows):.3e}); smallest error of the planted "
+        f"deviation (h kept in fp32 before the product) "
+        f"{min(r['planted_rel'] for r in grows):.3e}")
+    if not min(r["planted_rel"] for r in grows) > tol[("geglu", torch.bfloat16)]:
+        fail("the geglu tolerance does not catch h left unrounded before the product")
     # each format per image (launches x ms) against its library call, dense
     # cuBLAS and its bound, over all 19 shapes and over the M <= 154 ones
     # (where the weight's bytes, not x's, dominate)
@@ -774,17 +813,18 @@ def main() -> None:
         if i == 0:
             launches = {kname: w.launches for kname, w in wrappers.items()}
             shapes = {kname: dict(w.shapes) for kname, w in wrappers.items()}
-            flash_variants = variants()
+            path_variants = variants()
             first = img
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if img.dtype != torch.uint8 or tuple(img.shape) != (1, 512, 512, 3):
         fail(f"image {img.dtype} {tuple(img.shape)}, want uint8 (1, 512, 512, 3)")
     want = {"flash_packed": 400, "flash_bhsd": 1, "geglu": 320, "quant_matmul": 0,
             "quant_matmul_int4": 0}
-    want_variants = {"flash_packed": {"wgmma": 400}, "flash_bhsd": {"wgmma_wide": 1}}
-    say(f"[main] launches in one image: {launches} (want {want}); flash launches by "
-        f"variant {flash_variants}")
-    if launches != want or flash_variants != want_variants:
+    want_variants = {"flash_packed": {"wgmma": 400}, "flash_bhsd": {"wgmma_wide": 1},
+                     "geglu": {"wgmma": 320}}
+    say(f"[main] launches in one image: {launches} (want {want}); flash and geglu launches "
+        f"by variant {path_variants}")
+    if launches != want or path_variants != want_variants:
         fail("the main path did not launch each kernel the expected number of times "
              f"on the expected variants ({want_variants})")
     for kname, counted in shapes.items():
@@ -852,7 +892,8 @@ def main() -> None:
         say(f"[main-{qname}] launches in one image: {counts} (want {want}); flash "
             f"launches by variant {q_variants}; quant launches by variant {quant_variants} "
             f"(want {want_quant})")
-        if (counts != want or counted[kname] != want_shapes or q_variants != want_variants
+        if (counts != want or counted[kname] != want_shapes
+                or q_variants != dict(want_variants, geglu={})
                 or quant_variants != want_quant):
             fail(f"{qname}: launches {counts}, shapes {counted[kname]} against {want}, "
                  f"{want_shapes}")
@@ -964,7 +1005,8 @@ def main() -> None:
         want.update(flash_packed=n_joint, flash_bhsd=1)
         want_shapes = {kn: {} for kn in wrappers}
         want_shapes.update(flash_packed={joint_key: n_joint}, flash_bhsd={bhsd_1024: 1})
-        want_variants3 = {"flash_packed": {"wgmma": n_joint}, "flash_bhsd": {"wgmma_wide": 1}}
+        want_variants3 = {"flash_packed": {"wgmma": n_joint}, "flash_bhsd": {"wgmma_wide": 1},
+                          "geglu": {}}
         say(f"[{tag}] launches in one image: {counts3} (want {want}); shapes "
             f"flash_packed {counted3['flash_packed']}, flash_bhsd {counted3['flash_bhsd']}; "
             f"flash launches by variant {variants3}")

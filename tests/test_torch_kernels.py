@@ -19,7 +19,7 @@ from tinyfusers_tpu.kernels.geglu_ff import geglu_matmul as pallas_geglu
 from tinyfusers_tpu_torch.kernels.flash_attention import (
     _plan, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
 from tinyfusers_tpu_torch.kernels.geglu_ff import (
-    erf_as, geglu_matmul, geglu_matmul_plain)
+    _plan as geglu_plan, erf_as, geglu_matmul, geglu_matmul_plain)
 
 from torch_parity import few_torch_threads  # noqa: F401
 
@@ -196,3 +196,34 @@ def test_variant_rule(dtype, d, want):
 def test_variant_rule_refuses_bf16_heads_wider_than_512():
     with pytest.raises(ValueError, match="512"):
         _plan(torch.bfloat16, 520)
+
+
+@pytest.mark.parametrize("dtype,m,k,n,aligned,want", [
+    # the four SD1.5 FF tails go to the TMA + wgmma kernel
+    (torch.bfloat16, 8192, 1280, 320, True, "wgmma"),
+    (torch.bfloat16, 2048, 2560, 640, True, "wgmma"),
+    (torch.bfloat16, 512, 5120, 1280, True, "wgmma"),
+    (torch.bfloat16, 128, 5120, 1280, True, "wgmma"),
+    # other bf16 shapes, and operands TMA cannot read in place, go to mma
+    (torch.bfloat16, 100, 96, 64, True, "mma"),     # K % 64 != 0
+    (torch.bfloat16, 64, 128, 36, True, "mma"),     # N % 8 != 0
+    (torch.bfloat16, 70, 100, 32, True, "mma"),     # K % 8 != 0
+    (torch.bfloat16, 8192, 1280, 320, False, "mma"),  # a pointer or row stride off 16 bytes
+    # fp32 goes to the exact FMA kernel
+    (torch.float32, 8192, 1280, 320, True, "fma"),
+    # the split never exceeds the 64-deep K steps
+    (torch.bfloat16, 2, 64, 320, True, "wgmma"),
+    (torch.bfloat16, 8, 128, 8, True, "wgmma"),
+])
+def test_geglu_plan(dtype, m, k, n, aligned, want):
+    variant, bn, split = geglu_plan(dtype, m, k, n, aligned)
+    assert variant == want
+    if variant != "wgmma":
+        assert (bn, split) == (0, 1)
+        return
+    assert bn in (160, 320) and split in (1, 2, 4)
+    assert split <= k // 64
+    # the plans the sweep of the four FF shapes chose (r = ceil(n / bn))
+    sd15 = {(8192, 1280, 320): (320, 1), (2048, 2560, 640): (320, 2),
+            (512, 5120, 1280): (160, 2), (128, 5120, 1280): (160, 4)}
+    assert sd15.get((m, k, n), (bn, split)) == (bn, split)

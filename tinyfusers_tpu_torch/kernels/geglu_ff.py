@@ -2,10 +2,19 @@
 of tinyfusers_tpu/kernels/geglu_ff.py).
 
 ``geglu_matmul`` replaces the Pallas ``_kernel``: for a CUDA tensor it
-launches the hand-written kernel in ``csrc/geglu_ff.cu``, for a CPU
-tensor it computes ``geglu_matmul_plain``. A CUDA tensor the kernel does
-not take raises; it never falls back. ``geglu_matmul.launches`` counts its
-launches and ``geglu_matmul.shapes`` counts them by call shape.
+launches a hand-written kernel in ``csrc/geglu_ff.cu``, for a CPU tensor
+it computes ``geglu_matmul_plain``. A CUDA tensor the kernels do not take
+raises; nothing falls back. ``geglu_matmul.launches`` counts its
+launches, ``.shapes`` counts them by call shape and ``.variants`` by
+kernel variant.
+
+The kernel comes from ``_plan``, a shape rule: ``wgmma`` (TMA ring, h
+formed in wgmma's register A fragment, 64-row by 160- or 320-column output
+tiles so that h is formed once per tile row band, split-K over a thread
+block cluster for shapes whose tiles do not fill the card) for bf16 where TMA
+reads the operands in place, which every SD1.5 FF shape satisfies;
+``mma`` (mma.sync, masked loads) for the other bf16 shapes; ``fma``
+(exact fp32) for fp32. A bf16 or fp32 bias goes to ``wgmma`` as it is.
 
 Semantics, as in the Pallas kernel: the GELU is fp32 with the
 Abramowitz-Stegun 7.1.26 erf (within 1.5e-7 of the exact erf), the
@@ -21,6 +30,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .quant_matmul import _kernel_bias
 
 
 def erf_as(x: torch.Tensor) -> torch.Tensor:
@@ -44,9 +54,51 @@ def geglu_matmul_plain(gx: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
     return y.to(gx.dtype)
 
 
-# (dtype, gx, gate, lda, wt, bias, out, M, N, K, stream)
-_ARGS = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# (variant, dtype, gx, gate, lda, wt, bias, bias dtype, out, M, N, K, bn, split,
+#  stream)
+_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+         + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
+         + [ctypes.c_void_p])
+# variant -> the code tf_geglu_ff takes.
+_VARIANTS = {"fma": 0, "mma": 1, "wgmma": 2}
+_K_STEP = 64
+# wgmma's plan, fitted to times of every (bn, split) at the four SD1.5 FF
+# shapes on an H100 (tools/kernel_ab.py --kernel geglu --sweep): one block
+# an SM of 64 rows, the widest column tile (h formed once per 320 columns)
+# that gives about 100 blocks with K split at most twice, else 160 columns;
+# where even that leaves the card half empty, K split up to 4 ways within
+# one wave of blocks.
+_BLOCKS = 100
+_SMS = 132
+
+
+def _plan(dtype, m: int, k: int, n: int, aligned: bool = True):
+    """(variant, bn, split) of the kernel for gx, gate (m, k) and w (k, n).
+
+    fp32 goes to the exact FMA kernel. bf16 goes to ``wgmma`` where TMA can
+    read the operands in place: K % 64 == 0 (whole 64-deep steps), N % 8 ==
+    0 (the output's rows) and ``aligned`` (16-byte aligned pointers and a
+    row stride of gx and gate that is a multiple of 8 elements). Every
+    SD1.5 FF shape (K = 1280 .. 5120, N = 320 .. 1280) is one. Other bf16
+    shapes run the ``mma`` kernel. ``wgmma`` forms h once per ``bn`` output
+    columns (r = ceil(n / bn) times in all) over blocks of 64 rows, and
+    splits K 2 or 4 ways (never more than its 64-deep steps) where the
+    output tiles do not fill the card. bn is 0 and split 1 outside
+    ``wgmma``."""
+    if dtype == torch.float32:
+        return "fma", 0, 1
+    if not (aligned and k % _K_STEP == 0 and n % 8 == 0):
+        return "mma", 0, 1
+    steps = k // _K_STEP
+    for bn in (320, 160) if n > 160 else (160,):
+        tiles = -(-m // 64) * -(-n // bn)
+        for split in (1, 2):
+            if split <= steps and tiles * split >= _BLOCKS:
+                return "wgmma", bn, split
+    split = 1
+    while split < 4 and 2 * split <= steps and 2 * split * tiles <= _SMS:
+        split *= 2
+    return "wgmma", 160, split
 
 
 def geglu_matmul(gx: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
@@ -66,6 +118,7 @@ def geglu_matmul(gx: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
         raise ValueError("geglu_matmul: gx, gate and w must be on one CUDA device")
     if not (gate.dtype == gx.dtype == w.dtype):
         raise TypeError(f"geglu_matmul: mixed dtypes {gx.dtype} {gate.dtype} {w.dtype}")
+    dtype = _build.dtype_code(gx.dtype)
     *lead, k = gx.shape
     n = w.shape[1]
     x2 = gx.reshape(-1, k)
@@ -74,16 +127,21 @@ def geglu_matmul(gx: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
         x2, g2 = x2.contiguous(), g2.contiguous()
     m = x2.shape[0]
     wt = w.t().contiguous()  # (N, K): a module's own (out, in) weight, no copy
-    bias = None if b is None else b.to(device=gx.device, dtype=torch.float32).contiguous()
+    aligned = x2.stride(0) % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (x2, g2, wt))
+    variant, bn, split = _plan(gx.dtype, m, k, n, aligned)
+    bias = _kernel_bias(b, gx, variant)
     out = torch.empty((m, n), dtype=gx.dtype, device=gx.device)
     _build.entry("geglu_ff", "tf_geglu_ff", _ARGS)(
-        _build.dtype_code(gx.dtype), x2.data_ptr(), g2.data_ptr(), x2.stride(0),
-        wt.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-        m, n, k, torch.cuda.current_stream(gx.device).cuda_stream)
+        _VARIANTS[variant], dtype, x2.data_ptr(), g2.data_ptr(), x2.stride(0), wt.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        _build.dtype_code(torch.float32 if bias is None else bias.dtype), out.data_ptr(),
+        m, n, k, bn, split, torch.cuda.current_stream(gx.device).cuda_stream)
     geglu_matmul.launches += 1
     geglu_matmul.shapes[(m, k, n)] += 1
+    geglu_matmul.variants[variant] += 1
     return out.reshape(*lead, n)
 
 
 geglu_matmul.launches = 0
 geglu_matmul.shapes = collections.Counter()  # (M, K, N) -> launches
+geglu_matmul.variants = collections.Counter()  # "wgmma" | "mma" | "fma" -> launches

@@ -100,7 +100,7 @@ def quant_matmul_int4_plain(x: torch.Tensor, w: Int4Tensor,
 
 def _on_device(x: torch.Tensor, *tensors: torch.Tensor) -> None:
     if any(t.device != x.device for t in tensors):
-        raise ValueError("quantized matmul: x and the weight must be on one CUDA device")
+        raise ValueError("x, the weight and the bias must be on one CUDA device")
 
 
 def _stream(x: torch.Tensor) -> int:

@@ -3,6 +3,8 @@
     python3 tools/kernel_ab.py --kernel flash --parent PATH
     python3 tools/kernel_ab.py --kernel int8|fp8|int4 --parent PATH
     python3 tools/kernel_ab.py --kernel int8|fp8|int4 --sweep
+    python3 tools/kernel_ab.py --kernel geglu --parent PATH
+    python3 tools/kernel_ab.py --kernel geglu --sweep
 
 PATH is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -22,12 +24,19 @@ call timed by events, as phase 3 of chip_smoke.py times them.
   ``torch._weight_int4pack_mm``, tinygemm) timed beside it in the same
   process, the per-image sums (launches x ms) over all 19 shapes and over
   the M <= 154 ones, and a hash of each output's bits.
+* ``geglu``: ``geglu_matmul`` at the SD1.5 FF shapes of chip_smoke.py's
+  GEGLU_SHAPES (bf16, gx and gate the strided halves of one projection, a
+  bf16 bias), with the unfused two-call path ``F.linear(gx * F.gelu(gate),
+  w, b)`` timed beside it as a yardstick (exact erf: not the same function),
+  the per-image sum (launches x ms) and a hash of each output's bits.
 
 Each run prints one JSON line; the last line holds all four runs, the
 card's name and power limit and, for the quant kernels, whether the four
 runs gave the same bits at each shape. ``--sweep`` instead times every
 (tile, split) of this checkout's wgmma variant for the format at the 19
-shapes (the data its plan's rule was fitted to), one JSON line per shape.
+shapes (the data its plan's rule was fitted to), one JSON line per shape;
+for ``geglu`` every (bn, split) of the wgmma variant at the four FF
+shapes.
 """
 from __future__ import annotations
 
@@ -144,6 +153,78 @@ def measure_quant(checkout: Path, kernel: str) -> dict:
     return out
 
 
+def _geglu_case(gen, m, k, n):
+    """gx and gate (the strided halves of one (m, 2k) projection, as the UNet
+    passes them), w (k, n) seen from a module's (n, k) storage, a bf16 bias."""
+    import torch
+
+    proj = torch.randn(m, 2 * k, generator=gen, device="cuda").to(torch.bfloat16)
+    gx, gate = proj.chunk(2, dim=-1)
+    w = (torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16).t()
+    b = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+    return gx, gate, w, b
+
+
+def measure_geglu(checkout: Path) -> dict:
+    import torch.nn.functional as F
+
+    cs, gen = _setup(checkout)
+    from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul
+
+    out = {"checkout": str(checkout), "ms": {}, "unfused_ms": {}, "digest": {},
+           "per_image_ms": {"ms": 0.0, "unfused_ms": 0.0}}
+    for label, (m, k, n), launches in cs.GEGLU_SHAPES:
+        gx, gate, w, b = _geglu_case(gen, m, k, n)
+        wt = w.t()
+        out["digest"][label] = _digest(geglu_matmul(gx, gate, w, b))
+        out["ms"][label] = cs.cuda_ms(lambda: geglu_matmul(gx, gate, w, b), 20)
+        out["unfused_ms"][label] = cs.cuda_ms(lambda: F.linear(gx * F.gelu(gate), wt, b), 20)
+        for field in ("ms", "unfused_ms"):
+            out["per_image_ms"][field] += launches * out[field][label]
+    return out
+
+
+def sweep_geglu() -> None:
+    """Every (bn, split) the wgmma variant takes at the four FF shapes,
+    through the C entry, each checked against the plain version."""
+    import torch
+
+    cs, gen = _setup(ROOT)
+    from tinyfusers_tpu_torch.kernels import _build
+    from tinyfusers_tpu_torch.kernels import geglu_ff as gf
+
+    entry = _build.entry("geglu_ff", "tf_geglu_ff", gf._ARGS)
+    for label, (m, k, n), launches in cs.GEGLU_SHAPES:
+        gx, gate, w, b = _geglu_case(gen, m, k, n)
+        wt = w.t().contiguous()
+        out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        want = gf.geglu_matmul_plain(gx, gate, w, b)
+        times = {}
+        for bn in (160, 320):
+            for split in (1, 2, 4):
+                if split > k // 64:
+                    continue
+
+                def call():
+                    entry(gf._VARIANTS["wgmma"], 1, gx.data_ptr(), gate.data_ptr(),
+                          gx.stride(0), wt.data_ptr(), b.data_ptr(), 1, out.data_ptr(),
+                          m, n, k, bn, split, torch.cuda.current_stream().cuda_stream)
+
+                out.fill_(float("nan"))
+                call()
+                torch.cuda.synchronize()
+                err = ((out.float() - want.float()).norm() / want.float().norm()).item()
+                if not err <= 5e-4:
+                    raise SystemExit(f"geglu ({m},{k},{n}) {bn}/{split}: "
+                                     f"rel err {err:.3e}")
+                times[f"{bn}/{split}"] = cs.cuda_ms(call, 20)
+        plan = "/".join(map(str, gf._plan(torch.bfloat16, m, k, n)[1:]))
+        best = min(times, key=times.get)
+        print(json.dumps({"kernel": "geglu", "shape": [m, k, n], "launches": launches,
+                          "plan": plan, "plan_ms": times[plan], "best": best,
+                          "best_ms": times[best], "ms": times}), flush=True)
+
+
 def sweep(kernel: str) -> None:
     """Every (tile, split) the wgmma variant takes at each of the 19 shapes,
     through the C entry, each checked against the plain version."""
@@ -196,22 +277,23 @@ def sweep(kernel: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("flash", *QUANT), required=True)
+    ap.add_argument("--kernel", choices=("flash", "geglu", *QUANT), required=True)
     ap.add_argument("--parent", type=Path, help="the other checkout")
     ap.add_argument("--sweep", action="store_true",
-                    help="int8 / fp8 / int4: time every (tile, split)")
+                    help="int8 / fp8 / int4 / geglu: time every (tile, split)")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure is not None:
         checkout = args.measure.resolve()
         res = (measure_flash(checkout) if args.kernel == "flash"
+               else measure_geglu(checkout) if args.kernel == "geglu"
                else measure_quant(checkout, args.kernel))
         print(json.dumps(res), flush=True)
         return
     if args.sweep:
         if args.kernel == "flash":
-            ap.error("--sweep is for the quant kernels")
-        sweep(args.kernel)
+            ap.error("--sweep is for the quant and geglu kernels")
+        sweep_geglu() if args.kernel == "geglu" else sweep(args.kernel)
         return
     if args.parent is None:
         ap.error("--parent is required")
