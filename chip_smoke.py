@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Drives tinyfusers_tpu_torch's SD1.5 text-to-image path on the card, dense
-and with a weight-only int8, fp8 or int4 UNet, and its SD3-medium path
+and with a weight-only int8, fp8 or int4 UNet, its SD3-medium path
 (MMDiT, rectified flow), without and with T5-XXL, with seeded random
-weights made on the card, and holds every hand-written CUDA kernel of
+weights made on the card, and its SD2.1-v path from a checkpoint file
+through the port's CLI, and holds every hand-written CUDA kernel of
 those paths against its plain PyTorch version. Imports neither jax nor
 tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
 and the ``final`` layer) are zeros under the JAX init, which would keep
@@ -22,8 +23,9 @@ Phases, one or more lines each:
    keys per tile, ring stages>, and takes its shared memory at launch);
 3. kernels: each kernel against its plain version at every main-path
    shape (the quant matmuls with int8, fp8 and int4 weights; flash_packed
-   also at SD3's two joint-attention shapes with their kv_len, flash_bhsd
-   also at the 1024x1024 VAE's mid attention), bf16 and
+   also at SD3's two joint-attention shapes with their kv_len and at the
+   SD2.1-v UNet's four, flash_bhsd also at the 1024x1024 and 768x768 VAEs'
+   mid attention, geglu also at the SD2.1-v UNet's four), bf16 and
    fp32, with its error and tolerance, its time, the plain version's time,
    the library call's time where one computes the same function (with its
    error against the plain version), for the quant matmuls the dense bf16
@@ -49,6 +51,9 @@ Phases, one or more lines each:
    against the same weights on the CPU: dense (every FF through the GEGLU
    kernel), then with int8 and with int4 weights (184 quant-matmul
    launches, no GEGLU);
+4v. unet-sd21: the same for the full-width SD2.1 UNet (64-wide heads,
+   context 1024): 10 flash_packed launches with 5 heads at the 1024-token
+   level, 16 GEGLU;
 4s. mmdit: one full-width SD3-medium MMDiT forward at a 64x64 latent
    (1024 image + 77 text tokens, padded to 1152 joint tokens, kv_len
    1101: 24 flash_packed launches) in fp32 on the card, against the same
@@ -86,6 +91,25 @@ Phases, one or more lines each:
 5t. SD3-medium with T5-XXL: one warm-up and one counted image (672
    flash_packed at (2, 4352, 4352, 1536, 24, kv_len 4250), 1 flash_bhsd);
    s/image and memory;
+5c. SD2.1-v checkpoint: the model seeded on the card in bf16, written by
+   ``io/checkpoints.save_sd_checkpoint`` as fp16 safetensors to a
+   temporary directory and read back by ``load_sd_params``; every
+   parameter must equal the seeded one after the same fp16 round trip, bit
+   for bit; the file's size and the seconds to save and to load;
+5v. SD2.1-v main path (OpenCLIP-H penultimate conditioning, 64-wide UNet
+   heads, v-prediction) at 768x768 through the CLI's own code
+   (``examples/txt2img_torch.py``: ``build`` of its arguments with
+   ``--preset sd21-v --ckpt`` that file, the byte-level tokenizer, 20 steps
+   of dpmpp_2m on the Karras ladder, CFG 7.5, rescale 0.7, bf16): a
+   warm-up (finite latents), one image with the counts checked exactly
+   (400 flash_packed at the four shapes of the 96x96 and 48x48 levels, 1
+   flash_bhsd at (1, 9216, 9216, 512), 320 geglu at four shapes, all on
+   the wgmma variants and measured in phase 3), one more image; s/image,
+   held and peak memory; then euler_ancestral and heun latents on the
+   ladder schedule, their launches 20 flash_packed and 16 geglu per
+   network call (heun: 39 calls, the JAX scan's discarded 40th not made);
+6v. profile: one more SD2.1-v image under ``torch.profiler``, as phase 6;
+   the checkpoint is deleted after it;
 7. the ``kernels`` JSON line: per kernel the main paths' launches (for
    the quant matmuls, those of the quantized images; flash_packed's SD3
    calls, the counterpart of the TPU's multi-k kernel, as their own
@@ -102,12 +126,15 @@ cuDNN convolutions (torch.backends.*.allow_tf32 = False) for the whole run.
 """
 from __future__ import annotations
 
+import argparse
 import copy
+import dataclasses
 import functools
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -125,6 +152,12 @@ WGMMA = ("wgmma", "wgmma_wide")
 
 STEPS = 20
 GUIDANCE = 7.5
+# SD2.1-v through the CLI (examples/txt2img_torch.py): 20 steps of
+# DPM-Solver++(2M) on the Karras ladder, CFG 7.5 rescaled by 0.7.
+SD21_ARGV = ["--preset", "sd21-v", "--fallback-tokenizer", "--sampler", "dpmpp_2m",
+             "--schedule", "karras", "--cfg-rescale", "0.7", "--steps", str(STEPS),
+             "--guidance", str(GUIDANCE), "--seed", "4",
+             "--prompt", "a photograph of an astronaut riding a horse"]
 SD3_STEPS = 28
 SD3_GUIDANCE = 5.0
 
@@ -139,9 +172,16 @@ PACKED_SHAPES = [("64x64 self", (2, 4096, 4096, 320, 8, 4096)),
 # CLIP (+ 77 T5) tokens, padded to a multiple of 128.
 MULTIK_SHAPES = [("SD3 joint", (2, 4224, 4224, 1536, 24, 4173)),
                  ("SD3+T5 joint", (2, 4352, 4352, 1536, 24, 4250))]
+# ... and the SD2.1-v UNet's at 768x768: 64-wide heads, 5 at the 96x96
+# level and 10 at 48x48 (its 24x24 level, 576 tokens, takes the math route).
+SD21_PACKED_SHAPES = [("SD2.1 96x96 self", (2, 9216, 9216, 320, 5, 9216)),
+                      ("SD2.1 96x96 cross", (2, 9216, 77, 320, 5, 77)),
+                      ("SD2.1 48x48 self", (2, 2304, 2304, 640, 10, 2304)),
+                      ("SD2.1 48x48 cross", (2, 2304, 77, 640, 10, 77))]
 # flash_bhsd: (batch * heads, Sq, Sk, d), the VAEs' mid attention.
 BHSD_SHAPES = [("VAE mid 512x512", (1, 4096, 4096, 512)),
-               ("VAE mid 1024x1024", (1, 16384, 16384, 512))]
+               ("VAE mid 1024x1024", (1, 16384, 16384, 512)),
+               ("VAE mid 768x768", (1, 9216, 9216, 512))]
 
 # (M, K, N) of the SD1.5 UNet's linears at bf16, CFG batch 2, and their
 # launches in one 20-step image: 184 per forward, 3,680 per image. Every
@@ -161,6 +201,11 @@ GEGLU_SHAPES = [("64x64", (8192, 1280, 320), 100),
                 ("32x32", (2048, 2560, 640), 100),
                 ("16x16", (512, 5120, 1280), 100),
                 ("8x8 mid", (128, 5120, 1280), 20)]
+# ... and the SD2.1-v UNet's at 768x768 (its main path, phase 5v).
+SD21_GEGLU_SHAPES = [("SD2.1 96x96", (18432, 1280, 320), 100),
+                     ("SD2.1 48x48", (4608, 2560, 640), 100),
+                     ("SD2.1 24x24", (1152, 5120, 1280), 100),
+                     ("SD2.1 12x12 mid", (288, 5120, 1280), 20)]
 QUANT_F32 = [(2, 1280, 320), (154, 768, 640), (2048, 640, 640), (512, 5120, 1280)]
 # The int4 shapes whose weight bytes, not x's, dominate (the tinygemm regime).
 SMALL_M = 154
@@ -329,6 +374,7 @@ def main() -> None:
     from tinyfusers_tpu_torch.kernels import _build
     from tinyfusers_tpu_torch.kernels.flash_attention import (
         _plan, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
+    from tinyfusers_tpu_torch.io import checkpoints
     from tinyfusers_tpu_torch.io.quantize_tree import quantize_params
     from tinyfusers_tpu_torch.kernels.geglu_ff import _plan as geglu_plan
     from tinyfusers_tpu_torch.kernels.geglu_ff import erf_as, geglu_matmul, geglu_matmul_plain
@@ -518,7 +564,7 @@ def main() -> None:
 
     for dt in (torch.bfloat16, torch.float32):
         isz = torch.tensor([], dtype=dt).element_size()
-        packed_rows = ([("flash_packed", *row) for row in PACKED_SHAPES]
+        packed_rows = ([("flash_packed", *row) for row in PACKED_SHAPES + SD21_PACKED_SHAPES]
                        + [("flash_packed_multik", *row) for row in MULTIK_SHAPES])
         for entry, label, (b, sq, sk, c, h, kvl) in packed_rows:
             q, k, v = randn(b, sq, c, dtype=dt), randn(b, sk, c, dtype=dt), randn(b, sk, c, dtype=dt)
@@ -563,7 +609,7 @@ def main() -> None:
                    tol[("attn", dt)], row_tol[("attn", dt)], variant=variant,
                    tflops=flops / t_k / 1e9)
         torch.cuda.empty_cache()
-        for label, (m, kd, nd), _ in GEGLU_SHAPES:
+        for label, (m, kd, nd), _ in GEGLU_SHAPES + SD21_GEGLU_SHAPES:
             proj = randn(m, 2 * kd, dtype=dt)
             gx, gate = proj.chunk(2, dim=-1)  # strided halves, as in the UNet
             w = (randn(nd, kd, dtype=torch.float32) * kd ** -0.5).to(dt).t()
@@ -771,6 +817,40 @@ def main() -> None:
         fail("MMDiT forward on the card disagrees with the CPU or its launches are not "
              f"{expect} at (2, 1152, 1152, 1536, 24, 1101)")
     del mm_gpu, mm_cpu, got, want
+    torch.cuda.empty_cache()
+
+    # 4v. the SD2.1 UNet: full width, fp32, card vs CPU --------------------
+    # 32x32 latents, so that the 1024-token level takes flash_packed at d = 64
+    ucfg21 = sd.SD21_V.unet
+    u21_gpu = unet_mod.UNet(ucfg21, device=dev, dtype=torch.float32)
+    init_weights(u21_gpu, seed=13)
+    u21_cpu = unet_mod.UNet(ucfg21, device="cpu", dtype=torch.float32)
+    u21_cpu.load_state_dict(u21_gpu.state_dict())
+    g_cpu = torch.Generator().manual_seed(14)
+    x = torch.randn((2, 32, 32, 4), generator=g_cpu)
+    ctx = torch.randn((2, 77, ucfg21.context_dim), generator=g_cpu)
+    t = torch.full((2,), 801.0)
+    reset_counts()
+    with torch.inference_mode():
+        got = unet_mod.apply(u21_gpu, x.to(dev), t.to(dev), ctx.to(dev))
+        torch.cuda.synchronize()
+        counts = {kn: w.launches for kn, w in wrappers.items()}
+        u21_shapes = dict(flash_packed.shapes)
+        t0 = time.perf_counter()
+        want = unet_mod.apply(u21_cpu, x, t, ctx)
+        cpu_s = time.perf_counter() - t0
+    err = rel_err(got.cpu(), want)
+    say(f"[unet-sd21] SD2.1 UNet (64-wide heads, context 1024) fp32 256x256 (2,32,32,4): "
+        f"card vs CPU max_abs={err[0]:.3e} rel={err[1]:.3e} (tol {unet_tol:.0e}); kernel "
+        f"launches on the card: {counts}, flash_packed shapes {u21_shapes}; CPU forward "
+        f"{cpu_s:.1f} s")
+    expect = dict.fromkeys(wrappers, 0)
+    expect.update(flash_packed=10, geglu=16)
+    if not (err[1] <= unet_tol and counts == expect
+            and u21_shapes == {(2, 1024, 1024, 320, 5, 1024): 5, (2, 1024, 77, 320, 5, 77): 5}):
+        fail(f"SD2.1 UNet forward on the card disagrees with the CPU or its launches are not "
+             f"{expect} with flash_packed at 5 heads of 64")
+    del u21_gpu, u21_cpu, got, want
     torch.cuda.empty_cache()
 
     # 5. the main path ----------------------------------------------------
@@ -1035,6 +1115,115 @@ def main() -> None:
     del model3, run3
     torch.cuda.empty_cache()
 
+    # 5c. the SD2.1-v checkpoint: written, read back --------------------------
+    cfg21 = sd.SD21_V
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "sd21v.safetensors"
+        model21 = sd.StableDiffusion(cfg21, device=dev, dtype=dtype, seed=15)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoints.save_sd_checkpoint(model21, ckpt, cfg21, dtype=torch.float16)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = checkpoints.load_sd_params(ckpt, cfg21, device=dev, dtype=dtype)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mine, theirs = dict(model21.named_parameters()), dict(loaded.named_parameters())
+        differ = [n for n, v in mine.items()
+                  if not torch.equal(theirs[n], v.to(torch.float16).to(dtype))]
+        n_params = sum(v.numel() for v in mine.values())
+        say(f"[ckpt-sd21] SD2.1-v checkpoint, fp16 safetensors: {ckpt.stat().st_size / 1e9:.3f} "
+            f"GB, {len(mine)} tensors, {n_params / 1e9:.3f} G parameters; save_sd_checkpoint "
+            f"{save_s:.2f} s, load_sd_params {load_s:.2f} s; parameters that differ from the "
+            f"seeded model after the same fp16 round trip: {len(differ)}")
+        if mine.keys() != theirs.keys() or differ:
+            fail(f"the SD2.1-v checkpoint did not read back bit for bit: {differ[:8]}")
+        del model21, loaded, mine, theirs
+        torch.cuda.empty_cache()
+
+        # 5v. SD2.1-v at 768x768 through the CLI's code, from that file ------
+        sys.path.insert(0, str(ROOT / "examples"))
+        import txt2img_torch
+
+        job = txt2img_torch.build(txt2img_torch.parse_args(SD21_ARGV + ["--ckpt", str(ckpt)]))
+        lat21 = job.latents()  # warm-up, then the image's stages
+        torch.cuda.synchronize()
+        if tuple(lat21.shape) != (1, 96, 96, 4) or not torch.isfinite(lat21.float()).all():
+            fail(f"SD2.1-v latents {tuple(lat21.shape)} not finite of shape (1, 96, 96, 4)")
+        warm21 = job.image()
+        torch.cuda.synchronize()
+        say(f"[main-sd21] warm-up: latents finite, |lat| max "
+            f"{lat21.float().abs().max().item():.3f}; context ids {tuple(job.ids.shape)}")
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i in range(2):
+            if i == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img21 = job.image()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                sd21_launches = {kn: w.launches for kn, w in wrappers.items()}
+                sd21_shapes = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+                sd21_variants = variants()
+                first21 = img21
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if img21.dtype != torch.uint8 or tuple(img21.shape) != (1, 768, 768, 3):
+            fail(f"SD2.1-v image {img21.dtype} {tuple(img21.shape)}, want uint8 (1, 768, 768, 3)")
+        want = dict.fromkeys(wrappers, 0)
+        want.update(flash_packed=400, flash_bhsd=1, geglu=320)
+        want_shapes = {kn: {} for kn in wrappers}
+        want_shapes.update(
+            flash_packed={key: 100 for _, key in SD21_PACKED_SHAPES},
+            flash_bhsd={BHSD_SHAPES[2][1]: 1},
+            geglu={mkn: n for _, mkn, n in SD21_GEGLU_SHAPES})
+        want_variants21 = {"flash_packed": {"wgmma": 400}, "flash_bhsd": {"wgmma_wide": 1},
+                           "geglu": {"wgmma": 320}}
+        say(f"[main-sd21] launches in one image: {sd21_launches} (want {want}); shapes "
+            f"{sd21_shapes}; flash and geglu launches by variant {sd21_variants}")
+        if (sd21_launches != want or sd21_shapes != want_shapes
+                or sd21_variants != want_variants21):
+            fail(f"SD2.1-v: launches {sd21_launches}, shapes {sd21_shapes}, variants "
+                 f"{sd21_variants} against {want}, {want_shapes}, {want_variants21}")
+        for kn, by_shape in sd21_shapes.items():
+            if set(by_shape) - measured(kn):
+                fail(f"SD2.1-v {kn}: main-path shapes {by_shape} not all measured in phase 3")
+        diff = (first21.int() - warm21.int()).abs().max().item()
+        say(f"[main-sd21] SD2.1-v 768x768 {STEPS}-step dpmpp_2m karras CFG {GUIDANCE} rescale "
+            f"0.7 bf16 batch 1, from the checkpoint through examples/txt2img_torch.py: s/image "
+            f"{[round(x, 4) for x in secs]} mean {sum(secs) / len(secs):.4f}; peak device "
+            f"memory {peak_gb:.2f} GB ({held_gb:.2f} GB held before the images); image max "
+            f"diff vs warm-up {diff}; card {card}")
+
+        # the other samplers: network calls x 20 flash_packed and 16 geglu
+        for sampler, calls in (("euler_ancestral", STEPS), ("heun", 2 * STEPS - 1)):
+            other = dataclasses.replace(job, args=argparse.Namespace(
+                **dict(vars(job.args), sampler=sampler, schedule="ladder")))
+            reset_counts()
+            t0 = time.perf_counter()
+            lat_o = other.latents()
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            got = {kn: w.launches for kn, w in wrappers.items()}
+            want = dict.fromkeys(wrappers, 0)
+            want.update(flash_packed=20 * calls, geglu=16 * calls)
+            say(f"[main-sd21] {sampler} ladder: {calls} network calls, launches {got} (want "
+                f"{want}), latents finite {bool(torch.isfinite(lat_o.float()).all())}, "
+                f"|lat| max {lat_o.float().abs().max().item():.3f}, {took:.3f} s for the "
+                f"latents")
+            if got != want or not torch.isfinite(lat_o.float()).all():
+                fail(f"SD2.1-v {sampler}: launches {got} against {want}, or latents not finite")
+
+        # 6v. profile: one more SD2.1-v image ----------------------------------
+        prof = profile(job.image)
+        say(f"[profile] one SD2.1-v 768x768 image under torch.profiler: {json.dumps(prof)}")
+        del job, lat21, warm21, img21, first21, lat_o, other
+        torch.cuda.empty_cache()
+    # the temporary directory and the checkpoint in it are gone here
+
     # 7. the kernels line and the contract line ---------------------------
     sources = {"flash_packed": ("tinyfusers_tpu_torch/csrc/flash_attention.cu",
                                 "tinyfusers_tpu/kernels/flash_attention.py:117"),
@@ -1049,18 +1238,22 @@ def main() -> None:
                "quant_matmul_int4": ("tinyfusers_tpu_torch/csrc/quant_matmul.cu",
                                      "tinyfusers_tpu/kernels/quant_matmul.py:111")}
     # each entry's paths: launches by path, per-shape counts, what they cover
-    paths = {kn: ({"sd15": launches[kn]}, shapes[kn],
-                  "one dense SD1.5 image's launches at bf16",
+    def summed(*counts):  # launches by shape over several images
+        keys = {k for c in counts for k in c}
+        return {k: sum(c.get(k, 0) for c in counts) for k in keys}
+
+    paths = {kn: ({"sd15": launches[kn], "sd21v": sd21_launches[kn]},
+                  summed(shapes[kn], sd21_shapes[kn]),
+                  "one dense SD1.5 image's and one SD2.1-v image's launches at bf16",
                   "geglu" if kn == "geglu" else "attn")
              for kn in ("flash_packed", "geglu")}
     paths["flash_bhsd"] = (
-        {"sd15": launches["flash_bhsd"], "sd3": sd3_launches["flash_bhsd"],
-         "sd3_t5": t5_launches["flash_bhsd"]},
-        {k: shapes["flash_bhsd"].get(k, 0) + sd3_shapes["flash_bhsd"].get(k, 0)
-         + t5_shapes["flash_bhsd"].get(k, 0)
-         for k in {*shapes["flash_bhsd"], *sd3_shapes["flash_bhsd"], *t5_shapes["flash_bhsd"]}},
-        "one dense SD1.5 image's, one SD3 image's and one SD3 + T5 image's launches at bf16",
-        "attn")
+        {"sd15": launches["flash_bhsd"], "sd21v": sd21_launches["flash_bhsd"],
+         "sd3": sd3_launches["flash_bhsd"], "sd3_t5": t5_launches["flash_bhsd"]},
+        summed(shapes["flash_bhsd"], sd21_shapes["flash_bhsd"], sd3_shapes["flash_bhsd"],
+               t5_shapes["flash_bhsd"]),
+        "one dense SD1.5 image's, one SD2.1-v image's, one SD3 image's and one SD3 + T5 "
+        "image's launches at bf16", "attn")
     paths["flash_packed_multik"] = (
         {"sd3": sd3_launches["flash_packed"], "sd3_t5": t5_launches["flash_packed"]},
         {**sd3_shapes["flash_packed"], **t5_shapes["flash_packed"]},

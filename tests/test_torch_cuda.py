@@ -92,6 +92,8 @@ QFORMAT_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8", torch.float8_e5
     (2, 130, 70, 3, 36, 50),  # d % 8 != 0: read zero-padded to 40
     (2, 4224, 4224, 24, 64, 4173),  # SD3's joint attention (the TPU's multi-k kernel)
     (2, 4352, 4352, 24, 64, 4250),  # the same with T5's 77 tokens
+    (2, 9216, 9216, 5, 64, None), (2, 9216, 77, 5, 64, None),  # SD2.1-v at 768x768
+    (2, 2304, 2304, 10, 64, None), (2, 2304, 77, 10, 64, None),
 ])
 def test_cuda_packed_matches_plain(cuda, dtype, b, sq, sk, heads, d, kv_len):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -119,6 +121,7 @@ def test_cuda_packed_matches_plain(cuda, dtype, b, sq, sk, heads, d, kv_len):
     ((3,), 90, 150, 20, True, None),  # d % 8 != 0: read zero-padded to 24
     ((1,), 200, 300, 512, False, 250),  # d = 512: ragged kv_len, Sq % 64 != 0
     ((2,), 130, 130, 512, True, None),
+    ((1, 1), 9216, 9216, 512, False, None),  # the 768x768 VAE's mid attention
 ])
 def test_cuda_bhsd_matches_plain(cuda, dtype, lead, sq, sk, d, causal, kv_len):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -223,11 +226,58 @@ def test_cuda_main_path_shapes_run_on_the_wgmma_kernels(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_sd21_shapes_run_on_the_wgmma_kernels(cuda):
+    """Every bf16 attention and FF shape of the SD2.1-v path at 768x768 goes
+    to a TMA + wgmma variant (64-wide heads, 5 and 10 of them; 9216 tokens,
+    not a power of two)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    before = (dict(flash_packed.variants), dict(flash_bhsd.variants),
+              dict(geglu_matmul.variants))
+    for b, sq, sk, heads in [(2, 9216, 9216, 5), (2, 9216, 77, 5), (2, 2304, 2304, 10),
+                             (2, 2304, 77, 10)]:
+        q, k, v = (torch.randn(b, s, heads * 64, generator=g, device=cuda).to(torch.bfloat16)
+                   for s in (sq, sk, sk))
+        flash_packed(q, k, v, heads=heads)
+    q = torch.randn(1, 1, 9216, 512, generator=g, device=cuda).to(torch.bfloat16)
+    flash_bhsd(q, q, q)
+    for m, k, n in [(18432, 1280, 320), (4608, 2560, 640), (1152, 5120, 1280), (288, 5120, 1280)]:
+        geglu_matmul(*_geglu_case(g, m, k, n, cuda))
+    torch.cuda.synchronize()
+    assert flash_packed.variants["wgmma"] == before[0].get("wgmma", 0) + 4
+    assert flash_bhsd.variants["wgmma_wide"] == before[1].get("wgmma_wide", 0) + 1
+    assert geglu_matmul.variants["wgmma"] == before[2].get("wgmma", 0) + 4
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip(cuda, tmp_path):
+    """A bf16 model on the card, written as an fp16 checkpoint and read back
+    onto the card and onto the CPU: every parameter is the seeded one after
+    the same fp16 rounding, bit for bit, on both."""
+    from tinyfusers_tpu_torch.io import checkpoints
+    from tinyfusers_tpu_torch.pipeline import sd
+
+    cfg = sd.SD15_QUARTER
+    model = sd.StableDiffusion(cfg, device=cuda, dtype=torch.bfloat16, seed=3)
+    path = tmp_path / "quarter.safetensors"
+    checkpoints.save_sd_checkpoint(model, path, cfg, dtype=torch.float16)
+    on_card = checkpoints.load_sd_params(path, cfg, device=cuda, dtype=torch.bfloat16)
+    on_cpu = checkpoints.load_sd_params(path, cfg, device="cpu", dtype=torch.bfloat16)
+    want = {n: p.to(torch.float16).to(torch.bfloat16) for n, p in model.named_parameters()}
+    for loaded in (on_card, on_cpu):
+        got = dict(loaded.named_parameters())
+        assert got.keys() == want.keys()
+        for n, w in want.items():
+            assert torch.equal(got[n].to(cuda), w), n
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n,bias", [
     (8192, 1280, 320, True), (2048, 2560, 640, True), (512, 5120, 1280, True),
     (128, 5120, 1280, True), (100, 96, 70, False),
     (70, 100, 33, True),  # K % 8 != 0 and odd N: element-wise loads and stores
+    (18432, 1280, 320, True), (4608, 2560, 640, True),  # SD2.1-v at 768x768
+    (1152, 5120, 1280, True), (288, 5120, 1280, True),
 ])
 def test_cuda_geglu_matches_plain(cuda, dtype, m, k, n, bias):
     g = torch.Generator(device=cuda).manual_seed(0)

@@ -129,6 +129,13 @@ def test_port_and_chip_smoke_import_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('txt2img_torch', "
+        "'examples/txt2img_torch.py')\n"
+        "cli = importlib.util.module_from_spec(spec)\n"
+        "sys.modules[spec.name] = cli\n"
+        "spec.loader.exec_module(cli)\n"
+        "cli.parse_args([])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'tinyfusers_tpu' or m.startswith('tinyfusers_tpu.')]\n"
         "assert not bad, bad\n"

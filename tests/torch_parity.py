@@ -43,3 +43,46 @@ def few_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+def tiny_sd(jsd, tsd, jcfg, tcfg, seed: int = 0):
+    """(JAX params, the port's StableDiffusion loaded from them, prompt ids,
+    negative ids, initial latent) at a TINY config, on the CPU."""
+    from tinyfusers_tpu_torch.io.from_jax import load_sd
+
+    params = random_tree(lambda k: jsd.init(k, jcfg), seed)
+    model = tsd.StableDiffusion(tcfg, device="cpu", seed=None)
+    load_sd(model, params)
+    rng = np.random.default_rng(seed + 1)
+    n = tcfg.clip.max_length
+    ids = rng.integers(0, tcfg.clip.vocab_size - 1, (1, n)).astype(np.int32)
+    uids = np.full((1, n), tcfg.clip.vocab_size - 1, np.int32)
+    uids[0, 0] = 0
+    lat = rng.standard_normal((1, *tcfg.latent_shape)).astype(np.float32)
+    return params, model, ids, uids, lat
+
+
+def jax_noises(key, start: int, steps: int, shape):
+    """The normals a JAX ancestral sampler draws: one split of the key per
+    step, from rung ``start``."""
+    import jax.numpy as jnp
+
+    out = []
+    for _ in range(start, steps):
+        key, sub = jax.random.split(key)
+        out.append(np.array(jax.random.normal(sub, shape, jnp.float32)))
+    return out
+
+
+def replay_noise(monkeypatch, noises):
+    """Make the port's ancestral draws (pipeline/samplers.py::_normal)
+    return ``noises`` in order; returns the list of those not drawn yet."""
+    from tinyfusers_tpu_torch.pipeline import samplers
+
+    queue = list(noises)
+
+    def draw(generator, like):
+        return torch.from_numpy(queue.pop(0)).to(like.device)
+
+    monkeypatch.setattr(samplers, "_normal", draw)
+    return queue

@@ -1,0 +1,52 @@
+"""SD checkpoint files <-> the port's models (port of the SD1.x / SD2.x part
+of tinyfusers_tpu/io/checkpoints.py).
+
+load_sd_params(path, cfg): a torch-zip .ckpt or a .safetensors file ->
+a pipeline.sd.StableDiffusion holding its weights on the device, in the
+requested dtype. save_sd_checkpoint(model, path, cfg): the model as an
+SD-format .safetensors file. The ControlNet and SDXL loaders are not
+ported yet.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Dict, Optional, Union
+
+import torch
+
+from . import safetensors_io, state_map, torch_pickle
+
+
+def load_state_dict(path) -> Dict[str, torch.Tensor]:
+    path = Path(path)
+    if path.suffix == ".safetensors":
+        return safetensors_io.load_state_dict(path)
+    return torch_pickle.load_state_dict(path)
+
+
+def load_sd_params(path, cfg=None, *, device: Union[str, torch.device] = "cuda",
+                   dtype: torch.dtype = torch.bfloat16):
+    """A full SD1.x / SD2.x checkpoint -> a StableDiffusion on ``device``
+    (the GPU unless the caller asks for the CPU) in ``dtype``, its text
+    encoder in OpenCLIP's layout (``cond_stage_model.model.*``, SD2.x) or
+    HF's (SD1.x)."""
+    from ..pipeline import sd as sd_pipeline
+
+    cfg = cfg or sd_pipeline.SD15
+    state = load_state_dict(path)
+    model = sd_pipeline.StableDiffusion(cfg, device=device, dtype=dtype, seed=None)
+    state_map.sd_from_state(state, model)
+    return model
+
+
+def save_sd_checkpoint(model, path, cfg=None, *, dtype: Optional[torch.dtype] = None) -> None:
+    """Write ``model`` as an SD-format .safetensors checkpoint (CLIP in the
+    HF layout, as the JAX package writes it); ``dtype`` casts the floating
+    tensors on the way out (fp16, as published checkpoints are). ``cfg``
+    must be the model's own."""
+    if cfg is not None and cfg != model.cfg:
+        raise ValueError("save_sd_checkpoint: cfg is not the model's config")
+    state = state_map.sd_state_from_params(model)
+    if dtype is not None:
+        state = {k: v.to(dtype) if v.is_floating_point() else v for k, v in state.items()}
+    safetensors_io.save_state_dict(state, path)

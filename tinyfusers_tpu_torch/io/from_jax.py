@@ -21,8 +21,6 @@ through their bytes (a uint8 view, then a float8_e4m3fn view).
 """
 from __future__ import annotations
 
-from typing import Iterable
-
 import numpy as np
 import torch
 from torch import nn
@@ -73,21 +71,19 @@ def _assign(param: torch.Tensor, value: np.ndarray, where: str) -> None:
         param.copy_(t.to(param.dtype))
 
 
-def _load(module: nn.Module, tree, where: str, ignore: Iterable[str], seen: set) -> None:
+def _load(module: nn.Module, tree, where: str, seen: set) -> None:
     if isinstance(module, nn.ModuleList):
         if isinstance(tree, dict):  # stacked per-layer leaves
             for i, sub in enumerate(module):
-                _load(sub, _index(tree, i), f"{where}[{i}]", ignore, seen)
+                _load(sub, _index(tree, i), f"{where}[{i}]", seen)
             return
         if len(tree) != len(module):
             raise ValueError(f"{where}: {len(tree)} entries for {len(module)} modules")
         for i, (sub, t) in enumerate(zip(module, tree)):
-            _load(sub, t, f"{where}[{i}]", ignore, seen)
+            _load(sub, t, f"{where}[{i}]", seen)
         return
     for key, value in tree.items():
         path = f"{where}.{key}" if where else key
-        if path in ignore:
-            continue
         if not isinstance(value, (dict, list)):  # a leaf: weight, bias, pos_embed
             q = _quantized(value) if key == "weight" else None
             if q is not None:
@@ -105,7 +101,7 @@ def _load(module: nn.Module, tree, where: str, ignore: Iterable[str], seen: set)
             continue
         if not hasattr(module, key):
             raise ValueError(f"{path}: no counterpart in {type(module).__name__}")
-        _load(getattr(module, key), value, path, ignore, seen)
+        _load(getattr(module, key), value, path, seen)
 
 
 def _index(tree, i):
@@ -114,33 +110,23 @@ def _index(tree, i):
     return tree[i]
 
 
-def load_params(module: nn.Module, tree, *, ignore: Iterable[str] = ()) -> None:
-    """Write ``tree`` into ``module``'s parameters. ``ignore`` lists dotted
-    tree paths with no counterpart in the port yet (e.g. "vae.encoder")."""
+def load_params(module: nn.Module, tree) -> None:
+    """Write ``tree`` into ``module``'s parameters."""
     seen: set = set()
-    _load(module, tree, "", set(ignore), seen)
+    _load(module, tree, "", seen)
     missing = [n for n, p in module.named_parameters() if id(p) not in seen]
     if missing:
         raise ValueError(f"parameters not in the tree: {missing[:8]}")
 
 
-# The parts of the JAX SD tree that the port does not run yet.
-SD_NOT_PORTED = ("vae.encoder", "vae.quant_conv")
-
-
 def load_sd(model: nn.Module, params) -> None:
     """Load a JAX ``sd.init`` tree ({'clip', 'unet', 'vae'}) into a
     ``pipeline.sd.StableDiffusion``."""
-    load_params(model, params, ignore=SD_NOT_PORTED)
-
-
-# The parts of the JAX SD3 tree that the port does not run yet (the
-# 16-channel VAE has no quant convs).
-SD3_NOT_PORTED = ("vae.encoder",)
+    load_params(model, params)
 
 
 def load_sd3(model: nn.Module, params) -> None:
     """Load a JAX ``sd3.init`` tree ({'clip_l', 'clip_g', 'mmdit', 'vae'}
     and, with T5, 't5'; a learned 'mmdit.pos_embed' when the MMDiT holds
     one) into a ``pipeline.sd3.StableDiffusion3``."""
-    load_params(model, params, ignore=SD3_NOT_PORTED)
+    load_params(model, params)

@@ -1,0 +1,302 @@
+"""SD1.x / SD2.x checkpoint names <-> the port's parameters (port of the
+SD part of tinyfusers_tpu/io/state_map.py).
+
+The LDM layout of an SD checkpoint is torch's own (linear weights (out,
+in), conv weights OIHW), and so is the port's, so each checkpoint tensor
+goes to one parameter as it is. The exceptions are OpenCLIP's: its fused
+``in_proj`` is split into q, k and v, its ``positional_embedding`` is a
+bare tensor, and its ``text_projection`` is applied as ``x @ W`` (stored
+(in, out)). The JAX package stacks CLIP's layers for ``lax.scan``; the
+port's are a ModuleList, so nothing is stacked here.
+
+Each ``*_from_state`` writes a checkpoint into a module: every parameter
+is written exactly once, every shape must match, and a missing key or
+parameter raises with its name. Keys the module does not use (EMA
+weights, schedules, ...) are left alone, as in the JAX package. Each
+``*_to_state`` is the inverse and gives the checkpoint's tensors.
+
+Checkpoint prefixes:
+  model.diffusion_model.*                       UNet
+  first_stage_model.*                           VAE
+  cond_stage_model.transformer.text_model.*     CLIP, HF layout (SD1.x)
+  cond_stage_model.model.*                      OpenCLIP layout (SD2.x)
+
+The SDXL, SD3 / T5, ControlNet and CLIP-vision maps are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models import unet as unet_model
+
+# (port parameter name, checkpoint key, what to take from the key's tensor)
+Entry = Tuple[str, str, Optional[Callable[[torch.Tensor], torch.Tensor]]]
+
+UNET_PREFIX = "model.diffusion_model"
+VAE_PREFIX = "first_stage_model"
+CLIP_PREFIX = "cond_stage_model.transformer.text_model"
+OPENCLIP_PREFIX = "cond_stage_model.model"
+
+
+def _leaf(out: List[Entry], port: str, key: str, bias: bool = True) -> None:
+    out.append((f"{port}.weight", f"{key}.weight", None))
+    if bias:
+        out.append((f"{port}.bias", f"{key}.bias", None))
+
+
+def _tensor(value) -> torch.Tensor:
+    return value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
+
+
+def _write(module: nn.Module, state: Mapping, entries: List[Entry], what: str) -> None:
+    params = dict(module.named_parameters())
+    written = set()
+    for name, key, take in entries:
+        if key not in state:
+            raise KeyError(f"{what}: the checkpoint has no {key!r} (for {name})")
+        if name not in params:
+            raise ValueError(f"{what}: {key!r} maps to {name}, which the module lacks")
+        if name in written:
+            raise ValueError(f"{what}: {name} would be written twice")
+        t = _tensor(state[key])
+        if take is not None:
+            t = take(t)
+        p = params[name]
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{what}: {key!r} has shape {tuple(t.shape)}, but {name} "
+                             f"is {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(t)
+        written.add(name)
+    missing = [n for n in params if n not in written]
+    if missing:
+        raise ValueError(f"{what}: parameters not in the checkpoint map: {missing[:8]}")
+
+
+def _read(module: nn.Module, entries: List[Entry]) -> Dict[str, torch.Tensor]:
+    params = dict(module.named_parameters())
+    return {key: params[name].detach() for name, key, take in entries}
+
+
+# ---------------------------------------------------------------------------
+# UNet (the checkpoint's block indices are build_plan's order)
+# ---------------------------------------------------------------------------
+
+def _unet_entries(cfg: unet_model.UNetConfig) -> List[Entry]:
+    out: List[Entry] = []
+    pre = UNET_PREFIX
+
+    def block(port: str, key: str, specs) -> None:
+        for j, spec in enumerate(specs):
+            p, k = f"{port}.{j}", f"{key}.{j}"
+            if spec == "conv_in":
+                _leaf(out, p, k)
+            elif isinstance(spec, unet_model.ResSpec):
+                _leaf(out, f"{p}.norm1", f"{k}.in_layers.0")
+                _leaf(out, f"{p}.conv1", f"{k}.in_layers.2")
+                _leaf(out, f"{p}.emb", f"{k}.emb_layers.1")
+                _leaf(out, f"{p}.norm2", f"{k}.out_layers.0")
+                _leaf(out, f"{p}.conv2", f"{k}.out_layers.3")
+                if spec.in_ch != spec.out_ch:
+                    _leaf(out, f"{p}.skip", f"{k}.skip_connection")
+            elif isinstance(spec, unet_model.AttnSpec):
+                _leaf(out, f"{p}.norm", f"{k}.norm")
+                _leaf(out, f"{p}.proj_in", f"{k}.proj_in")
+                for d in range(spec.depth):
+                    bp, bk = f"{p}.blocks.{d}", f"{k}.transformer_blocks.{d}"
+                    for n in ("norm1", "norm2", "norm3"):
+                        _leaf(out, f"{bp}.{n}", f"{bk}.{n}")
+                    for a in ("attn1", "attn2"):
+                        for n in ("to_q", "to_k", "to_v"):
+                            _leaf(out, f"{bp}.{a}.{n}", f"{bk}.{a}.{n}", bias=False)
+                        _leaf(out, f"{bp}.{a}.to_out", f"{bk}.{a}.to_out.0")
+                    _leaf(out, f"{bp}.ff.proj", f"{bk}.ff.net.0.proj")
+                    _leaf(out, f"{bp}.ff.out", f"{bk}.ff.net.2")
+                _leaf(out, f"{p}.proj_out", f"{k}.proj_out")
+            elif isinstance(spec, unet_model.SampleSpec):
+                # Downsample keeps its conv under .op, Upsample under .conv
+                _leaf(out, f"{p}.conv", f"{k}.op" if spec.mode == "down" else f"{k}.conv")
+            else:
+                raise ValueError(spec)
+
+    _leaf(out, "time_embed.fc1", f"{pre}.time_embed.0")
+    _leaf(out, "time_embed.fc2", f"{pre}.time_embed.2")
+    inp, mid, outp = unet_model.build_plan(cfg)
+    for i, b in enumerate(inp):
+        block(f"input.{i}", f"{pre}.input_blocks.{i}", b)
+    block("middle", f"{pre}.middle_block", mid)
+    for i, b in enumerate(outp):
+        block(f"output.{i}", f"{pre}.output_blocks.{i}", b)
+    _leaf(out, "out_norm", f"{pre}.out.0")
+    _leaf(out, "out_conv", f"{pre}.out.2")
+    return out
+
+
+def unet_from_state(state: Mapping, unet: nn.Module) -> None:
+    """Write the UNet of an SD checkpoint into ``unet`` (a models.unet.UNet)."""
+    _write(unet, state, _unet_entries(unet.cfg), "unet")
+
+
+def unet_to_state(unet: nn.Module) -> Dict[str, torch.Tensor]:
+    return _read(unet, _unet_entries(unet.cfg))
+
+
+# ---------------------------------------------------------------------------
+# VAE
+# ---------------------------------------------------------------------------
+
+def _vae_entries(vae: nn.Module) -> List[Entry]:
+    out: List[Entry] = []
+    pre = VAE_PREFIX
+
+    def resnet(p: str, k: str, block) -> None:
+        for n in ("norm1", "conv1", "norm2", "conv2"):
+            _leaf(out, f"{p}.{n}", f"{k}.{n}")
+        if hasattr(block, "nin_shortcut"):
+            _leaf(out, f"{p}.nin_shortcut", f"{k}.nin_shortcut")
+
+    def mid(p: str, k: str, m) -> None:
+        resnet(f"{p}.block_1", f"{k}.block_1", m.block_1)
+        for n in ("norm", "q", "k", "v", "proj_out"):
+            _leaf(out, f"{p}.attn_1.{n}", f"{k}.attn_1.{n}")
+        resnet(f"{p}.block_2", f"{k}.block_2", m.block_2)
+
+    enc, dec = vae.encoder, vae.decoder
+    _leaf(out, "encoder.conv_in", f"{pre}.encoder.conv_in")
+    for i, stage in enumerate(enc.down):
+        for j, bp in enumerate(stage.block):
+            resnet(f"encoder.down.{i}.block.{j}", f"{pre}.encoder.down.{i}.block.{j}", bp)
+        if hasattr(stage, "downsample"):
+            _leaf(out, f"encoder.down.{i}.downsample", f"{pre}.encoder.down.{i}.downsample.conv")
+    mid("encoder.mid", f"{pre}.encoder.mid", enc.mid)
+    _leaf(out, "encoder.norm_out", f"{pre}.encoder.norm_out")
+    _leaf(out, "encoder.conv_out", f"{pre}.encoder.conv_out")
+    _leaf(out, "decoder.conv_in", f"{pre}.decoder.conv_in")
+    mid("decoder.mid", f"{pre}.decoder.mid", dec.mid)
+    for i, stage in enumerate(dec.up):
+        for j, bp in enumerate(stage.block):
+            resnet(f"decoder.up.{i}.block.{j}", f"{pre}.decoder.up.{i}.block.{j}", bp)
+        if hasattr(stage, "upsample"):
+            _leaf(out, f"decoder.up.{i}.upsample", f"{pre}.decoder.up.{i}.upsample.conv")
+    _leaf(out, "decoder.norm_out", f"{pre}.decoder.norm_out")
+    _leaf(out, "decoder.conv_out", f"{pre}.decoder.conv_out")
+    if vae.cfg.use_quant_conv:
+        _leaf(out, "quant_conv", f"{pre}.quant_conv")
+        _leaf(out, "post_quant_conv", f"{pre}.post_quant_conv")
+    return out
+
+
+def vae_from_state(state: Mapping, vae: nn.Module) -> None:
+    """Write the VAE of an SD checkpoint into ``vae`` (a models.vae.AutoencoderKL)."""
+    _write(vae, state, _vae_entries(vae), "vae")
+
+
+def vae_to_state(vae: nn.Module) -> Dict[str, torch.Tensor]:
+    return _read(vae, _vae_entries(vae))
+
+
+# ---------------------------------------------------------------------------
+# CLIP text encoder: HF layout (SD1.x) and OpenCLIP layout (SD2.x)
+# ---------------------------------------------------------------------------
+
+def _clip_entries(cfg, prefix: str = CLIP_PREFIX) -> List[Entry]:
+    out: List[Entry] = []
+    out.append(("token_embedding.weight", f"{prefix}.embeddings.token_embedding.weight", None))
+    out.append(("position_embedding.weight",
+                f"{prefix}.embeddings.position_embedding.weight", None))
+    for i in range(cfg.num_layers):
+        p, k = f"layers.{i}", f"{prefix}.encoder.layers.{i}"
+        _leaf(out, f"{p}.layer_norm1", f"{k}.layer_norm1")
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _leaf(out, f"{p}.self_attn.{n}", f"{k}.self_attn.{n}")
+        _leaf(out, f"{p}.layer_norm2", f"{k}.layer_norm2")
+        _leaf(out, f"{p}.mlp.fc1", f"{k}.mlp.fc1")
+        _leaf(out, f"{p}.mlp.fc2", f"{k}.mlp.fc2")
+    _leaf(out, "final_layer_norm", f"{prefix}.final_layer_norm")
+    if cfg.projection_dim:
+        # a sibling of text_model (CLIPTextModelWithProjection), (proj, dim)
+        parent = prefix.rsplit(".text_model", 1)[0]
+        _leaf(out, "text_projection", f"{parent}.text_projection", bias=False)
+    return out
+
+
+def clip_from_state(state: Mapping, clip: nn.Module, prefix: str = CLIP_PREFIX) -> None:
+    """Write an HF-layout CLIP text tower into ``clip`` (a models.clip.CLIPTextModel)."""
+    _write(clip, state, _clip_entries(clip.cfg, prefix), "clip")
+
+
+def clip_to_state(clip: nn.Module, prefix: str = CLIP_PREFIX) -> Dict[str, torch.Tensor]:
+    return _read(clip, _clip_entries(clip.cfg, prefix))
+
+
+def _rows(i: int, d: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    return lambda t: t[i * d:(i + 1) * d]
+
+
+def _openclip_entries(cfg, prefix: str) -> List[Entry]:
+    out: List[Entry] = []
+    d = cfg.dim
+    out.append(("token_embedding.weight", f"{prefix}.token_embedding.weight", None))
+    # a bare parameter in OpenCLIP
+    out.append(("position_embedding.weight", f"{prefix}.positional_embedding", None))
+    for i in range(cfg.num_layers):
+        p, k = f"layers.{i}", f"{prefix}.transformer.resblocks.{i}"
+        _leaf(out, f"{p}.layer_norm1", f"{k}.ln_1")
+        for j, n in enumerate(("q_proj", "k_proj", "v_proj")):  # the fused (3d, d) in_proj
+            out.append((f"{p}.self_attn.{n}.weight", f"{k}.attn.in_proj_weight", _rows(j, d)))
+            out.append((f"{p}.self_attn.{n}.bias", f"{k}.attn.in_proj_bias", _rows(j, d)))
+        _leaf(out, f"{p}.self_attn.out_proj", f"{k}.attn.out_proj")
+        _leaf(out, f"{p}.layer_norm2", f"{k}.ln_2")
+        _leaf(out, f"{p}.mlp.fc1", f"{k}.mlp.c_fc")
+        _leaf(out, f"{p}.mlp.fc2", f"{k}.mlp.c_proj")
+    _leaf(out, "final_layer_norm", f"{prefix}.ln_final")
+    if cfg.projection_dim:
+        # applied as x @ W: stored (in, out), the transpose of a Linear's
+        out.append(("text_projection.weight", f"{prefix}.text_projection", lambda t: t.t()))
+    return out
+
+
+def openclip_from_state(state: Mapping, clip: nn.Module, prefix: str = OPENCLIP_PREFIX) -> None:
+    """Write an OpenCLIP-layout text tower (fused in_proj, resblocks, ln_1
+    / ln_2, c_fc / c_proj, ln_final, text_projection) into ``clip``."""
+    _write(clip, state, _openclip_entries(clip.cfg, prefix), "openclip")
+
+
+def openclip_to_state(clip: nn.Module, prefix: str = OPENCLIP_PREFIX) -> Dict[str, torch.Tensor]:
+    """Inverse of openclip_from_state: q, k and v fused back into in_proj."""
+    params = dict(clip.named_parameters())
+    parts: Dict[str, List[torch.Tensor]] = {}
+    for name, key, _ in _openclip_entries(clip.cfg, prefix):
+        t = params[name].detach()
+        parts.setdefault(key, []).append(t.t() if key.endswith(".text_projection") else t)
+    # q, k and v, in that order, are the rows of a fused in_proj
+    return {key: torch.cat(ts) if len(ts) > 1 else ts[0] for key, ts in parts.items()}
+
+
+# ---------------------------------------------------------------------------
+# The whole SD model
+# ---------------------------------------------------------------------------
+
+def sd_from_state(state: Mapping, model: nn.Module) -> None:
+    """Write a whole SD1.x / SD2.x checkpoint into ``model`` (a
+    pipeline.sd.StableDiffusion). The text encoder's layout is read from the
+    keys: SD2.x keeps it in OpenCLIP's, SD1.x in HF's."""
+    if any(k.startswith(OPENCLIP_PREFIX + ".") for k in state):
+        openclip_from_state(state, model.clip)
+    else:
+        clip_from_state(state, model.clip)
+    unet_from_state(state, model.unet)
+    vae_from_state(state, model.vae)
+
+
+def sd_state_from_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model as an SD checkpoint's flat dict (CLIP in HF layout, as the
+    JAX package writes it)."""
+    out = clip_to_state(model.clip)
+    out.update(unet_to_state(model.unet))
+    out.update(vae_to_state(model.vae))
+    return out

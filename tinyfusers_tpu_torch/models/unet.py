@@ -48,6 +48,9 @@ class UNetConfig:
 
 SD15_CONFIG = UNetConfig()
 
+# SD 2.x: 64-wide heads (5 / 10 / 20 of them), OpenCLIP-H context.
+SD21_CONFIG = UNetConfig(context_dim=1024, num_heads=-1, head_dim=64)
+
 TINY_CONFIG = UNetConfig(
     model_channels=32,
     channel_mult=(1, 2),

@@ -1,9 +1,11 @@
-"""VAE (AutoencoderKL) decoder, NHWC (port of tinyfusers_tpu/models/vae.py).
+"""VAE (AutoencoderKL) encoder and decoder, NHWC (port of
+tinyfusers_tpu/models/vae.py).
 
-The module tree mirrors the JAX param tree. The decoder and
-``post_quant_conv`` are ported; the encoder (used by img2img and
-inpainting) comes with a later part of the port. Every norm uses
-eps=1e-6.
+The module tree mirrors the JAX param tree: encoder, decoder and, for the
+SD1.x / SD2.x / SDXL VAE, quant_conv and post_quant_conv. The encoder's
+modules are registered after the decoder's, so that a seeded init draws
+the decoder's weights as it did before the encoder was ported. Every norm
+uses eps=1e-6.
 """
 from __future__ import annotations
 
@@ -72,6 +74,28 @@ class Mid(nn.Module):
         self.block_2 = ResnetBlock(ch, ch, **kw)
 
 
+class DownStage(nn.Module):
+    def __init__(self, cin: int, cout: int, downsample: bool, **kw):
+        super().__init__()
+        self.block = nn.ModuleList([ResnetBlock(cin, cout, **kw),
+                                    ResnetBlock(cout, cout, **kw)])
+        if downsample:
+            self.downsample = Conv(cout, cout, 3, **kw)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, **kw):
+        super().__init__()
+        chs = [cfg.base_channels * m for m in cfg.channel_mult]
+        enc = list(zip(chs[:-1], chs[1:]))  # (in, out) per stage
+        self.conv_in = Conv(cfg.in_channels, chs[0], 3, **kw)
+        self.down = nn.ModuleList(DownStage(cin, cout, downsample=i != len(enc) - 1, **kw)
+                                  for i, (cin, cout) in enumerate(enc))
+        self.mid = Mid(chs[-1], **kw)
+        self.norm_out = Norm(chs[-1], **kw)
+        self.conv_out = Conv(chs[-1], 2 * cfg.latent_channels, 3, **kw)
+
+
 class UpStage(nn.Module):
     def __init__(self, cin: int, cout: int, upsample: bool, **kw):
         super().__init__()
@@ -99,15 +123,17 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The decoder half of the JAX package's VAE param tree."""
-
     def __init__(self, cfg: VAEConfig = SD_VAE_CONFIG, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        lc = cfg.latent_channels
         self.cfg = cfg
         self.decoder = Decoder(cfg, **kw)
         if cfg.use_quant_conv:
-            self.post_quant_conv = Conv(cfg.latent_channels, cfg.latent_channels, 1, **kw)
+            self.post_quant_conv = Conv(lc, lc, 1, **kw)
+        self.encoder = Encoder(cfg, **kw)
+        if cfg.use_quant_conv:
+            self.quant_conv = Conv(2 * lc, 2 * lc, 1, **kw)
 
 
 def _resnet_apply(p: ResnetBlock, x, g: int):
@@ -131,6 +157,28 @@ def _mid_apply(p: Mid, x, g: int):
     x = _resnet_apply(p.block_1, x, g)
     x = _attnblock_apply(p.attn_1, x, g)
     return _resnet_apply(p.block_2, x, g)
+
+
+def encode(model: AutoencoderKL, x: torch.Tensor) -> torch.Tensor:
+    """Image (B, H, W, 3) -> latent means (B, H/8, W/8, latent_ch), shifted
+    and scaled for the diffusion loop. The stride-2 downsample convs pad
+    (0, 1, 0, 1): bottom and right only."""
+    cfg = model.cfg
+    g = cfg.num_groups
+    p = model.encoder
+    x = p.conv_in(x, padding=1)
+    for stage in p.down:
+        for bp in stage.block:
+            x = _resnet_apply(bp, x, g)
+        if hasattr(stage, "downsample"):
+            x = stage.downsample(x, stride=2, padding=(0, 1, 0, 1))
+    x = _mid_apply(p.mid, x, g)
+    x = p.norm_out.group(x, g, 1e-6)
+    x = p.conv_out(ops.swish(x), padding=1)
+    if cfg.use_quant_conv:
+        x = model.quant_conv(x)
+    means = x[..., :cfg.latent_channels]  # the logvars are dropped
+    return (means - cfg.shift_factor) * cfg.scale_factor
 
 
 def decode(model: AutoencoderKL, z: torch.Tensor) -> torch.Tensor:
