@@ -5,9 +5,11 @@
 Drives tinyfusers_tpu_torch's SD1.5 text-to-image path on the card, dense
 and with a weight-only int8, fp8 or int4 UNet, its SD3-medium path
 (MMDiT, rectified flow), without and with T5-XXL, with seeded random
-weights made on the card, and its SD2.1-v path from a checkpoint file
-through the port's CLI, and holds every hand-written CUDA kernel of
-those paths against its plain PyTorch version. Imports neither jax nor
+weights made on the card, its SD2.1-v path from a checkpoint file
+through the port's CLI, and SD1.5 with a ControlNet from a checkpoint
+file, DeepCache, FreeU, the hires fix, img2img and inpainting, and holds
+every hand-written CUDA kernel of those paths against its plain PyTorch
+version. Imports neither jax nor
 tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
 and the ``final`` layer) are zeros under the JAX init, which would keep
 the joint attention's output out of the latents, so a wrong kernel would
@@ -34,7 +36,13 @@ Phases, one or more lines each:
    for each flash row also the kernel variant it ran on and its TFLOP/s
    (bf16 rows of the main paths must run on the TMA + wgmma variants), and
    the flash_packed wrapper's host microseconds per call at SD1.5's 64x64
-   self-attention shape;
+   self-attention shape; in bf16 also flash_packed at the hires fix's
+   three 1024x1024 levels (8 heads of 40, 80 and 160) and SD1.5's shapes at
+   batch 1, geglu at the hires levels and at batch 1 (their plain
+   attention, where its fp32 logits would pass 4 Gi elements, over chunks
+   of query rows with all keys each, timed by events); a [gelu] line
+   counting the bf16 values where ops.gelu_erf on the card differs from
+   the CPU;
    for the quant matmuls in bf16 also the error of a planted rounding
    deviation (int8 / fp8: the scale folded into the bf16 weight; int4:
    two, the weight not rounded to bf16 before the product and the scale
@@ -67,9 +75,11 @@ Phases, one or more lines each:
    image by the host clock after synchronize, and peak device memory;
 6. profile: one more image of the same model and inputs under
    ``torch.profiler``: its host seconds, the summed device time, the
-   device's busy share, the number of device kernels, and the device time
+   device's busy share, the number of device kernels, the device time
    by kernel group (the port's kernels, cuDNN convolution, cuBLAS,
-   reductions, elementwise, other);
+   reductions, elementwise, other), and (for this image and phase 5n's
+   ControlNet image) the eight host ops with the most self CPU time
+   (calls, ms);
 5q. quantized main path: the same UNet weights restored dense on the card
    and quantized there by ``io/quantize_tree.quantize_params`` to int8,
    fp8 and int4 in turn; for each a warm-up (latents compared with the
@@ -110,6 +120,32 @@ Phases, one or more lines each:
    network call (heun: 39 calls, the JAX scan's discarded 40th not made);
 6v. profile: one more SD2.1-v image under ``torch.profiler``, as phase 6;
    the checkpoint is deleted after it;
+5n. ControlNet: [ckpt-cn] an SD1.5 ControlNet (lllyasviel's cldm_v15
+   control_stage_config: SD1.5's encoder widths, a 3-channel hint) seeded
+   on the card in bf16, its zero convs and last hint conv refilled with
+   seeded values (zeros under the JAX init, which would make it a no-op),
+   written as an fp16 ``control_model.*`` safetensors file and read back
+   by ``load_controlnet_params`` bit for bit; [unet-cn] one ControlNet +
+   UNet step at full width in fp32 at 256x256, card vs CPU (14 flash_packed,
+   23 geglu); [main-cn] 512x512 20-step DDIM CFG 7.5 images through the
+   CLI's ``build()`` with ``--control-ckpt`` that file and a seeded hint
+   tensor (560 flash_packed, 140 at each SD1.5 shape; 460 geglu; 1
+   flash_bhsd), and a [profile] line of one;
+5d. DeepCache and FreeU through the same job: [main-deepcache] interval 3,
+   split 3; [main-deepcache-cfg] the same with cached CFG interval 2 (the
+   branches apart at batch 1: the B=1 shapes of phase 3); [main-freeu]
+   (1.5, 1.6, 0.9, 0.2); each with finite latents and launches counted
+   from the call counter (full and shallow passes from build_plan);
+5h. the hires fix: 512x512 base, latent x2, strength 0.6, 12 tail steps
+   at 1024x1024 (flash_packed 400 at SD1.5's shapes and 60 at each of the
+   six hires shapes, 120 of them d = 160 on wgmma_wide; 1 flash_bhsd at
+   (1, 16384, 16384, 512); geglu 512) and a [profile] line of one image;
+5i. img2img (15 of 20 steps; VAE encode and decode: 2 flash_bhsd) and
+   inpainting (``unet.SD15_INPAINT_CONFIG``, runwayml's
+   v1-inpainting-inference.yaml, in_channels 9; right half masked; the
+   kept half equal to the source bit for bit) at 512x512;
+   each image phase prints s/image, held and peak memory, the launches by
+   wrapper, by shape and by variant (every shape measured in phase 3);
 7. the ``kernels`` JSON line: per kernel the main paths' launches (for
    the quant matmuls, those of the quantized images; flash_packed's SD3
    calls, the counterpart of the TPU's multi-k kernel, as their own
@@ -118,7 +154,8 @@ Phases, one or more lines each:
    per-call times. Then nvidia-smi's line again, then the last line
    ``{"ok": true, ...}``.
 
-Any failed phase exits non-zero before the last line. Without a CUDA
+A [time] line after each group of phases gives the seconds since the
+start. Any failed phase exits non-zero before the last line. Without a CUDA
 GPU, or without the repository beside it, it exits non-zero at once.
 
 fp32 comparisons are exact fp32: TF32 is switched off for matmuls and
@@ -158,6 +195,11 @@ SD21_ARGV = ["--preset", "sd21-v", "--fallback-tokenizer", "--sampler", "dpmpp_2
              "--schedule", "karras", "--cfg-rescale", "0.7", "--steps", str(STEPS),
              "--guidance", str(GUIDANCE), "--seed", "4",
              "--prompt", "a photograph of an astronaut riding a horse"]
+# SD1.5 through the CLI (seeded random weights), for the ControlNet,
+# DeepCache, FreeU and hires-fix images.
+SD15_ARGV = ["--preset", "sd15", "--fallback-tokenizer", "--steps", str(STEPS),
+             "--guidance", str(GUIDANCE), "--seed", "5",
+             "--prompt", "a house in the woods, oil painting"]
 SD3_STEPS = 28
 SD3_GUIDANCE = 5.0
 
@@ -178,6 +220,24 @@ SD21_PACKED_SHAPES = [("SD2.1 96x96 self", (2, 9216, 9216, 320, 5, 9216)),
                       ("SD2.1 96x96 cross", (2, 9216, 77, 320, 5, 77)),
                       ("SD2.1 48x48 self", (2, 2304, 2304, 640, 10, 2304)),
                       ("SD2.1 48x48 cross", (2, 2304, 77, 640, 10, 77))]
+# ... and the hires fix's tail (SD1.5 at 2x: 1024x1024, 128x128 latents):
+# 8 heads of 40, 80 and 160 wide, the last on the wgmma_wide variant.
+HIRES_PACKED_SHAPES = [("hires 128x128 self", (2, 16384, 16384, 320, 8, 16384)),
+                       ("hires 128x128 cross", (2, 16384, 77, 320, 8, 77)),
+                       ("hires 64x64 self", (2, 4096, 4096, 640, 8, 4096)),
+                       ("hires 64x64 cross", (2, 4096, 77, 640, 8, 77)),
+                       ("hires 32x32 self", (2, 1024, 1024, 1280, 8, 1024)),
+                       ("hires 32x32 cross", (2, 1024, 77, 1280, 8, 77))]
+# ... and SD1.5's at batch 1: DeepCache with cached CFG runs the cond and the
+# uncond branch apart.
+B1_PACKED_SHAPES = [("B=1 64x64 self", (1, 4096, 4096, 320, 8, 4096)),
+                    ("B=1 64x64 cross", (1, 4096, 77, 320, 8, 77)),
+                    ("B=1 32x32 self", (1, 1024, 1024, 640, 8, 1024)),
+                    ("B=1 32x32 cross", (1, 1024, 77, 640, 8, 77))]
+# The plain attention's fp32 logits of one call: above this many elements
+# (4 GiB) it runs over query-row chunks of half as many, all keys each
+# (rows are independent: the same function, all rows held).
+PLAIN_LOGITS = 1 << 30
 # flash_bhsd: (batch * heads, Sq, Sk, d), the VAEs' mid attention.
 BHSD_SHAPES = [("VAE mid 512x512", (1, 4096, 4096, 512)),
                ("VAE mid 1024x1024", (1, 16384, 16384, 512)),
@@ -206,6 +266,15 @@ SD21_GEGLU_SHAPES = [("SD2.1 96x96", (18432, 1280, 320), 100),
                      ("SD2.1 48x48", (4608, 2560, 640), 100),
                      ("SD2.1 24x24", (1152, 5120, 1280), 100),
                      ("SD2.1 12x12 mid", (288, 5120, 1280), 20)]
+# ... and the hires tail's (the 16x16 mid block's is SD1.5's 16x16 shape) ...
+HIRES_GEGLU_SHAPES = [("hires 128x128", (32768, 1280, 320), 60),
+                      ("hires 64x64", (8192, 2560, 640), 60),
+                      ("hires 32x32", (2048, 5120, 1280), 60)]
+# ... and SD1.5's at batch 1 (DeepCache with cached CFG).
+B1_GEGLU_SHAPES = [("B=1 64x64", (4096, 1280, 320), None),
+                   ("B=1 32x32", (1024, 2560, 640), None),
+                   ("B=1 16x16", (256, 5120, 1280), None),
+                   ("B=1 8x8 mid", (64, 5120, 1280), None)]
 QUANT_F32 = [(2, 1280, 320), (154, 768, 640), (2048, 640, 640), (512, 5120, 1280)]
 # The int4 shapes whose weight bytes, not x's, dominate (the tinygemm regime).
 SMALL_M = 154
@@ -224,6 +293,57 @@ GROUPS = (
     ("reduce", "reductions (norm statistics)"),
     ("elementwise", "elementwise"),
 )
+
+
+def unet_launches(ucfg, side: int, batch: int, part: str = "all", m: int = 0):
+    """(flash_packed launches by call shape, geglu launches by call shape)
+    of one pass of ``ucfg``'s UNet at a side x side latent and batch
+    ``batch``, from its build_plan: per transformer a self- and a 77-key
+    cross-attention where its level has at least 1024 tokens (below, they
+    take the math route: ops/attention.py), and one geglu. part "all" is
+    the whole UNet, "control" its input blocks and middle (a ControlNet's),
+    "shallow" DeepCache's shallow pass at split m (the first m input and
+    last m output blocks)."""
+    import collections
+
+    from tinyfusers_tpu_torch.models import unet as unet_mod
+
+    inp, mid, outp = unet_mod.build_plan(ucfg)
+    flash, geglu = collections.Counter(), collections.Counter()
+
+    def walk(block, s, count):
+        for spec in block:
+            if isinstance(spec, unet_mod.AttnSpec) and count:
+                heads, _ = ucfg.heads_for(spec.ch)
+                n = s * s
+                for _ in range(spec.depth):
+                    if n >= 1024:
+                        flash[(batch, n, n, spec.ch, heads, n)] += 1
+                        flash[(batch, n, 77, spec.ch, heads, 77)] += 1
+                    geglu[(batch * n, 4 * spec.ch, spec.ch)] += 1
+            elif isinstance(spec, unet_mod.SampleSpec):
+                s = s // 2 if spec.mode == "down" else s * 2
+        return s
+
+    s = side
+    for i, block in enumerate(inp):
+        s = walk(block, s, part != "shallow" or i < m)
+    walk(mid, s, part != "shallow")
+    if part != "control":
+        for j, block in enumerate(outp):
+            s = walk(block, s, part != "shallow" or j >= len(outp) - m)
+    return dict(flash), dict(geglu)
+
+
+def launches_of(*parts):
+    """Summed launch counts: parts are (times, (flash by shape, geglu by
+    shape)) pairs -> (flash by shape, geglu by shape)."""
+    flash, geglu = {}, {}
+    for times, (f, g) in parts:
+        for out, counts in ((flash, f), (geglu, g)):
+            for key, n in counts.items():
+                out[key] = out.get(key, 0) + times * n
+    return ({k: n for k, n in flash.items() if n}, {k: n for k, n in geglu.items() if n})
 
 
 def fail(msg: str) -> None:
@@ -339,8 +459,10 @@ def int4pack_mm(x, w):
     return (lambda: torch._weight_int4pack_mm(x, packed, w.group_size, sz)), None
 
 
-def profile(run) -> dict:
-    """Host seconds of run() and its device kernels' time by group."""
+def profile(run, host_ops: bool = False) -> dict:
+    """Host seconds of run() and its device kernels' time by group; with
+    host_ops, also the eight host ops with the most self CPU time (calls,
+    ms), which ``key_averages`` adds seconds to find."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -355,12 +477,20 @@ def profile(run) -> dict:
             groups[label] = groups.get(label, 0.0) + evt.device_time_total / 1e3
             n_kernels += 1
     device_ms = sum(groups.values())
-    return {"host_s": host_s, "device_ms": device_ms, "device_kernels": n_kernels,
-            "device_busy_share": device_ms / (host_s * 1e3),
-            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+    out = {"host_s": host_s, "device_ms": device_ms, "device_kernels": n_kernels,
+           "device_busy_share": device_ms / (host_s * 1e3),
+           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+    if host_ops:  # where the host's time goes: the most self time on the CPU
+        top = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CPU),
+                     key=lambda e: -e.self_cpu_time_total)[:8]
+        out["host_top_ops"] = {e.key: [e.count, round(e.self_cpu_time_total / 1e3, 1)]
+                               for e in top}
+    return out
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA GPU: this smoke run needs one")
     if not (ROOT / "tinyfusers_tpu_torch").is_dir():
@@ -384,7 +514,9 @@ def main() -> None:
     from tinyfusers_tpu_torch.models import mmdit as mmdit_mod
     from tinyfusers_tpu_torch.models import unet as unet_mod
     from tinyfusers_tpu_torch.models import vae as vae_mod
-    from tinyfusers_tpu_torch.models.layers import Linear, ZeroLinear, init_weights
+    from tinyfusers_tpu_torch.models import controlnet as cn_mod
+    from tinyfusers_tpu_torch.models.layers import Linear, ZeroConv, ZeroLinear, init_weights
+    from tinyfusers_tpu_torch.ops import gelu_erf
     from tinyfusers_tpu_torch.ops.quant import Int4Tensor, is_quantized, quantize, quantize_int4
     from tinyfusers_tpu_torch.pipeline import sd, sd3
 
@@ -405,6 +537,9 @@ def main() -> None:
                  lambda m, k, n: (m, k, n, 64)),
     }
 
+    def stamp(phases: str) -> None:  # where the run's seconds go
+        say(f"[time] {phases} done {time.perf_counter() - t_start:.1f} s after the start")
+
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
@@ -417,15 +552,17 @@ def main() -> None:
                 "flash_bhsd": dict(flash_bhsd.variants),
                 "geglu": dict(geglu_matmul.variants)}
 
-    def fill_adaln(model, seed):
-        """Seeded non-zero values in every adaLN-Zero leaf (weights normal
-        / sqrt(fan_in), biases 0.1 normal, as random_tree fills them)."""
+    def fill_zero_init(model, seed):
+        """Seeded non-zero values in every leaf the JAX init leaves at zero
+        (the MMDiT's adaLN-Zero linears, a ControlNet's zero convs and last
+        hint conv): weights normal / sqrt(fan_in), biases 0.1 normal, as
+        random_tree fills them."""
         g = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             for leaf in model.modules():
-                if isinstance(leaf, ZeroLinear):
+                if isinstance(leaf, (ZeroLinear, ZeroConv)):
                     w = torch.randn(leaf.weight.shape, generator=g, device=dev)
-                    leaf.weight.copy_(w * leaf.weight.shape[1] ** -0.5)
+                    leaf.weight.copy_(w * leaf.weight[0].numel() ** -0.5)
                     leaf.bias.copy_(torch.randn(leaf.bias.shape, generator=g, device=dev) * 0.1)
 
     # 1. device ----------------------------------------------------------
@@ -447,6 +584,8 @@ def main() -> None:
                 kernel = short_kernel_name(line.split()[-1])
             elif "Used" in line or "spill" in line.lower():
                 say(f"[build] {stem}: {kernel}: {line.split(':', 1)[-1].strip()}")
+
+    stamp("1-2 (device, build)")
 
     # 3. each kernel against its plain version ---------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -562,29 +701,59 @@ def main() -> None:
     libraries = {"int8": ("torch._weight_int8pack_mm", int8pack_mm),
                  "int4": ("torch._weight_int4pack_mm", lambda x, leaf: int4pack_mm(x, leaf.w))}
 
+    def packed_plain(q, k, v, h, kvl):
+        """flash_packed_plain, over query-row chunks where one call's fp32
+        logits would pass PLAIN_LOGITS elements (the hires 128x128 self
+        attention's are 4.3 G): each chunk takes all keys, and rows are
+        independent, so this is the plain version of the whole call."""
+        b, sq, _ = q.shape
+        rows = max(1, PLAIN_LOGITS // 2 // (b * h * k.shape[1]))
+        if b * h * sq * k.shape[1] <= PLAIN_LOGITS:
+            return flash_packed_plain(q, k, v, heads=h, kv_len=kvl)
+        return torch.cat([flash_packed_plain(q[:, i:i + rows], k, v, heads=h, kv_len=kvl)
+                          for i in range(0, sq, rows)], dim=1)
+
+    def event_ms(fn):
+        """Device time of one warm call by events (for the chunked plain
+        versions: tens of ms a call, whose temporaries a CUDA graph's
+        private pool would keep)."""
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
     for dt in (torch.bfloat16, torch.float32):
         isz = torch.tensor([], dtype=dt).element_size()
         packed_rows = ([("flash_packed", *row) for row in PACKED_SHAPES + SD21_PACKED_SHAPES]
                        + [("flash_packed_multik", *row) for row in MULTIK_SHAPES])
+        if dt == torch.bfloat16:  # the hires fix's and the batch-1 branches' (bf16 paths)
+            packed_rows += [("flash_packed", *row)
+                            for row in HIRES_PACKED_SHAPES + B1_PACKED_SHAPES]
         for entry, label, (b, sq, sk, c, h, kvl) in packed_rows:
             q, k, v = randn(b, sq, c, dtype=dt), randn(b, sk, c, dtype=dt), randn(b, sk, c, dtype=dt)
             reset_counts()
             got = flash_packed(q, k, v, heads=h, kv_len=kvl)
             torch.cuda.synchronize()
             variant = ran_on("flash_packed", dt, _plan(dt, c // h))
-            err = rel_err(got, flash_packed_plain(q, k, v, heads=h, kv_len=kvl))
+            chunked = b * h * sq * sk > PLAIN_LOGITS
+            err = rel_err(got, packed_plain(q, k, v, h, kvl))
             # the work these inputs need: kvl real keys of sk
             flops = 4.0 * b * sq * kvl * c
             nbytes = (2 * b * sq * c + 2 * b * kvl * c) * isz
             n_rep = reps(flops)
             t_k = cuda_ms(lambda: flash_packed(q, k, v, heads=h, kv_len=kvl), n_rep)
-            t_p = cuda_ms(lambda: flash_packed_plain(q, k, v, heads=h, kv_len=kvl), 3)
+            t_p = (event_ms(lambda: packed_plain(q, k, v, h, kvl)) if chunked else
+                   cuda_ms(lambda: flash_packed_plain(q, k, v, heads=h, kv_len=kvl), 3))
             split = lambda x, s: x.view(b, s, h, c // h).transpose(1, 2)  # noqa: E731
             qh, kh, vh = split(q, sq), split(k, sk)[:, :, :kvl], split(v, sk)[:, :, :kvl]
             t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), n_rep)
             record(entry, label, (b, sq, sk, c, h, kvl), dt, err, t_k, t_p, t_l, flops, nbytes,
                    tol[("attn", dt)], row_tol[("attn", dt)], variant=variant,
-                   tflops=flops / t_k / 1e9)
+                   tflops=flops / t_k / 1e9, x_library=t_k / t_l,
+                   plain_in_row_chunks=chunked or None)
             if (label, dt) == ("64x64 self", torch.bfloat16):
                 host_us = wrapper_host_us(lambda: flash_packed(q, k, v, heads=h, kv_len=kvl))
                 say(f"[host] flash_packed wrapper at SD1.5 64x64 self {(b, sq, sk, c, h, kvl)}: "
@@ -609,7 +778,10 @@ def main() -> None:
                    tol[("attn", dt)], row_tol[("attn", dt)], variant=variant,
                    tflops=flops / t_k / 1e9)
         torch.cuda.empty_cache()
-        for label, (m, kd, nd), _ in GEGLU_SHAPES + SD21_GEGLU_SHAPES:
+        geglu_rows = GEGLU_SHAPES + SD21_GEGLU_SHAPES
+        if dt == torch.bfloat16:
+            geglu_rows = geglu_rows + HIRES_GEGLU_SHAPES + B1_GEGLU_SHAPES
+        for label, (m, kd, nd), _ in geglu_rows:
             proj = randn(m, 2 * kd, dtype=dt)
             gx, gate = proj.chunk(2, dim=-1)  # strided halves, as in the UNet
             w = (randn(nd, kd, dtype=torch.float32) * kd ** -0.5).to(dt).t()
@@ -718,6 +890,16 @@ def main() -> None:
         f"{min(r['planted_rel'] for r in grows):.3e}")
     if not min(r["planted_rel"] for r in grows) > tol[("geglu", torch.bfloat16)]:
         fail("the geglu tolerance does not catch h left unrounded before the product")
+    # the text towers' exact GELU (ops.gelu_erf: plain torch, no kernel of the
+    # port) over every finite bf16 value, the card's result against the CPU's
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    xs = bits[torch.isfinite(bits)]
+    gelu_card, gelu_cpu = gelu_erf(xs.to(dev)).cpu().float(), gelu_erf(xs).float()
+    gelu_diff = gelu_card != gelu_cpu
+    say(f"[gelu] ops.gelu_erf bf16 on the card against the CPU over all {xs.numel()} finite "
+        f"bf16 values: {int(gelu_diff.sum())} differ; at x = "
+        f"{xs[gelu_diff][:16].float().tolist()} (card {gelu_card[gelu_diff][:16].tolist()}, "
+        f"CPU {gelu_cpu[gelu_diff][:16].tolist()})")
     # each format per image (launches x ms) against its library call, dense
     # cuBLAS and its bound, over all 19 shapes and over the M <= 154 ones
     # (where the weight's bytes, not x's, dominate)
@@ -733,6 +915,8 @@ def main() -> None:
             say(f"[kernel] {kname} {qname} per image over {label}: kernel {per['ms']:.3f} ms, "
                 f"library {lib}, dense {per['dense_ms']:.3f}, bound {per['bound_ms']:.3f} "
                 f"({sum(n for n, _ in rows)} launches)")
+
+    stamp("3 (kernels)")
 
     # 4. kernels inside the model: UNet fp32, card vs CPU -----------------
     cfg = sd.SD15
@@ -788,7 +972,7 @@ def main() -> None:
     mcfg = sd3.SD3_MEDIUM_CFG.mmdit
     mm_gpu = mmdit_mod.MMDiT(mcfg, device=dev, dtype=torch.float32)
     init_weights(mm_gpu, seed=4)
-    fill_adaln(mm_gpu, seed=5)
+    fill_zero_init(mm_gpu, seed=5)
     mm_cpu = mmdit_mod.MMDiT(mcfg, device="cpu", dtype=torch.float32)
     mm_cpu.load_state_dict(mm_gpu.state_dict())
     g_cpu = torch.Generator().manual_seed(6)
@@ -852,6 +1036,8 @@ def main() -> None:
              f"{expect} with flash_packed at 5 heads of 64")
     del u21_gpu, u21_cpu, got, want
     torch.cuda.empty_cache()
+
+    stamp("4, 4s, 4v (models, card vs CPU)")
 
     # 5. the main path ----------------------------------------------------
     dtype = torch.bfloat16
@@ -918,7 +1104,7 @@ def main() -> None:
 
     # 6. profile: one more image, same model and inputs -------------------
     prof = profile(lambda: sd.generate(model, ids, uncond, latent, GUIDANCE,
-                                       num_steps=STEPS))
+                                       num_steps=STEPS), host_ops=True)
     say(f"[profile] one SD1.5 image under torch.profiler: {json.dumps(prof)}")
 
     # 5q. the main path with the UNet quantized on the card ---------------
@@ -1010,6 +1196,8 @@ def main() -> None:
     del model, c, uc, lat, qlat, warm_img, first, img, dense_state, dense_lat
     torch.cuda.empty_cache()
 
+    stamp("5, 6, 5q, 6q (SD1.5 dense and quantized)")
+
     # 5s / 6s / 5t. the SD3 main paths ---------------------------------------
     g_ids = torch.Generator().manual_seed(7)
 
@@ -1034,7 +1222,7 @@ def main() -> None:
         the first image's counts by wrapper and by shape."""
         t0 = time.perf_counter()
         model3 = sd3.StableDiffusion3(cfg3, device=dev, dtype=dtype, seed=seed)
-        fill_adaln(model3.mmdit, seed + 1)
+        fill_zero_init(model3.mmdit, seed + 1)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         ids_l, ids_g, uids = clip_ids(8), clip_ids(8), clip_ids(0)
@@ -1114,6 +1302,8 @@ def main() -> None:
         "main-sd3-t5", sd3.SD3_MEDIUM_T5_CFG, 12, 1, MULTIK_SHAPES[1][1])
     del model3, run3
     torch.cuda.empty_cache()
+
+    stamp("5s, 6s, 5t (SD3)")
 
     # 5c. the SD2.1-v checkpoint: written, read back --------------------------
     cfg21 = sd.SD21_V
@@ -1224,6 +1414,263 @@ def main() -> None:
         torch.cuda.empty_cache()
     # the temporary directory and the checkpoint in it are gone here
 
+    stamp("5c, 5v, 6v (SD2.1-v)")
+
+    # 5n-5p. SD1.5 beyond text to image: ControlNet, DeepCache, FreeU, the
+    # hires fix, img2img and inpainting ---------------------------------------
+    sd15 = sd.SD15
+    full_pass = unet_launches(sd15.unet, 64, 2)  # one SD1.5 UNet call at 512x512, CFG 2
+    vae_512, vae_1024 = {(1, 4096, 4096, 512): 1}, {bhsd_1024: 1}
+    extra_paths = {}  # path -> (launches by wrapper, by wrapper and shape)
+
+    def want_variants_of(flash, bhsd, geglu):
+        """Launches by variant that counts by shape give: each flash_packed
+        shape on _plan's variant (d = 160 on wgmma_wide), flash_bhsd on
+        wgmma_wide, geglu on wgmma."""
+        by = {}
+        for (_, _, _, c, h, _), n in flash.items():
+            variant = _plan(dtype, c // h)[0]
+            by[variant] = by.get(variant, 0) + n
+        return {"flash_packed": by,
+                "flash_bhsd": {"wgmma_wide": sum(bhsd.values())} if bhsd else {},
+                "geglu": {"wgmma": sum(geglu.values())} if geglu else {}}
+
+    def images(tag, run, n_images, want, img_shape, what):
+        """n_images images of run(), the first with its launches counted and
+        checked exactly against want = (flash_packed, flash_bhsd, geglu
+        launches by call shape), by variant, and every shape measured in
+        phase 3; s/image by the host clock after synchronize, held and peak
+        device memory. Keeps the counts for the kernels line; returns the
+        last image."""
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i in range(n_images):
+            if i == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                counts = {kn: w.launches for kn, w in wrappers.items()}
+                counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+                by_variant = variants()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if img.dtype != torch.uint8 or tuple(img.shape) != img_shape:
+            fail(f"{tag}: image {img.dtype} {tuple(img.shape)}, want uint8 {img_shape}")
+        want_shapes = {kn: {} for kn in wrappers}
+        want_shapes.update(flash_packed=want[0], flash_bhsd=want[1], geglu=want[2])
+        want_counts = {kn: sum(c.values()) for kn, c in want_shapes.items()}
+        want_by_variant = want_variants_of(*want)
+        say(f"[{tag}] launches in one image: {counts} (want {want_counts}); shapes {counted}; "
+            f"flash and geglu launches by variant {by_variant}")
+        if (counts != want_counts or counted != want_shapes or by_variant != want_by_variant
+                or set(by_variant["flash_packed"]) - set(WGMMA)):
+            fail(f"{tag}: launches {counts}, shapes {counted}, variants {by_variant} against "
+                 f"{want_counts}, {want_shapes}, {want_by_variant}")
+        for kn, by_shape in counted.items():
+            if set(by_shape) - measured(kn):
+                fail(f"{tag} {kn}: shapes {by_shape} not all measured in phase 3")
+        say(f"[{tag}] {what} bf16 batch 1: s/image {[round(x, 4) for x in secs]} mean "
+            f"{sum(secs) / len(secs):.4f}; peak device memory {peak_gb:.2f} GB ({held_gb:.2f} "
+            f"GB held before the images); card {card}")
+        extra_paths[tag] = (counts, counted)
+        return img
+
+    def finite_latents(tag, lat, shape):
+        if tuple(lat.shape) != shape or not torch.isfinite(lat.float()).all():
+            fail(f"{tag}: latents {tuple(lat.shape)} not finite of shape {shape}")
+        say(f"[{tag}] warm-up: latents finite, |lat| max {lat.float().abs().max().item():.3f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 5n. a ControlNet checkpoint (lllyasviel's cldm_v15 control_stage_config:
+        # SD1.5's encoder widths, a 3-channel hint), written and read back
+        cn_path = Path(tmp) / "control_sd15.safetensors"
+        cn_seeded = cn_mod.ControlNet(sd15.unet, device=dev, dtype=dtype, seed=21)
+        fill_zero_init(cn_seeded, 22)  # the JAX init's zero convs would add nothing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoints.save_controlnet_checkpoint(cn_seeded, cn_path, dtype=torch.float16)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cn_loaded = checkpoints.load_controlnet_params(cn_path, sd15.unet, device=dev,
+                                                       dtype=dtype)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mine, theirs = dict(cn_seeded.named_parameters()), dict(cn_loaded.named_parameters())
+        differ = [n for n, v in mine.items()
+                  if not torch.equal(theirs[n], v.to(torch.float16).to(dtype))]
+        say(f"[ckpt-cn] SD1.5 ControlNet (control_model.*), fp16 safetensors: "
+            f"{cn_path.stat().st_size / 1e9:.3f} GB, {len(mine)} tensors, "
+            f"{sum(v.numel() for v in mine.values()) / 1e9:.3f} G parameters; "
+            f"save_controlnet_checkpoint {save_s:.2f} s, load_controlnet_params {load_s:.2f} s; "
+            f"parameters that differ from the seeded ones after the same fp16 round trip: "
+            f"{len(differ)}")
+        if mine.keys() != theirs.keys() or differ:
+            fail(f"the ControlNet checkpoint did not read back bit for bit: {differ[:8]}")
+        del cn_seeded, cn_loaded, mine, theirs
+
+        # 5n. one ControlNet + UNet step at full width, fp32, card vs CPU (32x32
+        # latents: the 1024-token level takes flash_packed in both)
+        cn_gpu = cn_mod.ControlNet(sd15.unet, device=dev, dtype=torch.float32, seed=23)
+        fill_zero_init(cn_gpu, 24)
+        u_gpu = unet_mod.UNet(sd15.unet, device=dev, dtype=torch.float32)
+        init_weights(u_gpu, seed=25)
+        cn_cpu = cn_mod.ControlNet(sd15.unet, device="cpu", dtype=torch.float32, seed=None)
+        cn_cpu.load_state_dict(cn_gpu.state_dict())
+        u_cpu = unet_mod.UNet(sd15.unet, device="cpu", dtype=torch.float32)
+        u_cpu.load_state_dict(u_gpu.state_dict())
+        g_cpu = torch.Generator().manual_seed(26)
+        x = torch.randn((2, 32, 32, 4), generator=g_cpu)
+        ctx = torch.randn((2, 77, 768), generator=g_cpu)
+        hint = torch.rand((2, 256, 256, 3), generator=g_cpu)
+        t = torch.full((2,), 741.0)
+        reset_counts()
+        with torch.inference_mode():
+            ctrl = cn_mod.apply(cn_gpu, x.to(dev), hint.to(dev), t.to(dev), ctx.to(dev))
+            got = unet_mod.apply(u_gpu, x.to(dev), t.to(dev), ctx.to(dev), control=ctrl)
+            torch.cuda.synchronize()
+            counts = {kn: w.launches for kn, w in wrappers.items()}
+            t0 = time.perf_counter()
+            ctrl_cpu = cn_mod.apply(cn_cpu, x, hint, t, ctx)
+            want = unet_mod.apply(u_cpu, x, t, ctx, control=ctrl_cpu)
+            cpu_s = time.perf_counter() - t0
+        err = rel_err(got.cpu(), want)
+        res_err = max(rel_err(a.cpu(), b)[1] for a, b in zip([*ctrl[0], ctrl[1]],
+                                                            [*ctrl_cpu[0], ctrl_cpu[1]]))
+        f_unet, g_unet = unet_launches(sd15.unet, 32, 2)
+        f_cn, g_cn = unet_launches(sd15.unet, 32, 2, "control")
+        expect = dict.fromkeys(wrappers, 0)
+        expect.update(flash_packed=sum(f_unet.values()) + sum(f_cn.values()),
+                      geglu=sum(g_unet.values()) + sum(g_cn.values()))
+        say(f"[unet-cn] SD1.5 ControlNet (zero convs refilled) + UNet fp32 256x256 (2,32,32,4), "
+            f"hint (2,256,256,3): card vs CPU max_abs={err[0]:.3e} rel={err[1]:.3e} (tol "
+            f"{unet_tol:.0e}), largest residual rel {res_err:.3e}; kernel launches on the card: "
+            f"{counts} (want {expect}); CPU forward {cpu_s:.1f} s")
+        if not (err[1] <= unet_tol and res_err <= unet_tol and counts == expect):
+            fail("the ControlNet step on the card disagrees with the CPU or its launches are "
+                 f"not {expect}")
+        del cn_gpu, u_gpu, cn_cpu, u_cpu, got, want, ctrl, ctrl_cpu
+        torch.cuda.empty_cache()
+
+        # 5n. ControlNet images at 512x512 through the CLI's build() with
+        # --control-ckpt; a seeded hint in place of --control-image
+        job = txt2img_torch.build(txt2img_torch.parse_args(
+            SD15_ARGV + ["--control-ckpt", str(cn_path), "--control-scale", "0.9"]))
+        g_hint = torch.Generator(device=dev).manual_seed(27)
+        job.control = (job.control[0], torch.rand((1, 512, 512, 3), generator=g_hint,
+                                                  device=dev), job.control[2])
+        finite_latents("main-cn", job.latents(), (1, 64, 64, 4))
+        want = launches_of((STEPS, full_pass), (STEPS, unet_launches(sd15.unet, 64, 2, "control")))
+        images("main-cn", job.image, 2, (want[0], vae_512, want[1]), (1, 512, 512, 3),
+               f"SD1.5 + ControlNet 512x512 {STEPS}-step DDIM CFG {GUIDANCE} scale 0.9, through "
+               f"examples/txt2img_torch.py --control-ckpt,")
+        prof = profile(job.image, host_ops=True)
+        say(f"[profile] one SD1.5 + ControlNet image under torch.profiler: {json.dumps(prof)}")
+
+        stamp("5n (ControlNet)")
+
+        # 5d. DeepCache (interval 3, split 3), with cached CFG, and FreeU
+        plain_job = dataclasses.replace(job, control=None)
+        del job
+        torch.cuda.empty_cache()
+
+        def with_args(**kw):
+            return dataclasses.replace(plain_job, args=argparse.Namespace(
+                **dict(vars(plain_job.args), **kw)))
+
+        calls = range(STEPS)  # DDIM: one network call a step, the counter n
+        n_full = sum(n % 3 == 0 for n in calls)
+        shallow = unet_launches(sd15.unet, 64, 2, "shallow", 3)
+        b1_full = unet_launches(sd15.unet, 64, 1)
+        b1_shallow = unet_launches(sd15.unet, 64, 1, "shallow", 3)
+        n_uncond = sum(n % 2 == 0 for n in calls)
+        for tag, kw, want, what in (
+                ("main-deepcache", dict(deepcache_interval=3, deepcache_split=3),
+                 launches_of((n_full, full_pass), (STEPS - n_full, shallow)),
+                 f"DeepCache interval 3 split 3 ({n_full} full UNet calls, "
+                 f"{STEPS - n_full} shallow)"),
+                ("main-deepcache-cfg", dict(deepcache_interval=3, deepcache_split=3,
+                                            uncond_interval=2),
+                 launches_of((n_full, b1_full), (STEPS - n_full, b1_shallow),
+                             (n_uncond, b1_full)),
+                 f"DeepCache interval 3 split 3 on the cond branch, cached CFG interval 2 "
+                 f"({n_uncond} uncond calls)"),
+                ("main-freeu", dict(freeu=(1.5, 1.6, 0.9, 0.2)), launches_of((STEPS, full_pass)),
+                 "FreeU (1.5, 1.6, 0.9, 0.2)")):
+            other = with_args(**kw)
+            finite_latents(tag, other.latents(), (1, 64, 64, 4))
+            images(tag, other.image, 2, (want[0], vae_512, want[1]), (1, 512, 512, 3),
+                   f"SD1.5 512x512 {STEPS}-step DDIM CFG {GUIDANCE}, {what},")
+
+        stamp("5d (DeepCache, FreeU)")
+
+        # 5h. the hires fix: 512x512 base, x2 latent, 12 tail steps at 1024x1024
+        hires = with_args(hires_scale=2, hires_strength=0.6)
+        tail = STEPS - sd.hires_tail_start(STEPS, 0.6)
+        warm = hires.image()
+        torch.cuda.synchronize()
+        want = launches_of((STEPS, full_pass), (tail, unet_launches(sd15.unet, 128, 2)))
+        images("main-hires", hires.image, 2, (want[0], vae_1024, want[1]), (1, 1024, 1024, 3),
+               f"SD1.5 hires fix: 512x512 {STEPS}-step DDIM CFG {GUIDANCE}, latent x2, strength "
+               f"0.6 ({tail} tail steps at 1024x1024),")
+        prof = profile(hires.image)
+        say(f"[profile] one SD1.5 hires-fix 1024x1024 image under torch.profiler: "
+            f"{json.dumps(prof)}")
+        del warm
+
+        stamp("5h (hires fix)")
+
+        # 5i. img2img at 512x512 (15 of 20 steps) and inpainting (the 9-channel
+        # UNet of runwayml's v1-inpainting-inference.yaml) on a seeded image
+        g_src = torch.Generator(device=dev).manual_seed(31)
+        src = torch.randint(0, 256, (1, 512, 512, 3), generator=g_src, device=dev,
+                            dtype=torch.uint8)
+        model15, ids15, uids15 = plain_job.model, plain_job.ids, plain_job.uids
+
+        def run_img2img():
+            return sd.img2img(model15, src, ids15, uids15,
+                              torch.Generator(device=dev).manual_seed(32), GUIDANCE,
+                              num_steps=STEPS, start_step=15)
+
+        run_img2img()
+        want = launches_of((15, full_pass))
+        images("main-img2img", run_img2img, 2, (want[0], {(1, 4096, 4096, 512): 2}, want[1]),
+               (1, 512, 512, 3), f"SD1.5 img2img 512x512, 15 of {STEPS} DDIM steps, CFG "
+               f"{GUIDANCE}, VAE encode and decode,")
+        del plain_job, hires, other, model15
+        torch.cuda.empty_cache()
+        inp_cfg = dataclasses.replace(sd15, unet=unet_mod.SD15_INPAINT_CONFIG)
+        model_in = sd.StableDiffusion(inp_cfg, device=dev, dtype=dtype, seed=33)
+        mask = torch.zeros((1, 512, 512, 1), device=dev)
+        mask[:, :, 256:] = 1.0
+        lat_in = sd.initial_latent(34, 1, inp_cfg, device=dev, dtype=dtype)
+
+        def run_inpaint():
+            return sd.inpaint(model_in, src, mask, ids15, uids15, lat_in, GUIDANCE,
+                              num_steps=STEPS)
+
+        run_inpaint()
+        want = launches_of((STEPS, full_pass))
+        img = images("main-inpaint", run_inpaint, 2,
+                     (want[0], {(1, 4096, 4096, 512): 2}, want[1]), (1, 512, 512, 3),
+                     f"SD1.5 inpainting (9-channel UNet) 512x512, right half masked, {STEPS}-step "
+                     f"DDIM CFG {GUIDANCE},")
+        kept = (mask <= 0.5).expand_as(img)
+        same = bool(torch.equal(img[kept], src[kept]))
+        repainted = (img[~kept].int() - src[~kept].int()).abs().float().mean().item()
+        say(f"[main-inpaint] pixels kept (mask <= 0.5) equal to the source bit for bit: {same}; "
+            f"repainted half's mean |image - source| {repainted:.2f}")
+        if not same:
+            fail("inpainting changed pixels outside the mask")
+        del model_in, img, src
+        torch.cuda.empty_cache()
+    # the ControlNet checkpoint is gone here
+
+    stamp("5i (img2img, inpainting)")
+
     # 7. the kernels line and the contract line ---------------------------
     sources = {"flash_packed": ("tinyfusers_tpu_torch/csrc/flash_attention.cu",
                                 "tinyfusers_tpu/kernels/flash_attention.py:117"),
@@ -1263,6 +1710,14 @@ def main() -> None:
                              "the int8 image's and the fp8 image's launches at bf16", "quant")
     paths["quant_matmul_int4"] = ({"sd15_int4": q_launches["int4"]}, q_shapes["int4"],
                                   "the int4 image's launches at bf16", "quant")
+    for kn in ("flash_packed", "flash_bhsd", "geglu"):  # and phases 5n-5i's images
+        by_path, counted, per_what, family = paths[kn]
+        by_path.update({tag.replace("main-", "sd15_").replace("-", "_"): c[kn]
+                        for tag, (c, _) in extra_paths.items()})
+        paths[kn] = (by_path, summed(counted, *(sh[kn] for _, sh in extra_paths.values())),
+                     per_what + ", and one image of each SD1.5 path of phases 5n-5i (ControlNet, "
+                     "DeepCache, DeepCache with cached CFG, FreeU, hires fix, img2img, "
+                     "inpainting)", family)
     kernels = []
     for kname, by_key in report.items():
         by_path, counted, per_what, family = paths[kname]

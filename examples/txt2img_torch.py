@@ -11,7 +11,11 @@ the negative prompt -> the sampler loop over the UNet -> VAE decode ->
 PNG (or .npy without PIL). It runs on the GPU unless --cpu is given, and
 raises without one. Weights: --ckpt loads an SD1.x / SD2.x checkpoint
 (.safetensors or torch-zip .ckpt); without it, seeded random weights are
-made on the device (their images are noise).
+made on the device (their images are noise). Options, as the JAX CLI's:
+ControlNet (--control-ckpt, --control-image, --control-scale), DeepCache
+(--deepcache-interval, --deepcache-split), FreeU (--freeu), textual
+inversion (--ti WORD=PATH, repeatable) and the hires fix (--hires-scale,
+--hires-strength).
 
 ``main(argv)`` returns the first image as a uint8 array; ``build(args)``
 gives the loaded job without running it, so that a caller in the same
@@ -35,7 +39,11 @@ PRESETS = {"sd15": "SD15", "sd15-quarter": "SD15_QUARTER", "sd21-base": "SD21_BA
            "sd21-v": "SD21_V", "tiny": "TINY"}
 
 
-def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+HIRES_REFUSED = ("--hires-scale composes with samplers/schedules/cached CFG; "
+                 "control/prompt-weights/DeepCache are not wired into the hires path yet")
+
+
+def _parser() -> argparse.ArgumentParser:
     from tinyfusers_tpu_torch.pipeline.samplers import SAMPLERS, SCHEDULES
 
     p = argparse.ArgumentParser(description="tinyfusers text-to-image (PyTorch port)")
@@ -64,28 +72,67 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help=">1: cached CFG (the uncond output every k-th network call)")
     p.add_argument("--cfg-rescale", type=float, default=0.0,
                    help="guidance rescale phi (Lin et al. 2023); ~0.7 for v models")
+    p.add_argument("--deepcache-interval", type=int, default=1,
+                   help=">1: DeepCache (full UNet every k steps)")
+    p.add_argument("--deepcache-split", type=int, default=3,
+                   help="shallow blocks kept per side when DeepCache is on")
+    p.add_argument("--control-ckpt", default=None,
+                   help="ControlNet checkpoint (control_model.* layout)")
+    p.add_argument("--control-image", default=None,
+                   help="hint image (edges/depth/pose), resized to 8x the latent grid")
+    p.add_argument("--control-scale", type=float, default=1.0)
+    p.add_argument("--ti", action="append", default=[], metavar="WORD=PATH",
+                   help="textual-inversion embedding: placeholder word = embedding file "
+                        "(.pt/.safetensors); repeatable")
+    p.add_argument("--freeu", default=None, metavar="B1,B2,S1,S2",
+                   help="FreeU backbone/skip reweighting (Si et al. 2023), e.g. "
+                        "1.5,1.6,0.9,0.2 for SD1.5")
+    p.add_argument("--hires-scale", type=int, default=1,
+                   help=">1: hires-fix — sample at base res, latent-upscale by this "
+                        "factor, denoise the tail at high res")
+    p.add_argument("--hires-strength", type=float, default=0.6,
+                   help="denoising strength of the hires tail pass")
     p.add_argument("--no-cfg", action="store_true",
                    help="sample without guidance (distilled checkpoints; UNet batch B)")
     p.add_argument("--timing", action="store_true")
-    return p.parse_args(argv)
+    return p
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The arguments, with --freeu as a tuple of 4 floats (or None); the
+    JAX CLI's refusals of a malformed --freeu and of hires with ControlNet
+    or DeepCache exit here (hires with prompt weights in ``build``)."""
+    p = _parser()
+    args = p.parse_args(argv)
+    args.freeu = (tuple(float(v) for v in args.freeu.split(","))
+                  if args.freeu else None)
+    if args.freeu is not None and len(args.freeu) != 4:
+        p.error("--freeu needs exactly 4 comma-separated floats")
+    if args.hires_scale > 1 and (args.control_ckpt or args.deepcache_interval > 1):
+        p.error(HIRES_REFUSED)
+    return args
 
 
 @dataclass
 class Job:
     """A loaded model and its inputs: ``image()`` makes the images as
-    ``sd.generate`` does, ``latents()`` the sampled latents alone."""
+    ``sd.generate`` (or, with --hires-scale, ``sd.generate_hires``) does,
+    ``latents()`` the sampled latents alone. ``control`` is (controlnet,
+    hint, scale) or None."""
     model: object
     ids: object
     uids: object
     weights: object
     latent: object
     args: argparse.Namespace
+    control: object = None
 
-    def _generator(self):
+    def _generator(self, always: bool = False):
         import torch
 
-        # the ancestral samplers' noise, seeded anew for every image
-        if "ancestral" not in self.args.sampler:
+        # the noise (ancestral samplers; the hires re-noising), seeded anew
+        # for every image
+        if not always and "ancestral" not in self.args.sampler:
             return None
         return torch.Generator(device=self.latent.device).manual_seed(self.args.seed + 1)
 
@@ -93,13 +140,26 @@ class Job:
         a = self.args
         return dict(num_steps=a.steps, method=a.sampler, schedule=a.schedule,
                     generator=self._generator(), uncond_interval=a.uncond_interval,
-                    cfg_rescale=a.cfg_rescale)
+                    cfg_rescale=a.cfg_rescale, freeu=a.freeu)
+
+    def _extras(self):
+        a = self.args
+        return dict(deepcache_interval=a.deepcache_interval,
+                    deepcache_split=a.deepcache_split, control=self.control)
 
     def image(self):
         from tinyfusers_tpu_torch.pipeline import sd
 
-        return sd.generate(self.model, self.ids, self.uids, self.latent, self.args.guidance,
-                           prompt_weights=self.weights, **self._sampling())
+        a = self.args
+        if a.hires_scale > 1:
+            kw = self._sampling()
+            del kw["generator"]  # the hires fix always draws (its re-noising)
+            return sd.generate_hires(self.model, self.ids, self.uids, self.latent,
+                                     self._generator(always=True), a.guidance,
+                                     hires_scale=a.hires_scale,
+                                     hires_strength=a.hires_strength, **kw)
+        return sd.generate(self.model, self.ids, self.uids, self.latent, a.guidance,
+                           prompt_weights=self.weights, **self._sampling(), **self._extras())
 
     def latents(self):
         import torch
@@ -113,7 +173,7 @@ class Job:
                 ctx = sd.apply_prompt_weights(ctx, self.weights)
             return sd.sample_latents(self.model.unet, self.latent, ctx, uctx,
                                      guidance=self.args.guidance, cfg=self.model.cfg,
-                                     **self._sampling())
+                                     **self._sampling(), **self._extras())
 
 
 def build(args: argparse.Namespace) -> Job:
@@ -155,12 +215,40 @@ def build(args: argparse.Namespace) -> Job:
     def batch(row, dt=torch.long):
         return torch.tensor([row] * args.batch, dtype=dt, device=dev)
 
-    wid, w = pw.encode_weighted(tok, args.prompt, length, pad_token=pad)
+    ti_ids = None
+    if args.ti:
+        from tinyfusers_tpu_torch.io import textual_inversion as ti_mod
+
+        embs = {}
+        for spec in args.ti:
+            word, _, tpath = spec.partition("=")
+            embs[word] = ti_mod.load_embedding(tpath)
+        ti_ids = ti_mod.extend_clip(model.clip, embs)
+    wid, w = pw.encode_weighted(tok, args.prompt, length, pad_token=pad, placeholders=ti_ids)
     weights = batch(w, torch.float32) if any(x != 1.0 for x in w) else None
+    if weights is not None and args.hires_scale > 1:
+        _parser().error(HIRES_REFUSED)
     uids = None if args.no_cfg else batch(tok.encode(args.negative_prompt, length,
                                                      pad_token=pad))
     latent = sd.initial_latent(args.seed, args.batch, cfg, device=dev, dtype=dtype)
-    return Job(model, batch(wid), uids, weights, latent, args)
+    control = None
+    if args.control_ckpt:
+        from tinyfusers_tpu_torch.io import checkpoints
+
+        cn = checkpoints.load_controlnet_params(args.control_ckpt, cfg.unet, device=dev,
+                                                dtype=dtype)
+        hh, ww = latent.shape[1] * 8, latent.shape[2] * 8
+        if args.control_image:
+            from PIL import Image
+
+            im = Image.open(args.control_image).convert("RGB").resize((ww, hh),
+                                                                      Image.LANCZOS)
+            hint = torch.tensor(np.asarray(im), dtype=torch.float32, device=dev)[None] / 255.0
+        else:
+            print("no --control-image: using a zero hint (smoke run)")
+            hint = torch.zeros((1, hh, ww, 3), dtype=torch.float32, device=dev)
+        control = (cn, hint, args.control_scale)
+    return Job(model, batch(wid), uids, weights, latent, args, control)
 
 
 def _sync(device) -> None:

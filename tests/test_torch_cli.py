@@ -27,7 +27,7 @@ from tinyfusers_tpu.tokenizer import prompt_weights as jpw
 from tinyfusers_tpu_torch.ops.embedding import embedding
 from tinyfusers_tpu_torch.pipeline import sd as tsd
 
-from torch_parity import few_torch_threads, random_tree  # noqa: F401
+from torch_parity import few_torch_threads, random_tree, replay_noise  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -122,3 +122,124 @@ def test_embedding_fills_ids_outside_the_vocabulary_as_jnp_take():
     got = embedding(torch.from_numpy(ids), torch.from_numpy(w)).numpy()
     np.testing.assert_array_equal(got, want)  # NaN where jnp.take gives NaN
     assert np.isnan(got[0, 4:7]).all() and not np.isnan(got[0, [0, 1, 2, 3, 7]]).any()
+
+
+# --- the flags of the UNet extras, ControlNet, textual inversion, hires ------
+
+def _jax_cli():
+    spec = importlib.util.spec_from_file_location("txt2img_jax", ROOT / "examples" / "txt2img.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _in_vocab(ids, rows):
+    """Ids a table of ``rows`` holds (the byte-level SOT / EOT ids lie
+    outside the tiny vocabulary and give NaN conditioning in both packages;
+    textual-inversion ids past it are kept)."""
+    ids = np.asarray(ids)
+    return np.where(ids < rows, ids, ids % 97)
+
+
+@pytest.fixture(scope="module")
+def ti_file(tmp_path_factory):
+    path = tmp_path_factory.mktemp("ti") / "cat.pt"
+    vec = np.random.default_rng(8).standard_normal((2, jsd.TINY.clip.dim)).astype(np.float32)
+    torch.save({"string_to_param": {"*": torch.from_numpy(vec)}, "name": "cat"}, path)
+    return path
+
+
+@pytest.mark.parametrize("extra,hires", [
+    (["--freeu", "1.5,1.6,0.9,0.2", "--deepcache-interval", "2", "--deepcache-split", "2",
+      "--ti", "<cat>=TI"], False),
+    (["--hires-scale", "2", "--hires-strength", "0.5", "--freeu", "1.3,1.4,0.9,0.2",
+      "--sampler", "ddim", "--schedule", "ladder"], True)])
+def test_cli_options_run_as_the_jax_cli(cli, ckpt, ti_file, tmp_path, monkeypatch, extra,
+                                        hires):
+    """examples/txt2img.py and the port's CLI with the same arguments: the
+    JAX CLI's call of sd.generate (or generate_hires) is recorded, and the
+    port's job must hold the same ids, the same textual-inversion table
+    and the same options, and give the same image (within 1) from the same
+    latent with in-vocabulary ids (and, for hires, the JAX re-noising)."""
+    extra = [a.replace("=TI", f"={ti_file}") for a in extra]
+    argv = _argv(ckpt, tmp_path / "j.png", "--prompt", "a <cat> on a mat", *extra)
+    name = "generate_hires" if hires else "generate"
+    calls = []
+    real = getattr(jsd, name)
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(jsd, name, record)
+    monkeypatch.setattr(sys, "argv", ["txt2img.py", *argv])
+    _jax_cli().main()
+    (a, kw), = calls
+    params, ids, uids, lat = a[:4]
+    job = cli.build(cli.parse_args(argv))
+    assert job.ids.tolist() == np.asarray(ids).tolist()
+    assert job.uids.tolist() == np.asarray(uids).tolist()
+    np.testing.assert_array_equal(job.model.clip.token_embedding.weight.numpy(),
+                                  np.asarray(params["clip"]["token_embedding"]["weight"]))
+    assert job.args.freeu == kw["freeu"]
+    rows = job.model.clip.token_embedding.weight.shape[0]
+    ids2, uids2 = _in_vocab(ids, rows), _in_vocab(uids, rows)
+    job.ids, job.uids = torch.from_numpy(ids2).long(), torch.from_numpy(uids2).long()
+    job.latent = torch.from_numpy(np.array(lat))
+    if hires:
+        assert (kw["hires_scale"], kw["hires_strength"]) == (job.args.hires_scale,
+                                                             job.args.hires_strength)
+        key = a[4]
+        hi = (1, 2 * lat.shape[1], 2 * lat.shape[2], lat.shape[3])
+        replay_noise(monkeypatch, [np.asarray(jax.random.normal(jax.random.split(key, 3)[1],
+                                                                hi, jnp.float32))])
+        want = real(params, jnp.asarray(ids2), jnp.asarray(uids2), lat, key, a[5], **kw)
+    else:
+        assert (kw["deepcache_interval"], kw["deepcache_split"]) == (
+            job.args.deepcache_interval, job.args.deepcache_split)
+        want = real(params, jnp.asarray(ids2), jnp.asarray(uids2), lat, a[4], **kw)
+    got = job.image().numpy()
+    want = np.asarray(want)
+    assert got.shape == want.shape == ((1, 64, 64, 3) if hires else (1, 32, 32, 3))
+    assert got.std() > 0  # finite conditioning, not a black NaN image
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--freeu", "1.5,1.6"], "--freeu needs exactly 4"),
+    (["--hires-scale", "2", "--deepcache-interval", "2"], "not wired into the hires path"),
+    (["--hires-scale", "2", "--control-ckpt", "cn.safetensors"], "not wired into the hires"),
+    (["--hires-scale", "2", "--prompt", "a (red:1.3) cat"], "not wired into the hires path"),
+])
+def test_cli_refuses_what_the_jax_cli_refuses(cli, ckpt, tmp_path, capsys, extra, message):
+    argv = _argv(ckpt, tmp_path / "t.png", *extra)
+    with pytest.raises(SystemExit) as e:
+        cli.build(cli.parse_args(argv))
+    assert e.value.code == 2 and message in capsys.readouterr().err
+
+
+def test_cli_control_flags_load_the_controlnet(cli, ckpt, tmp_path, capsys):
+    """--control-ckpt reads a control_model.* file onto the job's device
+    and dtype; without --control-image the hint is zeros at 8x the latent
+    grid (the JAX CLI's smoke-run rule); --control-image is resized with
+    LANCZOS to that size."""
+    from PIL import Image
+
+    from tinyfusers_tpu_torch.io import checkpoints as tck
+    from tinyfusers_tpu_torch.models import controlnet as tcn
+
+    path = tmp_path / "cn.safetensors"
+    tck.save_controlnet_checkpoint(tcn.ControlNet(tsd.TINY.unet, device="cpu", seed=3), path)
+    argv = _argv(ckpt, tmp_path / "t.png", "--control-ckpt", str(path), "--control-scale",
+                 "0.7")
+    job = cli.build(cli.parse_args(argv))
+    cn, hint, scale = job.control
+    assert isinstance(cn, tcn.ControlNet) and scale == 0.7
+    assert tuple(hint.shape) == (1, 128, 128, 3) and not hint.any()
+    assert "zero hint" in capsys.readouterr().out
+    img = np.random.default_rng(1).integers(0, 256, (40, 50, 3)).astype(np.uint8)
+    Image.fromarray(img).save(tmp_path / "hint.png")
+    job = cli.build(cli.parse_args(argv + ["--control-image", str(tmp_path / "hint.png")]))
+    want = np.asarray(Image.fromarray(img).resize((128, 128), Image.LANCZOS), np.float32) / 255
+    np.testing.assert_array_equal(job.control[1][0].numpy(), want)
+    assert job.image().shape == (1, 32, 32, 3)

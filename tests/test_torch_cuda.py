@@ -835,3 +835,111 @@ def test_cuda_full_width_mmdit_block_matches_cpu(cuda):
         want = mmdit._block(on_cpu.blocks[0], img.cpu(), txt.cpu(), c.cpu(), cfg, kv_len=1101)
     for a, b in zip(got, want):
         assert _rel(a.cpu(), b) <= 1e-4
+
+
+# --- the SD1.x surface beyond text to image: hires fix, batch-1 branches,
+# VAE encode, the text towers' bf16 GELU -------------------------------------
+
+HIRES_PACKED = [(2, 16384, 77, 8, 40), (2, 4096, 4096, 8, 80), (2, 4096, 77, 8, 80),
+                (2, 1024, 1024, 8, 160), (2, 1024, 77, 8, 160)]
+B1_PACKED = [(1, 4096, 4096, 8, 40), (1, 4096, 77, 8, 40), (1, 1024, 1024, 8, 80),
+             (1, 1024, 77, 8, 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,heads,d", HIRES_PACKED + B1_PACKED)
+def test_cuda_hires_and_batch1_packed_match_plain(cuda, b, sq, sk, heads, d):
+    """The hires fix's 1024x1024 levels (8 heads of 40, 80 and 160 packed:
+    d = 160 on wgmma_wide, with 77-key cross attention) and SD1.5's shapes at
+    batch 1 (DeepCache with cached CFG), bf16, on a TMA + wgmma variant."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(b, s, heads * d, generator=g, device=cuda).to(torch.bfloat16)
+               for s in (sq, sk, sk))
+    before = dict(flash_packed.variants)
+    got = flash_packed(q, k, v, heads=heads)
+    torch.cuda.synchronize()
+    variant = "wgmma" if d <= 128 else "wgmma_wide"
+    assert flash_packed.variants[variant] == before.get(variant, 0) + 1
+    want = flash_packed_plain(q, k, v, heads=heads)
+    assert _rel(got, want) <= ATTN_REL[torch.bfloat16]
+    assert _row_rel(got, want) <= ATTN_ROW_REL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_cuda_hires_128_self_attention_matches_plain_over_row_chunks(cuda):
+    """The hires 128x128 self attention (2, 16384, 16384, 320), 8 heads of
+    40: its plain version's fp32 logits would be 17 GB, so it is taken over
+    chunks of 2048 query rows with all keys each (rows are independent)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 16384, 320, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    got = flash_packed(q, k, v, heads=8)
+    torch.cuda.synchronize()
+    for i in range(0, 16384, 2048):
+        want = flash_packed_plain(q[:, i:i + 2048], k, v, heads=8)
+        part = got[:, i:i + 2048]
+        assert _rel(part, want) <= ATTN_REL[torch.bfloat16]
+        assert _row_rel(part, want) <= ATTN_ROW_REL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(32768, 1280, 320), (8192, 2560, 640), (2048, 5120, 1280),
+                                   (4096, 1280, 320), (1024, 2560, 640), (256, 5120, 1280),
+                                   (64, 5120, 1280)])
+def test_cuda_hires_and_batch1_geglu_match_plain(cuda, m, k, n):
+    """geglu at the hires fix's three new FF shapes and SD1.5's at batch 1,
+    bf16, on the wgmma variant."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    gx, gate, w, b = _geglu_case(g, m, k, n, cuda)
+    before = geglu_matmul.variants["wgmma"]
+    got = geglu_matmul(gx, gate, w, b)
+    torch.cuda.synchronize()
+    assert geglu_matmul.variants["wgmma"] == before + 1
+    want = geglu_matmul_plain(gx, gate, w, b)
+    assert _rel(got, want) <= GEGLU_REL[torch.bfloat16]
+    assert _row_rel(got, want) <= GEGLU_ROW_REL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_cuda_vae_encode_512_matches_cpu(cuda):
+    """The SD VAE's encoder at full width on a 512x512 image in fp32, card
+    (its mid attention through flash_bhsd's exact fp32 kernel) against the
+    CPU: 1e-3 relative, as chip_smoke.py holds the UNet (fp32 with TF32
+    off on both devices; summation order over ~30 layers)."""
+    from tinyfusers_tpu_torch.models import vae
+    from tinyfusers_tpu_torch.models.layers import init_weights
+
+    gpu = vae.AutoencoderKL(vae.SD_VAE_CONFIG, device=cuda, dtype=torch.float32)
+    init_weights(gpu, 5)
+    cpu = vae.AutoencoderKL(vae.SD_VAE_CONFIG, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict(gpu.state_dict())
+    x = torch.rand((1, 512, 512, 3), generator=torch.Generator().manual_seed(6)) * 2 - 1
+    n0 = flash_bhsd.shapes[(1, 4096, 4096, 512)]
+    with torch.inference_mode():
+        got = vae.encode(gpu, x.to(cuda))
+        torch.cuda.synchronize()
+        want = vae.encode(cpu, x)
+    assert flash_bhsd.shapes[(1, 4096, 4096, 512)] == n0 + 1
+    assert tuple(got.shape) == (1, 64, 64, 4)
+    assert _rel(got.cpu(), want) <= 1e-3
+
+
+# The bf16 values where CUDA's erfcf and the CPU's give erfc results that
+# round to different bf16 GELU outputs (counted on an H100; chip_smoke.py's
+# [gelu] line prints them).
+GELU_CARD_DIFFS = 0
+
+
+@pytest.mark.cuda
+def test_cuda_gelu_erf_bf16_equals_the_cpu(cuda):
+    """ops.gelu_erf (the text towers' exact GELU, JAX's jit form) over every
+    finite bf16 value on the card, against the CPU, which equals the JAX
+    package at every normal value (tests/test_torch_ops.py)."""
+    from tinyfusers_tpu_torch.ops import gelu_erf
+
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    x = bits[torch.isfinite(bits)]
+    got = gelu_erf(x.to(cuda)).cpu()
+    want = gelu_erf(x)
+    assert got.dtype == torch.bfloat16
+    assert int((got.float() != want.float()).sum()) == GELU_CARD_DIFFS

@@ -148,3 +148,41 @@ def test_sdpa_dispatch_on_cpu_is_math_with_kv_len():
                             heads=2, impl="xla", kv_len=13)
     close(got, want)
     assert (flash_packed.launches, flash_bhsd.launches) == before
+
+
+def _every_finite_bf16() -> torch.Tensor:
+    """All 65,280 finite bf16 values (both zeros included)."""
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    return x[torch.isfinite(x)]
+
+
+def test_gelu_erf_bf16_equals_jax_jit_at_every_normal_value():
+    """jax.jit(gelu_erf) keeps -x * sqrt_half in fp32, rounds erfc to bf16
+    and forms (0.5 * x) * erfc in bf16; the port must give the same bits
+    wherever the input and both outputs are normal (zero counts as normal).
+    XLA on the CPU flushes subnormals, inputs, results and the fp32 erfc
+    alike, to zero, so where either side's output is below bf16's smallest
+    normal value or the input is, the values are counted, not compared;
+    F.gelu (one rounding of an fp32 GELU) differs at 1,086 normal values."""
+    import jax
+
+    x = _every_finite_bf16()
+    assert x.numel() == 65280
+    want = torch.from_numpy(np.asarray(
+        jax.jit(jops.gelu_erf)(jnp.asarray(x.float().numpy(), jnp.bfloat16)),
+        np.float32)).to(torch.bfloat16)
+    got = tops.gelu_erf(x)
+    assert got.dtype == torch.bfloat16
+    tiny = torch.finfo(torch.bfloat16).tiny
+    a, g, w = x.float().abs(), got.float(), want.float()
+    normal = (a == 0) | (a >= tiny)
+    normal &= (g == w) | ((g.abs() >= tiny) & (w.abs() >= tiny))
+    differ = (g != w) & normal
+    assert int(differ.sum()) == 0, x[differ][:8].tolist()
+    # the flushed region: the 254 subnormal inputs, the 256 normal ones below
+    # 2.35e-38 in magnitude whose 0.5 * x is subnormal, and the 6 from -13.06
+    # to -13.38 whose fp32 erfc is
+    assert int((~normal).sum()) == 516, x[~normal & (a >= tiny)].tolist()
+    old = torch.nn.functional.gelu(x).float()
+    assert int(((old != w) & normal).sum()) == 1086

@@ -4,8 +4,10 @@ of tinyfusers_tpu/io/checkpoints.py).
 load_sd_params(path, cfg): a torch-zip .ckpt or a .safetensors file ->
 a pipeline.sd.StableDiffusion holding its weights on the device, in the
 requested dtype. save_sd_checkpoint(model, path, cfg): the model as an
-SD-format .safetensors file. The ControlNet and SDXL loaders are not
-ported yet.
+SD-format .safetensors file. load_controlnet_params(path, cfg) and
+save_controlnet_checkpoint(model, path): the same for a ControlNet in
+lllyasviel's ``control_model.*`` layout. The SDXL loader is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -49,4 +51,35 @@ def save_sd_checkpoint(model, path, cfg=None, *, dtype: Optional[torch.dtype] = 
     state = state_map.sd_state_from_params(model)
     if dtype is not None:
         state = {k: v.to(dtype) if v.is_floating_point() else v for k, v in state.items()}
+    safetensors_io.save_state_dict(state, path)
+
+
+def load_controlnet_params(path, cfg=None, *, device: Union[str, torch.device] = "cuda",
+                           dtype: torch.dtype = torch.bfloat16):
+    """A ControlNet checkpoint (``control_model.*``, .safetensors or a
+    torch-zip .ckpt / .pth) -> a models.controlnet.ControlNet of ``cfg``'s
+    UNet (SD1.5's by default) on ``device`` (the GPU unless the caller asks
+    for the CPU) in ``dtype``; the hint's channels are read from the file.
+    Pair with sd.generate(..., control=(controlnet, hint, scale))."""
+    from ..models import controlnet as cn_model
+    from ..models import unet as unet_model
+
+    cfg = cfg or unet_model.SD15_CONFIG
+    state = load_state_dict(path)
+    first = f"{state_map.CONTROLNET_PREFIX}.input_hint_block.0.weight"
+    if first not in state:
+        raise KeyError(f"controlnet: the checkpoint has no {first!r}")
+    model = cn_model.ControlNet(cfg, hint_channels=state[first].shape[1], device=device,
+                                dtype=dtype, seed=None)
+    state_map.controlnet_from_state(state, model)
+    return model
+
+
+def save_controlnet_checkpoint(model, path, *, dtype: Optional[torch.dtype] = None) -> None:
+    """Write a ControlNet as a ``control_model.*`` .safetensors file;
+    ``dtype`` casts the tensors on the way out (fp16, as published
+    ControlNets are)."""
+    state = state_map.controlnet_to_state(model)
+    if dtype is not None:
+        state = {k: v.to(dtype) for k, v in state.items()}
     safetensors_io.save_state_dict(state, path)

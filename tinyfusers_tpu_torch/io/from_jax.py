@@ -9,6 +9,9 @@ conv weights HWIO -> OIHW, and the per-layer leaves stacked on a leading
 axis for ``lax.scan`` (CLIP's and T5's layers, the MMDiT's blocks) are
 split across the ModuleList.
 Every parameter must be written exactly once and every shape must match.
+The same walk (``load_params``) loads a UNet of any config (the
+9-channel inpainting one too) and a ControlNet (``controlnet.init``'s
+tree into a ``models.controlnet.ControlNet``).
 
 A weight-only quantized tree, as ``jax.tree.map(np.asarray,
 quantize_params(...))`` gives it, is taken as well. Its quantized leaves

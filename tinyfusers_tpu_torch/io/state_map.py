@@ -1,5 +1,5 @@
-"""SD1.x / SD2.x checkpoint names <-> the port's parameters (port of the
-SD part of tinyfusers_tpu/io/state_map.py).
+"""SD1.x / SD2.x and ControlNet checkpoint names <-> the port's parameters
+(port of the SD and ControlNet parts of tinyfusers_tpu/io/state_map.py).
 
 The LDM layout of an SD checkpoint is torch's own (linear weights (out,
 in), conv weights OIHW), and so is the port's, so each checkpoint tensor
@@ -20,8 +20,9 @@ Checkpoint prefixes:
   first_stage_model.*                           VAE
   cond_stage_model.transformer.text_model.*     CLIP, HF layout (SD1.x)
   cond_stage_model.model.*                      OpenCLIP layout (SD2.x)
+  control_model.*                               ControlNet (a file of its own)
 
-The SDXL, SD3 / T5, ControlNet and CLIP-vision maps are not ported yet.
+The SDXL, SD3 / T5 and CLIP-vision maps are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models import controlnet as cn_model
 from ..models import unet as unet_model
 
 # (port parameter name, checkpoint key, what to take from the key's tensor)
@@ -40,6 +42,7 @@ UNET_PREFIX = "model.diffusion_model"
 VAE_PREFIX = "first_stage_model"
 CLIP_PREFIX = "cond_stage_model.transformer.text_model"
 OPENCLIP_PREFIX = "cond_stage_model.model"
+CONTROLNET_PREFIX = "control_model"
 
 
 def _leaf(out: List[Entry], port: str, key: str, bias: bool = True) -> None:
@@ -86,51 +89,52 @@ def _read(module: nn.Module, entries: List[Entry]) -> Dict[str, torch.Tensor]:
 # UNet (the checkpoint's block indices are build_plan's order)
 # ---------------------------------------------------------------------------
 
+def _block_entries(out: List[Entry], port: str, key: str, specs) -> None:
+    """One block of build_plan's: the UNet's and the ControlNet's alike."""
+    for j, spec in enumerate(specs):
+        p, k = f"{port}.{j}", f"{key}.{j}"
+        if spec == "conv_in":
+            _leaf(out, p, k)
+        elif isinstance(spec, unet_model.ResSpec):
+            _leaf(out, f"{p}.norm1", f"{k}.in_layers.0")
+            _leaf(out, f"{p}.conv1", f"{k}.in_layers.2")
+            _leaf(out, f"{p}.emb", f"{k}.emb_layers.1")
+            _leaf(out, f"{p}.norm2", f"{k}.out_layers.0")
+            _leaf(out, f"{p}.conv2", f"{k}.out_layers.3")
+            if spec.in_ch != spec.out_ch:
+                _leaf(out, f"{p}.skip", f"{k}.skip_connection")
+        elif isinstance(spec, unet_model.AttnSpec):
+            _leaf(out, f"{p}.norm", f"{k}.norm")
+            _leaf(out, f"{p}.proj_in", f"{k}.proj_in")
+            for d in range(spec.depth):
+                bp, bk = f"{p}.blocks.{d}", f"{k}.transformer_blocks.{d}"
+                for n in ("norm1", "norm2", "norm3"):
+                    _leaf(out, f"{bp}.{n}", f"{bk}.{n}")
+                for a in ("attn1", "attn2"):
+                    for n in ("to_q", "to_k", "to_v"):
+                        _leaf(out, f"{bp}.{a}.{n}", f"{bk}.{a}.{n}", bias=False)
+                    _leaf(out, f"{bp}.{a}.to_out", f"{bk}.{a}.to_out.0")
+                _leaf(out, f"{bp}.ff.proj", f"{bk}.ff.net.0.proj")
+                _leaf(out, f"{bp}.ff.out", f"{bk}.ff.net.2")
+            _leaf(out, f"{p}.proj_out", f"{k}.proj_out")
+        elif isinstance(spec, unet_model.SampleSpec):
+            # Downsample keeps its conv under .op, Upsample under .conv
+            _leaf(out, f"{p}.conv", f"{k}.op" if spec.mode == "down" else f"{k}.conv")
+        else:
+            raise ValueError(spec)
+
+
 def _unet_entries(cfg: unet_model.UNetConfig) -> List[Entry]:
     out: List[Entry] = []
     pre = UNET_PREFIX
-
-    def block(port: str, key: str, specs) -> None:
-        for j, spec in enumerate(specs):
-            p, k = f"{port}.{j}", f"{key}.{j}"
-            if spec == "conv_in":
-                _leaf(out, p, k)
-            elif isinstance(spec, unet_model.ResSpec):
-                _leaf(out, f"{p}.norm1", f"{k}.in_layers.0")
-                _leaf(out, f"{p}.conv1", f"{k}.in_layers.2")
-                _leaf(out, f"{p}.emb", f"{k}.emb_layers.1")
-                _leaf(out, f"{p}.norm2", f"{k}.out_layers.0")
-                _leaf(out, f"{p}.conv2", f"{k}.out_layers.3")
-                if spec.in_ch != spec.out_ch:
-                    _leaf(out, f"{p}.skip", f"{k}.skip_connection")
-            elif isinstance(spec, unet_model.AttnSpec):
-                _leaf(out, f"{p}.norm", f"{k}.norm")
-                _leaf(out, f"{p}.proj_in", f"{k}.proj_in")
-                for d in range(spec.depth):
-                    bp, bk = f"{p}.blocks.{d}", f"{k}.transformer_blocks.{d}"
-                    for n in ("norm1", "norm2", "norm3"):
-                        _leaf(out, f"{bp}.{n}", f"{bk}.{n}")
-                    for a in ("attn1", "attn2"):
-                        for n in ("to_q", "to_k", "to_v"):
-                            _leaf(out, f"{bp}.{a}.{n}", f"{bk}.{a}.{n}", bias=False)
-                        _leaf(out, f"{bp}.{a}.to_out", f"{bk}.{a}.to_out.0")
-                    _leaf(out, f"{bp}.ff.proj", f"{bk}.ff.net.0.proj")
-                    _leaf(out, f"{bp}.ff.out", f"{bk}.ff.net.2")
-                _leaf(out, f"{p}.proj_out", f"{k}.proj_out")
-            elif isinstance(spec, unet_model.SampleSpec):
-                # Downsample keeps its conv under .op, Upsample under .conv
-                _leaf(out, f"{p}.conv", f"{k}.op" if spec.mode == "down" else f"{k}.conv")
-            else:
-                raise ValueError(spec)
-
     _leaf(out, "time_embed.fc1", f"{pre}.time_embed.0")
     _leaf(out, "time_embed.fc2", f"{pre}.time_embed.2")
     inp, mid, outp = unet_model.build_plan(cfg)
     for i, b in enumerate(inp):
-        block(f"input.{i}", f"{pre}.input_blocks.{i}", b)
-    block("middle", f"{pre}.middle_block", mid)
+        _block_entries(out, f"input.{i}", f"{pre}.input_blocks.{i}", b)
+    _block_entries(out, "middle", f"{pre}.middle_block", mid)
     for i, b in enumerate(outp):
-        block(f"output.{i}", f"{pre}.output_blocks.{i}", b)
+        _block_entries(out, f"output.{i}", f"{pre}.output_blocks.{i}", b)
     _leaf(out, "out_norm", f"{pre}.out.0")
     _leaf(out, "out_conv", f"{pre}.out.2")
     return out
@@ -143,6 +147,41 @@ def unet_from_state(state: Mapping, unet: nn.Module) -> None:
 
 def unet_to_state(unet: nn.Module) -> Dict[str, torch.Tensor]:
     return _read(unet, _unet_entries(unet.cfg))
+
+
+# ---------------------------------------------------------------------------
+# ControlNet (lllyasviel/ControlNet's cldm layout)
+# ---------------------------------------------------------------------------
+
+def _controlnet_entries(cfg: unet_model.UNetConfig, prefix: str) -> List[Entry]:
+    """The UNet's encoder-block names under ``prefix``; the hint convs at
+    the even indices of input_hint_block (SiLUs between), the zero convs
+    under zero_convs.{i}.0 and middle_block_out.0."""
+    out: List[Entry] = []
+    _leaf(out, "time_embed.fc1", f"{prefix}.time_embed.0")
+    _leaf(out, "time_embed.fc2", f"{prefix}.time_embed.2")
+    inp, mid, _ = unet_model.build_plan(cfg)
+    for i, b in enumerate(inp):
+        _block_entries(out, f"input.{i}", f"{prefix}.input_blocks.{i}", b)
+    _block_entries(out, "middle", f"{prefix}.middle_block", mid)
+    for i in range(len(cn_model._HINT_LADDER) + 1):
+        _leaf(out, f"input_hint.{i}", f"{prefix}.input_hint_block.{2 * i}")
+    for i in range(len(cn_model._skip_channels(cfg))):
+        _leaf(out, f"zero_convs.{i}", f"{prefix}.zero_convs.{i}.0")
+    _leaf(out, "middle_out", f"{prefix}.middle_block_out.0")
+    return out
+
+
+def controlnet_from_state(state: Mapping, controlnet: nn.Module,
+                          prefix: str = CONTROLNET_PREFIX) -> None:
+    """Write a ControlNet checkpoint (``control_model.*`` keys) into
+    ``controlnet`` (a models.controlnet.ControlNet)."""
+    _write(controlnet, state, _controlnet_entries(controlnet.cfg, prefix), "controlnet")
+
+
+def controlnet_to_state(controlnet: nn.Module,
+                        prefix: str = CONTROLNET_PREFIX) -> Dict[str, torch.Tensor]:
+    return _read(controlnet, _controlnet_entries(controlnet.cfg, prefix))
 
 
 # ---------------------------------------------------------------------------

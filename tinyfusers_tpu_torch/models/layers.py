@@ -142,6 +142,11 @@ class Conv(_WeightLeaf):
         return ops.conv2d(x, self.w, self.bias, stride=stride, padding=padding)
 
 
+class ZeroConv(Conv):
+    """A Conv whose JAX init is all zeros: ControlNet's zero convs and the
+    last conv of its hint encoder (models/controlnet.py)."""
+
+
 class Norm(nn.Module):
     """Affine parameters of a layer norm or group norm."""
 
@@ -187,6 +192,8 @@ def init_weights(model: nn.Module, seed: int) -> None:
             pinit.zeros_(mod.weight, mod.bias)
         elif isinstance(mod, Linear):
             pinit.linear_(mod.weight, mod.bias, generator)
+        elif isinstance(mod, ZeroConv):
+            pinit.zeros_(mod.weight, mod.bias)
         elif isinstance(mod, Conv):
             pinit.conv_(mod.weight, mod.bias, generator)
         elif isinstance(mod, Norm):

@@ -4,15 +4,17 @@ tinyfusers_tpu/models/unet.py).
 The topology is generated from the config by ``build_plan`` exactly as in
 the JAX package; the module tree mirrors the JAX param tree ("input",
 "middle", "output" lists of blocks, each a list of per-spec leaves), so
-io/from_jax.py loads it by walking both. The plain path only: DeepCache,
-ControlNet residuals, FreeU and ADM conditioning come with later parts of
-the port.
+io/from_jax.py loads it by walking both. ``apply`` takes the JAX
+package's extra inputs: DeepCache (``deepcache``, ``cache``), ControlNet
+residuals (``control``, from models/controlnet.py) and FreeU (``freeu``).
+SDXL's ADM conditioning comes with the SDXL part of the port.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -50,6 +52,9 @@ SD15_CONFIG = UNetConfig()
 
 # SD 2.x: 64-wide heads (5 / 10 / 20 of them), OpenCLIP-H context.
 SD21_CONFIG = UNetConfig(context_dim=1024, num_heads=-1, head_dim=64)
+
+# SD 1.5 inpainting: the input is latent (4) + mask (1) + masked latent (4).
+SD15_INPAINT_CONFIG = UNetConfig(in_channels=9)
 
 TINY_CONFIG = UNetConfig(
     model_channels=32,
@@ -280,21 +285,129 @@ def _run_block(mods, block, x, emb, context, cfg: UNetConfig):
     return x
 
 
+@functools.lru_cache(maxsize=None)
+def _box_mask(h: int, w: int, threshold: int, scale: float, device: torch.device):
+    """(1, h, w, 1) fp32: ``scale`` inside the centred box |i - h//2| <
+    threshold (strict, as the JAX package's), 1 outside. Made once per
+    shape and device: a mask built from device scalars on every call would
+    copy them from the host, each copy a wait for the card."""
+    rows = (torch.arange(h) - h // 2).abs() < threshold
+    cols = (torch.arange(w) - w // 2).abs() < threshold
+    mask = torch.where(rows[:, None] & cols[None, :], scale, 1.0).float()
+    return mask[None, :, :, None].to(device)
+
+
+def _fourier_filter(x: torch.Tensor, threshold: int, scale: float) -> torch.Tensor:
+    """Scale the low-frequency (centered) box of an NHWC feature map's 2-D
+    FFT by ``scale`` (FreeU's skip filter): complex64 FFT over H and W, the
+    real part cast back to x's dtype. The box is |i - h//2| < threshold
+    (strict), so threshold = 1 scales the DC bin alone."""
+    f = torch.fft.fftshift(torch.fft.fft2(x.to(torch.complex64), dim=(1, 2)), dim=(1, 2))
+    f = f * _box_mask(x.shape[1], x.shape[2], threshold, float(scale), x.device)
+    out = torch.fft.ifft2(torch.fft.ifftshift(f, dim=(1, 2)), dim=(1, 2))
+    return out.real.to(x.dtype)
+
+
+def _apply_freeu(x: torch.Tensor, skip: torch.Tensor, level: int, freeu):
+    """FreeU (Si et al. 2023) on decoder levels 0 (b1, s1) and 1 (b2, s2):
+    the first half of the backbone's channels times b (rounded to x's
+    dtype first, as the JAX package takes it), the skip's lowest frequency
+    times s. Other levels pass through."""
+    b1, b2, s1, s2 = freeu
+    if level == 0:
+        b, s = b1, s1
+    elif level == 1:
+        b, s = b2, s2
+    else:
+        return x, skip
+    half = x.shape[-1] // 2
+    x = torch.cat([x[..., :half] * _rounded(b, x.dtype), x[..., half:]], dim=-1)
+    return x, _fourier_filter(skip, threshold=1, scale=s)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _add_control(skips: List[torch.Tensor], residuals: Sequence[torch.Tensor]):
+    return [s + c.to(s.dtype) for s, c in zip(skips, residuals)]
+
+
 def apply(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
-          context: torch.Tensor) -> torch.Tensor:
+          context: torch.Tensor, *, deepcache: Optional[Tuple[str, int]] = None,
+          cache: Optional[torch.Tensor] = None, control=None,
+          freeu: Optional[Tuple[float, float, float, float]] = None):
     """x (B, H, W, C_in) NHWC latents, timesteps (B,) float, context
-    (B, S, context_dim) -> noise prediction (B, H, W, C_out)."""
+    (B, S, context_dim) -> noise prediction (B, H, W, C_out).
+
+    control: (skip residuals, middle residual) from models/controlnet.apply;
+    each skip residual is added to its skip as it is popped, the middle one
+    after the middle block. In deepcache "shallow" mode control may instead
+    be a sequence of (at least) the first m skip residuals: the middle
+    residual is already in the cache.
+
+    freeu: (b1, b2, s1, s2), FreeU on the two deepest decoder levels.
+
+    deepcache (DeepCache, Ma et al. 2023): ("full", m) runs everything and
+    also returns the hidden state entering the last m output blocks;
+    ("shallow", m) runs the first m input and last m output blocks around
+    ``cache``. Both return (eps, cache)."""
     cfg = model.cfg
     inp, mid, outp = build_plan(cfg)
     t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
     emb = model.time_embed.fc2(ops.silu(model.time_embed.fc1(t_emb)))
-    skips = []
-    for mods, block in zip(model.input, inp):
-        x = _run_block(mods, block, x, emb, context, cfg)
-        skips.append(x)
-    x = _run_block(model.middle, mid, x, emb, context, cfg)
-    for mods, block in zip(model.output, outp):
-        x = torch.cat([x, skips.pop()], dim=-1)
-        x = _run_block(mods, block, x, emb, context, cfg)
+    mode, m = deepcache if deepcache is not None else (None, 0)
+    if mode is not None and not 1 <= m <= min(len(inp), len(outp)):
+        raise ValueError(
+            f"deepcache split m={m} out of range: need 1 <= m <= "
+            f"{min(len(inp), len(outp))} (input/output block counts "
+            f"{len(inp)}/{len(outp)}) — otherwise the cache tap "
+            f"j == len(outp)-m is never reached and cache_out stays None")
+    per_level = cfg.num_res_blocks + 1
+    if mode == "shallow":
+        if cache is None:
+            raise ValueError("deepcache 'shallow' mode needs cache=")
+        skips = []
+        for mods, block in zip(model.input[:m], inp[:m]):
+            x = _run_block(mods, block, x, emb, context, cfg)
+            skips.append(x)
+        if control is not None:
+            # a (skips, middle) pair, or the skip residuals alone: told apart
+            # by the first item, so that two cached residuals are not
+            # mistaken for a pair (the JAX package's len(control) == 2 test is)
+            pair = isinstance(control, tuple) and not isinstance(control[0], torch.Tensor)
+            skips = _add_control(skips, control[0] if pair else control)
+        x = cache
+        for i, (mods, block) in enumerate(zip(model.output[-m:], outp[-m:])):
+            s = skips.pop()
+            if freeu is not None:
+                x, s = _apply_freeu(x, s, (len(outp) - m + i) // per_level, freeu)
+            x = _run_block(mods, block, torch.cat([x, s], dim=-1), emb, context, cfg)
+        cache_out = cache
+    else:
+        skips = []
+        for mods, block in zip(model.input, inp):
+            x = _run_block(mods, block, x, emb, context, cfg)
+            skips.append(x)
+        x = _run_block(model.middle, mid, x, emb, context, cfg)
+        if control is not None:
+            ctrl_skips, ctrl_mid = control
+            if len(ctrl_skips) != len(skips):
+                raise ValueError(f"control has {len(ctrl_skips)} skip residuals, "
+                                 f"UNet plan has {len(skips)} skips")
+            x = x + ctrl_mid.to(x.dtype)
+            skips = _add_control(skips, ctrl_skips)
+        cache_out = None
+        for j, (mods, block) in enumerate(zip(model.output, outp)):
+            if mode == "full" and j == len(outp) - m:
+                cache_out = x
+            s = skips.pop()
+            if freeu is not None:
+                x, s = _apply_freeu(x, s, j // per_level, freeu)
+            x = _run_block(mods, block, torch.cat([x, s], dim=-1), emb, context, cfg)
     x = model.out_norm.group(x, cfg.num_groups, 1e-5)
-    return model.out_conv(ops.silu(x), padding=1)
+    x = model.out_conv(ops.silu(x), padding=1)
+    if deepcache is not None:
+        return x, cache_out
+    return x

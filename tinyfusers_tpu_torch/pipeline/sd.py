@@ -7,8 +7,9 @@ JAX param tree ("clip", "unet", "vae"). ``generate`` runs CLIP on the
 prompt and the negative prompt, the sampler loop (pipeline/samplers.py)
 with the UNet on the cond+uncond batch of 2B (or on B alone without
 guidance, or the two branches apart under cached CFG), the VAE decode and
-the uint8 conversion. DeepCache, FreeU, ControlNet, hires, img2img and
-inpainting are not ported yet.
+the uint8 conversion, with DeepCache, FreeU and ControlNet residuals as
+options. ``generate_hires`` (the hires fix), ``img2img`` and ``inpaint``
+(the 9-channel UNet) are the other entry points.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..models import clip, unet, vae
+from ..models import clip, controlnet, unet, vae
 from ..models.layers import init_weights
 from . import ddim, samplers
 
@@ -167,12 +168,29 @@ def denoise_step(unet_model: unet.UNet, latent, timestep, context2, guidance,
     return ddim.ddim_step(latent, e_t, a_t, a_prev)
 
 
+def _controlled(control):
+    """(controlnet, hint, scale) -> the function giving fresh ControlNet
+    residuals (skips, middle) at (latents, timesteps, context), with the
+    hint encoded here, once per generation: it does not change between
+    steps."""
+    cn, hint, scale = control
+    guided = controlnet.encode_hint(cn, hint)
+
+    def ctrl_for(lat, t, ctx):
+        g = guided.to(lat.dtype).expand(lat.shape[0], *guided.shape[1:])
+        return controlnet.apply(cn, lat, None, t, ctx, scale=scale, hint_features=g)
+
+    return ctrl_for
+
+
 def sample_latents(unet_model: unet.UNet, latent: torch.Tensor,
                    context: torch.Tensor, uncond_context: Optional[torch.Tensor], *,
                    num_steps: int, guidance, cfg: SDConfig = SD15,
                    method: str = "ddim", schedule: str = "ladder",
                    start_index: int = 0, generator: Optional[torch.Generator] = None,
-                   uncond_interval: int = 1, cfg_rescale: float = 0.0) -> torch.Tensor:
+                   uncond_interval: int = 1, deepcache_interval: int = 1,
+                   deepcache_split: int = 3, cfg_rescale: float = 0.0,
+                   control=None, freeu=None) -> torch.Tensor:
     """Sampling with classifier-free guidance: one UNet call on the batch of
     2B ([uncond ‖ cond]) per network call, combined with ``guidance``.
 
@@ -182,25 +200,49 @@ def sample_latents(unet_model: unet.UNet, latent: torch.Tensor,
     uncond_interval k > 1 is cached CFG: the unconditional output is
     recomputed every k-th network call and reused in between (under every
     sampler; for the 2-call samplers k counts calls); approximate.
+    deepcache_interval k > 1 is DeepCache: the whole UNet every k-th network
+    call, in between only its first and last ``deepcache_split`` blocks
+    around the cached deep feature; approximate. With uncond_interval > 1
+    too, the cond branch runs DeepCache and the uncond branch a full UNet
+    every uncond_interval-th call (_deepcache_cached_cfg_fn).
     cfg_rescale > 0 rescales the guided output (ddim.cfg_rescale) in
-    model-output space, before the v -> eps step."""
-    if uncond_context is None and uncond_interval > 1:
+    model-output space, before the v -> eps step.
+    control: (models.controlnet.ControlNet, hint (B, H, W, 3) in [0, 1] at
+    the image's resolution, scale): ControlNet residuals into every UNet
+    call, refreshed on full passes and reused on DeepCache's shallow ones.
+    freeu: (b1, b2, s1, s2), FreeU in every UNet call."""
+    if uncond_context is None and (uncond_interval > 1 or deepcache_interval > 1):
         raise ValueError(
             "guidance-free sampling (uncond_context=None) does not compose with "
-            "cached CFG (uncond_interval > 1): there is no uncond branch to cache")
+            "cached-CFG/DeepCache intervals — there is no uncond branch to cache")
     b = latent.shape[0]
     g = torch.as_tensor(guidance, dtype=torch.float32, device=latent.device)
     run = functools.partial(samplers.sample, latent=latent, num_steps=num_steps,
                             method=method, schedule=schedule, start_index=start_index,
                             generator=generator)
+    ctrl_for = None if control is None else _controlled(control)
 
     def combine(o_u, o_c):
         o = ddim.cfg_combine(o_u, o_c, g)
         return ddim.cfg_rescale(o, o_c, cfg_rescale) if cfg_rescale > 0.0 else o
 
+    def unet_apply(lat, t, ctx):
+        ctrl = None if ctrl_for is None else ctrl_for(lat, t, ctx)
+        return unet.apply(unet_model, lat, t, ctx, control=ctrl, freeu=freeu)
+
+    if deepcache_interval > 1:
+        kw = dict(unet_model=unet_model, context=context, uncond_context=uncond_context,
+                  combine=combine, cfg=cfg, split=deepcache_split, ctrl_for=ctrl_for,
+                  freeu=freeu, b=b)
+        if uncond_interval > 1:
+            return run(_deepcache_cached_cfg_fn(dk=deepcache_interval, uk=uncond_interval,
+                                                **kw), aux_init=(0, None, None, None))
+        return run(_deepcache_fn(interval=deepcache_interval, **kw),
+                   aux_init=(0, None, None))
+
     if uncond_context is None:
         def model_fn(lat, t):
-            out = unet.apply(unet_model, lat, t.expand(b), context)
+            out = unet_apply(lat, t.expand(b), context)
             return model_out_to_eps(out, lat, t, cfg)
 
         return run(model_fn)
@@ -209,8 +251,7 @@ def sample_latents(unet_model: unet.UNet, latent: torch.Tensor,
         context2 = torch.cat([uncond_context, context], dim=0)
 
         def model_fn(lat, t):
-            out = unet.apply(unet_model, torch.cat([lat, lat], dim=0),
-                             t.expand(2 * b), context2)
+            out = unet_apply(torch.cat([lat, lat], dim=0), t.expand(2 * b), context2)
             return model_out_to_eps(combine(out[:b], out[b:]), lat, t, cfg)
 
         return run(model_fn)
@@ -219,12 +260,86 @@ def sample_latents(unet_model: unet.UNet, latent: torch.Tensor,
     def model_fn(lat, t, aux):
         n, o_u = aux
         tb = t.expand(b)
-        o_c = unet.apply(unet_model, lat, tb, context)
+        o_c = unet_apply(lat, tb, context)
         if n % uncond_interval == 0:
-            o_u = unet.apply(unet_model, lat, tb, uncond_context)
+            o_u = unet_apply(lat, tb, uncond_context)
         return model_out_to_eps(combine(o_u, o_c), lat, t, cfg), (n + 1, o_u)
 
     return run(model_fn, aux_init=(0, None))
+
+
+def _deepcache_passes(unet_model, split, ctrl_for, freeu):
+    """(full, shallow) UNet passes of DeepCache at split ``split``, each
+    (lat, t, ctx, cache, ctrl_cache) -> (eps, cache, ctrl_cache). A full
+    pass refreshes the ControlNet residuals and keeps the first ``split``
+    skip residuals for the shallow passes; the deeper residuals act through
+    the cached deep feature."""
+    def full(lat, t, ctx, cache, ctrl_cache):
+        ctrl = None if ctrl_for is None else ctrl_for(lat, t, ctx)
+        eps, cache = unet.apply(unet_model, lat, t, ctx, deepcache=("full", split),
+                                control=ctrl, freeu=freeu)
+        return eps, cache, ctrl_cache if ctrl is None else tuple(ctrl[0][:split])
+
+    def shallow(lat, t, ctx, cache, ctrl_cache):
+        eps, cache = unet.apply(unet_model, lat, t, ctx, deepcache=("shallow", split),
+                                cache=cache, control=ctrl_cache, freeu=freeu)
+        return eps, cache, ctrl_cache
+
+    return full, shallow
+
+
+def _deepcache_fn(*, unet_model, context, uncond_context, combine, cfg, interval, split,
+                  ctrl_for, freeu, b):
+    """DeepCache under CFG on the batch of 2B, as the JAX package's
+    _sample_deepcache: a full UNet every ``interval``-th network call, the
+    shallow pass between. The aux state is (calls so far, deep-feature
+    cache, cached first-split ControlNet residuals), None until the first
+    full pass fills it."""
+    full, shallow = _deepcache_passes(unet_model, split, ctrl_for, freeu)
+    context2 = torch.cat([uncond_context, context], dim=0)
+
+    def model_fn(lat, t, aux):
+        n, cache, ctrl_cache = aux
+        lat2, t2 = torch.cat([lat, lat], dim=0), t.float().expand(2 * b)
+        step = full if n % interval == 0 else shallow
+        eps, cache, ctrl_cache = step(lat2, t2, context2, cache, ctrl_cache)
+        return model_out_to_eps(combine(eps[:b], eps[b:]), lat, t, cfg), (n + 1, cache,
+                                                                          ctrl_cache)
+
+    return model_fn
+
+
+def _deepcache_cached_cfg_fn(*, unet_model, context, uncond_context, combine, cfg, dk, uk,
+                             split, ctrl_for, freeu, b):
+    """DeepCache on the cond branch (batch B) and cached CFG on the uncond
+    branch, as the JAX package's _sample_deepcache_cached_cfg: the cond
+    branch runs a full pass every ``dk``-th network call and the shallow
+    pass between; the uncond branch runs the whole UNet, with fresh
+    ControlNet residuals, every ``uk``-th call and is reused between. The
+    aux state is (calls so far, last uncond output, cache, cached
+    residuals)."""
+    full, shallow = _deepcache_passes(unet_model, split, ctrl_for, freeu)
+
+    def model_fn(lat, t, aux):
+        n, o_u, cache, ctrl_cache = aux
+        tb = t.float().expand(b)
+        step = full if n % dk == 0 else shallow
+        o_c, cache, ctrl_cache = step(lat, tb, context, cache, ctrl_cache)
+        if n % uk == 0:
+            ctrl = None if ctrl_for is None else ctrl_for(lat, tb, uncond_context)
+            o_u = unet.apply(unet_model, lat, tb, uncond_context, control=ctrl, freeu=freeu)
+        return model_out_to_eps(combine(o_u, o_c), lat, t, cfg), (n + 1, o_u, cache,
+                                                                  ctrl_cache)
+
+    return model_fn
+
+
+def _contexts(model: StableDiffusion, input_ids, uncond_ids, prompt_weights=None):
+    ctx = encode_text(model, input_ids)
+    uctx = None if uncond_ids is None else encode_text(model, uncond_ids)
+    if prompt_weights is not None:
+        ctx = apply_prompt_weights(ctx, prompt_weights)
+    return ctx, uctx
 
 
 @torch.inference_mode()
@@ -232,23 +347,156 @@ def generate(model: StableDiffusion, input_ids: torch.Tensor,
              uncond_ids: Optional[torch.Tensor], latent: torch.Tensor, guidance, *,
              num_steps: int = 20, method: str = "ddim", schedule: str = "ladder",
              generator: Optional[torch.Generator] = None, uncond_interval: int = 1,
-             cfg_rescale: float = 0.0,
-             prompt_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+             deepcache_interval: int = 1, deepcache_split: int = 3,
+             cfg_rescale: float = 0.0, freeu=None,
+             prompt_weights: Optional[torch.Tensor] = None, control=None) -> torch.Tensor:
     """Tokens + initial noise -> uint8 images (B, H, W, 3).
 
     uncond_ids=None samples without guidance. prompt_weights (B, T) weighs
     the prompt's tokens (tokenizer/prompt_weights.py). The ancestral
-    samplers draw their noise from ``generator``."""
-    cfg = model.cfg
-    ctx = encode_text(model, input_ids)
-    uctx = None if uncond_ids is None else encode_text(model, uncond_ids)
-    if prompt_weights is not None:
-        ctx = apply_prompt_weights(ctx, prompt_weights)
+    samplers draw their noise from ``generator``. deepcache_interval,
+    deepcache_split, freeu and control (controlnet, hint, scale): see
+    sample_latents."""
+    ctx, uctx = _contexts(model, input_ids, uncond_ids, prompt_weights)
     lat = sample_latents(model.unet, latent, ctx, uctx, num_steps=num_steps,
-                         guidance=guidance, cfg=cfg, method=method, schedule=schedule,
+                         guidance=guidance, cfg=model.cfg, method=method, schedule=schedule,
                          generator=generator, uncond_interval=uncond_interval,
-                         cfg_rescale=cfg_rescale)
+                         deepcache_interval=deepcache_interval,
+                         deepcache_split=deepcache_split, cfg_rescale=cfg_rescale,
+                         control=control, freeu=freeu)
     return vae.to_image(vae.decode(model.vae, lat))
+
+
+def noise_to_rung(z0: torch.Tensor, noise: torch.Tensor, sigma) -> torch.Tensor:
+    """A clean latent z0 noised to the ladder rung of noise level ``sigma``,
+    in DDPM space, as samplers.sample takes a tail start (start_index > 0):
+    x_t = sqrt(a) z0 + sqrt(1-a) n = (z0 + sigma n) / sqrt(1 + sigma^2),
+    fp32, in z0's dtype."""
+    x = z0.float() + sigma * noise.float()
+    return (x / torch.sqrt(1.0 + sigma ** 2)).to(z0.dtype)
+
+
+def hires_tail_start(steps: int, strength: float) -> int:
+    """The rung the hires tail starts at: ``steps`` less the rungs run,
+    round(steps * strength) clipped to [1, steps], with Python's round, as
+    the JAX package does (its documentation says ceil; ADVICE.md)."""
+    return steps - max(1, min(steps, int(round(steps * strength))))
+
+
+@torch.inference_mode()
+def generate_hires(model: StableDiffusion, input_ids: torch.Tensor,
+                   uncond_ids: Optional[torch.Tensor], latent: torch.Tensor,
+                   generator: torch.Generator, guidance, *, num_steps: int = 20,
+                   method: str = "ddim", schedule: str = "ladder", hires_scale: int = 2,
+                   hires_steps: int = 0, hires_strength: float = 0.6,
+                   uncond_interval: int = 1, cfg_rescale: float = 0.0,
+                   freeu=None) -> torch.Tensor:
+    """Hires fix: sample at the config's resolution, upscale the latent
+    bilinearly by ``hires_scale`` (fp32), noise it to a rung of a
+    ``hires_steps`` ladder (0: num_steps), and sample the tail from there
+    at the high resolution; uint8 images at hires_scale times the size.
+
+    hires_strength is the share of that ladder run from the noise
+    (hires_tail_start). ``generator`` draws, in order: the base pass's
+    ancestral noise, the re-noising, the tail's ancestral noise (the JAX
+    package splits one key three ways)."""
+    cfg = model.cfg
+    ctx, uctx = _contexts(model, input_ids, uncond_ids)
+    common = dict(guidance=guidance, cfg=cfg, method=method, schedule=schedule,
+                  generator=generator, uncond_interval=uncond_interval,
+                  cfg_rescale=cfg_rescale, freeu=freeu)
+    lat = sample_latents(model.unet, latent, ctx, uctx, num_steps=num_steps, **common)
+    b, h, w, _ = lat.shape
+    hi = torch.nn.functional.interpolate(
+        lat.float().permute(0, 3, 1, 2), size=(h * hires_scale, w * hires_scale),
+        mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    hs = hires_steps or num_steps
+    start = hires_tail_start(hs, hires_strength)
+    _, sigmas = samplers.sigma_ladder(hs, "ladder" if method == "ddim" else schedule,
+                                      device=lat.device)
+    noise = samplers._normal(generator, hi)
+    x_t = noise_to_rung(hi.to(lat.dtype), noise, sigmas[start])
+    lat_hi = sample_latents(model.unet, x_t, ctx, uctx, num_steps=hs, start_index=start,
+                            **common)
+    return vae.to_image(vae.decode(model.vae, lat_hi))
+
+
+def _unit_image(image: torch.Tensor) -> torch.Tensor:
+    """uint8 or float [0, 1] images -> fp32 in [0, 1]."""
+    if image.dtype == torch.uint8:
+        return image.float() / 255.0
+    return image.float()
+
+
+def _param_dtype(module: nn.Module) -> torch.dtype:
+    return next(module.parameters()).dtype
+
+
+@torch.inference_mode()
+def img2img(model: StableDiffusion, image: torch.Tensor, input_ids: torch.Tensor,
+            uncond_ids: torch.Tensor, generator: torch.Generator, guidance, *,
+            num_steps: int = 20, start_step: int = 15) -> torch.Tensor:
+    """Image to image: VAE-encode ``image`` (B, H, W, 3), uint8 or float in
+    [0, 1]; noise the latent to the DDIM ladder's timestep start_step - 1
+    (its alpha; the noise from ``generator``, in the latent's dtype); run
+    the last start_step steps of the num_steps ladder with CFG; decode.
+    start_step / num_steps is the usual "strength"."""
+    cfg = model.cfg
+    dtype = _param_dtype(model.unet)
+    z0 = vae.encode(model.vae, (_unit_image(image) * 2.0 - 1.0).to(dtype))
+    ctx, uctx = _contexts(model, input_ids, uncond_ids)
+    k = min(start_step, num_steps)
+    alphas, _ = ddim.ddim_alphas(num_steps, device=z0.device)
+    a0 = alphas[k - 1]
+    noise = samplers._normal(generator, z0).to(z0.dtype)
+    lat = (torch.sqrt(a0) * z0.float() + torch.sqrt(1.0 - a0) * noise.float()).to(dtype)
+    lat = sample_latents(model.unet, lat, ctx, uctx, num_steps=num_steps, guidance=guidance,
+                         cfg=cfg, start_index=num_steps - k)
+    return vae.to_image(vae.decode(model.vae, lat))
+
+
+def latent_mask(mask: torch.Tensor, f: int) -> torch.Tensor:
+    """A (B, H, W, 1) mask on the latent grid (B, H/f, W/f, 1), fp32: the
+    pixel nearest each latent cell's centre (pixels f/2, 3f/2, ...), as
+    jax.image.resize's "nearest" picks it; torch's "nearest" would take
+    each block's first pixel."""
+    return torch.nn.functional.interpolate(
+        mask.float().permute(0, 3, 1, 2), size=(mask.shape[1] // f, mask.shape[2] // f),
+        mode="nearest-exact").permute(0, 2, 3, 1)
+
+
+@torch.inference_mode()
+def inpaint(model: StableDiffusion, image: torch.Tensor, mask: torch.Tensor,
+            input_ids: torch.Tensor, uncond_ids: torch.Tensor, latent: torch.Tensor,
+            guidance, *, num_steps: int = 20) -> torch.Tensor:
+    """Inpainting with a 9-channel UNet (unet.SD15_INPAINT_CONFIG): every
+    step's input is [x_t (4) ‖ mask (1) ‖ VAE(masked image) (4)], DDIM with
+    CFG from the initial noise ``latent``.
+
+    image (B, H, W, 3), uint8 or float in [0, 1]; mask (B, H, W, 1), 1 =
+    repaint, reaching the latent grid through ``latent_mask``. Where mask
+    <= 0.5 the source image is pasted back."""
+    cfg = model.cfg
+    dtype = _param_dtype(model.unet)
+    image = _unit_image(image)
+    masked = image * (1.0 - mask.float())
+    z_masked = vae.encode(model.vae, (masked * 2.0 - 1.0).to(dtype))
+    mask_small = latent_mask(mask, cfg.vae.downsample_factor).to(dtype)
+    ctx, uctx = _contexts(model, input_ids, uncond_ids)
+    context2 = torch.cat([uctx, ctx], dim=0)
+    g = torch.as_tensor(guidance, dtype=torch.float32, device=latent.device)
+    b = latent.shape[0]
+
+    def model_fn(lat, t):
+        nine = torch.cat([lat, mask_small, z_masked], dim=-1)
+        out = unet.apply(model.unet, torch.cat([nine, nine], dim=0), t.expand(2 * b),
+                         context2)
+        return model_out_to_eps(ddim.cfg_combine(out[:b], out[b:], g), lat, t, cfg)
+
+    lat = samplers.sample(model_fn, latent, num_steps, method="ddim")
+    out = vae.to_image(vae.decode(model.vae, lat))
+    src = (image.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    return torch.where(mask <= 0.5, src, out)
 
 
 def initial_latent(seed: int, batch: int, cfg: SDConfig = SD15, *,
