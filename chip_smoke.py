@@ -6,9 +6,10 @@ Drives tinyfusers_tpu_torch's SD1.5 text-to-image path on the card, dense
 and with a weight-only int8, fp8 or int4 UNet, its SD3-medium path
 (MMDiT, rectified flow), without and with T5-XXL, with seeded random
 weights made on the card, its SD2.1-v path from a checkpoint file
-through the port's CLI, and SD1.5 with a ControlNet from a checkpoint
-file, DeepCache, FreeU, the hires fix, img2img and inpainting, and holds
-every hand-written CUDA kernel of those paths against its plain PyTorch
+through the port's CLI, SD1.5 with a ControlNet from a checkpoint
+file, DeepCache, FreeU, the hires fix, img2img and inpainting, and
+SDXL-base from a checkpoint file through the CLI, and holds every
+hand-written CUDA kernel of those paths against its plain PyTorch
 version. Imports neither jax nor
 tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
 and the ``final`` layer) are zeros under the JAX init, which would keep
@@ -38,11 +39,16 @@ Phases, one or more lines each:
    the flash_packed wrapper's host microseconds per call at SD1.5's 64x64
    self-attention shape; in bf16 also flash_packed at the hires fix's
    three 1024x1024 levels (8 heads of 40, 80 and 160) and SD1.5's shapes at
-   batch 1, geglu at the hires levels and at batch 1 (their plain
-   attention, where its fp32 logits would pass 4 Gi elements, over chunks
-   of query rows with all keys each, timed by events); a [gelu] line
-   counting the bf16 values where ops.gelu_erf on the card differs from
-   the CPU;
+   batch 1 and SDXL-base's four shapes (10 heads of 64 over 4096 tokens,
+   20 over 1024), geglu at the hires levels (SDXL's two shapes among them)
+   and at batch 1 (their plain attention, where its fp32 logits would
+   pass 4 Gi elements, over chunks of query rows with all keys each, timed
+   by events); a [gelu] line counting the bf16 values where ops.gelu_erf
+   on the card differs from the CPU, and [repair] lines doing the same for
+   the functions repaired to JAX's bf16 arithmetic (sigmoid, silu,
+   quick_gelu, gelu_tanh, the VAE's scale_latent / unscale_latent at
+   SD1.x's, SDXL's and SD3's constants, ControlNet's scaled at 0.9 and
+   1.0), each of which fails the run unless 0 of 65,280 values differ;
    for the quant matmuls in bf16 also the error of a planted rounding
    deviation (int8 / fp8: the scale folded into the bf16 weight; int4:
    two, the weight not rounded to bf16 before the product and the scale
@@ -146,10 +152,22 @@ Phases, one or more lines each:
    kept half equal to the source bit for bit) at 512x512;
    each image phase prints s/image, held and peak memory, the launches by
    wrapper, by shape and by variant (every shape measured in phase 3);
+4x. unet-sdxl: the full-width SDXL UNet (ADM 2816, context 2048) in fp32
+   with a random ADM vector at a 64x64 latent, batch 1, on the card
+   against the CPU (20 flash_packed at its 32x32 level, 70 geglu);
+5x. SDXL-base: [ckpt-sdxl] the model seeded on the card in bf16, written
+   by ``io/checkpoints.save_sdxl_checkpoint`` (about 7 GB) to a temporary
+   directory after checking its free space, read back through the CLI's
+   ``build()`` with ``--preset sdxl --ckpt`` bit for bit; [main-sdxl] a
+   warm-up and two 1024x1024 20-step DDIM CFG 7.5 images, the first with
+   its counts checked exactly (2,800 flash_packed: 200 / 200 / 1,200 /
+   1,200 at the four SDXL shapes; 1,400 geglu: 200 / 1,200; 1 flash_bhsd
+   at (1, 16384, 16384, 512));
+6x. profile: one more SDXL image under ``torch.profiler``, as phase 6;
 7. the ``kernels`` JSON line: per kernel the main paths' launches (for
    the quant matmuls, those of the quantized images; flash_packed's SD3
    calls, the counterpart of the TPU's multi-k kernel, as their own
-   entry), and per shape the launches counted there beside the per-call
+   entry; the SDXL image's under the path "sdxl"), and per shape the launches counted there beside the per-call
    times of phase 3; the per-image times are those counts times those
    per-call times. Then nvidia-smi's line again, then the last line
    ``{"ok": true, ...}``.
@@ -169,6 +187,7 @@ import dataclasses
 import functools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -195,6 +214,11 @@ SD21_ARGV = ["--preset", "sd21-v", "--fallback-tokenizer", "--sampler", "dpmpp_2
              "--schedule", "karras", "--cfg-rescale", "0.7", "--steps", str(STEPS),
              "--guidance", str(GUIDANCE), "--seed", "4",
              "--prompt", "a photograph of an astronaut riding a horse"]
+# SDXL-base through the CLI, from the checkpoint phase 5x writes: the CLI's
+# defaults (20 DDIM steps, CFG 7.5), both towers' ids padded with EOT.
+SDXL_ARGV = ["--preset", "sdxl", "--fallback-tokenizer", "--steps", str(STEPS),
+             "--guidance", str(GUIDANCE), "--seed", "44",
+             "--prompt", "a lighthouse on a cliff at dawn, watercolor"]
 # SD1.5 through the CLI (seeded random weights), for the ControlNet,
 # DeepCache, FreeU and hires-fix images.
 SD15_ARGV = ["--preset", "sd15", "--fallback-tokenizer", "--steps", str(STEPS),
@@ -234,6 +258,13 @@ B1_PACKED_SHAPES = [("B=1 64x64 self", (1, 4096, 4096, 320, 8, 4096)),
                     ("B=1 64x64 cross", (1, 4096, 77, 320, 8, 77)),
                     ("B=1 32x32 self", (1, 1024, 1024, 640, 8, 1024)),
                     ("B=1 32x32 cross", (1, 1024, 77, 640, 8, 77))]
+# ... and SDXL-base's at 1024x1024 (128x128 latents; its 128x128 level has
+# no attention): 64-wide heads, 10 over the 64x64 level's 4096 tokens and
+# 20 over the 32x32 level's 1024.
+XL_PACKED_SHAPES = [("SDXL 64x64 self", (2, 4096, 4096, 640, 10, 4096)),
+                    ("SDXL 64x64 cross", (2, 4096, 77, 640, 10, 77)),
+                    ("SDXL 32x32 self", (2, 1024, 1024, 1280, 20, 1024)),
+                    ("SDXL 32x32 cross", (2, 1024, 77, 1280, 20, 77))]
 # The plain attention's fp32 logits of one call: above this many elements
 # (4 GiB) it runs over query-row chunks of half as many, all keys each
 # (rows are independent: the same function, all rows held).
@@ -266,7 +297,8 @@ SD21_GEGLU_SHAPES = [("SD2.1 96x96", (18432, 1280, 320), 100),
                      ("SD2.1 48x48", (4608, 2560, 640), 100),
                      ("SD2.1 24x24", (1152, 5120, 1280), 100),
                      ("SD2.1 12x12 mid", (288, 5120, 1280), 20)]
-# ... and the hires tail's (the 16x16 mid block's is SD1.5's 16x16 shape) ...
+# ... and the hires tail's (the 16x16 mid block's is SD1.5's 16x16 shape; the
+# last two are also SDXL-base's two, 200 and 1,200 launches an image) ...
 HIRES_GEGLU_SHAPES = [("hires 128x128", (32768, 1280, 320), 60),
                       ("hires 64x64", (8192, 2560, 640), 60),
                       ("hires 32x32", (2048, 5120, 1280), 60)]
@@ -516,9 +548,10 @@ def main() -> None:
     from tinyfusers_tpu_torch.models import vae as vae_mod
     from tinyfusers_tpu_torch.models import controlnet as cn_mod
     from tinyfusers_tpu_torch.models.layers import Linear, ZeroConv, ZeroLinear, init_weights
+    from tinyfusers_tpu_torch import ops
     from tinyfusers_tpu_torch.ops import gelu_erf
     from tinyfusers_tpu_torch.ops.quant import Int4Tensor, is_quantized, quantize, quantize_int4
-    from tinyfusers_tpu_torch.pipeline import sd, sd3
+    from tinyfusers_tpu_torch.pipeline import sd, sd3, sdxl
 
     wrappers = {"flash_packed": flash_packed, "flash_bhsd": flash_bhsd,
                 "geglu": geglu_matmul, "quant_matmul": quant_matmul,
@@ -729,9 +762,10 @@ def main() -> None:
         isz = torch.tensor([], dtype=dt).element_size()
         packed_rows = ([("flash_packed", *row) for row in PACKED_SHAPES + SD21_PACKED_SHAPES]
                        + [("flash_packed_multik", *row) for row in MULTIK_SHAPES])
-        if dt == torch.bfloat16:  # the hires fix's and the batch-1 branches' (bf16 paths)
+        if dt == torch.bfloat16:  # the hires fix's, the batch-1 branches', SDXL's (bf16 paths)
             packed_rows += [("flash_packed", *row)
-                            for row in HIRES_PACKED_SHAPES + B1_PACKED_SHAPES]
+                            for row in HIRES_PACKED_SHAPES + B1_PACKED_SHAPES
+                            + XL_PACKED_SHAPES]
         for entry, label, (b, sq, sk, c, h, kvl) in packed_rows:
             q, k, v = randn(b, sq, c, dtype=dt), randn(b, sk, c, dtype=dt), randn(b, sk, c, dtype=dt)
             reset_counts()
@@ -900,6 +934,26 @@ def main() -> None:
         f"bf16 values: {int(gelu_diff.sum())} differ; at x = "
         f"{xs[gelu_diff][:16].float().tolist()} (card {gelu_card[gelu_diff][:16].tolist()}, "
         f"CPU {gelu_cpu[gelu_diff][:16].tolist()})")
+    # the functions repaired to JAX's bf16 arithmetic (plain torch, no kernel
+    # of the port), over every finite bf16 value: the card must give the
+    # CPU's bits, which the CPU tests hold to jax.jit of the JAX package
+    xl_vae = sdxl.SDXL_BASE.vae
+    repaired = {"sigmoid": ops.sigmoid, "silu": ops.silu, "quick_gelu": ops.quick_gelu,
+                "gelu_tanh": ops.gelu_tanh}
+    for tag, vcfg in (("SD1.x", sd.SD15.vae), ("SDXL", xl_vae), ("SD3", sd3.SD3_MEDIUM_CFG.vae)):
+        repaired[f"vae.unscale_latent {tag} {vcfg.scale_factor}/{vcfg.shift_factor}"] = (
+            functools.partial(vae_mod.unscale_latent, cfg=vcfg))
+        repaired[f"vae.scale_latent {tag} {vcfg.scale_factor}/{vcfg.shift_factor}"] = (
+            functools.partial(vae_mod.scale_latent, cfg=vcfg))
+    for scale in (0.9, 1.0):
+        repaired[f"controlnet.scaled {scale}"] = functools.partial(cn_mod.scaled, scale=scale)
+    for fname, fn in repaired.items():
+        card_v, cpu_v = fn(xs.to(dev)).cpu(), fn(xs)
+        bad = ~((card_v == cpu_v) | (torch.isnan(card_v) & torch.isnan(cpu_v)))
+        say(f"[repair] {fname} bf16 on the card against the CPU over all {xs.numel()} finite "
+            f"bf16 values: {int(bad.sum())} differ; at x = {xs[bad][:8].float().tolist()}")
+        if bad.any():
+            fail(f"{fname}: the card's bf16 values differ from the CPU's at {int(bad.sum())}")
     # each format per image (launches x ms) against its library call, dense
     # cuBLAS and its bound, over all 19 shapes and over the M <= 154 ones
     # (where the weight's bytes, not x's, dominate)
@@ -1435,13 +1489,13 @@ def main() -> None:
                 "flash_bhsd": {"wgmma_wide": sum(bhsd.values())} if bhsd else {},
                 "geglu": {"wgmma": sum(geglu.values())} if geglu else {}}
 
-    def images(tag, run, n_images, want, img_shape, what):
+    def images(tag, run, n_images, want, img_shape, what, path=None):
         """n_images images of run(), the first with its launches counted and
         checked exactly against want = (flash_packed, flash_bhsd, geglu
         launches by call shape), by variant, and every shape measured in
         phase 3; s/image by the host clock after synchronize, held and peak
-        device memory. Keeps the counts for the kernels line; returns the
-        last image."""
+        device memory. Keeps the counts for the kernels line under ``path``
+        (by default the SD1.5 path of the tag); returns the last image."""
         held_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         secs = []
@@ -1476,7 +1530,7 @@ def main() -> None:
         say(f"[{tag}] {what} bf16 batch 1: s/image {[round(x, 4) for x in secs]} mean "
             f"{sum(secs) / len(secs):.4f}; peak device memory {peak_gb:.2f} GB ({held_gb:.2f} "
             f"GB held before the images); card {card}")
-        extra_paths[tag] = (counts, counted)
+        extra_paths[path or tag.replace("main-", "sd15_").replace("-", "_")] = (counts, counted)
         return img
 
     def finite_latents(tag, lat, shape):
@@ -1671,6 +1725,103 @@ def main() -> None:
 
     stamp("5i (img2img, inpainting)")
 
+    # 4x. the SDXL UNet: full width, fp32, with a random ADM vector, card vs
+    # CPU; a 64x64 latent at batch 1, so that its 32x32 level (1024 tokens,
+    # 10 heads of 64) takes flash_packed and its 16x16 level the math route
+    ucfg_xl = sdxl.SDXL_BASE.unet
+    uxl_gpu = unet_mod.UNet(ucfg_xl, device=dev, dtype=torch.float32)
+    init_weights(uxl_gpu, seed=41)
+    uxl_cpu = unet_mod.UNet(ucfg_xl, device="cpu", dtype=torch.float32)
+    uxl_cpu.load_state_dict(uxl_gpu.state_dict())
+    g_cpu = torch.Generator().manual_seed(42)
+    x = torch.randn((1, 64, 64, 4), generator=g_cpu)
+    ctx = torch.randn((1, 77, ucfg_xl.context_dim), generator=g_cpu)
+    adm = torch.randn((1, ucfg_xl.adm_in_channels), generator=g_cpu)
+    t = torch.full((1,), 901.0)
+    reset_counts()
+    with torch.inference_mode():
+        got = unet_mod.apply(uxl_gpu, x.to(dev), t.to(dev), ctx.to(dev), adm_cond=adm.to(dev))
+        torch.cuda.synchronize()
+        counts = {kn: w.launches for kn, w in wrappers.items()}
+        xl_counted = {kn: dict(wrappers[kn].shapes) for kn in ("flash_packed", "geglu")}
+        t0 = time.perf_counter()
+        want = unet_mod.apply(uxl_cpu, x, t, ctx, adm_cond=adm)
+        cpu_s = time.perf_counter() - t0
+    err = rel_err(got.cpu(), want)
+    f_xl, g_xl = unet_launches(ucfg_xl, 64, 1)
+    expect = dict.fromkeys(wrappers, 0)
+    expect.update(flash_packed=sum(f_xl.values()), geglu=sum(g_xl.values()))
+    say(f"[unet-sdxl] SDXL UNet (ADM 2816, context 2048, 64-wide heads) fp32 512x512 "
+        f"(1,64,64,4): card vs CPU max_abs={err[0]:.3e} rel={err[1]:.3e} (tol "
+        f"{unet_tol:.0e}); kernel launches on the card: {counts} (want {expect}), shapes "
+        f"{xl_counted}; CPU forward {cpu_s:.1f} s")
+    if not (err[1] <= unet_tol and counts == expect
+            and xl_counted == {"flash_packed": f_xl, "geglu": g_xl}):
+        fail(f"SDXL UNet forward on the card disagrees with the CPU or its launches are not "
+             f"{expect} at {f_xl}, {g_xl}")
+    del uxl_gpu, uxl_cpu, got, want
+    torch.cuda.empty_cache()
+
+    stamp("4x (SDXL UNet, card vs CPU)")
+
+    # 5x. SDXL-base at 1024x1024 from a checkpoint through the CLI ---------------
+    xl_cfg = sdxl.SDXL_BASE
+    xl_pass = unet_launches(xl_cfg.unet, 128, 2)  # one UNet call at 1024x1024, CFG 2
+    want_xl = launches_of((STEPS, xl_pass))
+    # the counts of one image, as they are known for SDXL-base: 70 transformer
+    # blocks a call (10 at 64x64, 60 at 32x32), 20 calls
+    if ({key: want_xl[0].get(key) for _, key in XL_PACKED_SHAPES}
+            != dict(zip((key for _, key in XL_PACKED_SHAPES), (200, 200, 1200, 1200)))
+            or want_xl[1] != {(8192, 2560, 640): 200, (2048, 5120, 1280): 1200}):
+        fail(f"SDXL launches from build_plan {want_xl} are not SDXL-base's")
+    with tempfile.TemporaryDirectory() as tmp:
+        xl_path = Path(tmp) / "sdxl_base.safetensors"
+        t0 = time.perf_counter()
+        seeded = sdxl.StableDiffusionXL(xl_cfg, device=dev, dtype=dtype, seed=43)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        need = sum(p.numel() * p.element_size() for p in seeded.parameters())
+        free = shutil.disk_usage(tmp).free
+        say(f"[ckpt-sdxl] SDXL-base seeded on the card in {init_s:.2f} s: "
+            f"{sum(p.numel() for p in seeded.parameters()) / 1e9:.3f} G parameters, "
+            f"{need / 1e9:.3f} GB in bf16; {free / 1e9:.1f} GB free in {tmp}")
+        if free < need * 1.2:
+            fail(f"{tmp} has {free / 1e9:.1f} GB free, the SDXL file needs {need / 1e9:.1f}")
+        t0 = time.perf_counter()
+        checkpoints.save_sdxl_checkpoint(seeded, xl_path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        job = txt2img_torch.build(txt2img_torch.parse_args(
+            SDXL_ARGV + ["--ckpt", str(xl_path)]))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        mine, theirs = dict(seeded.named_parameters()), dict(job.model.named_parameters())
+        differ = [n for n, v in mine.items() if not torch.equal(theirs[n], v)]
+        say(f"[ckpt-sdxl] SDXL-base checkpoint, bf16 safetensors: "
+            f"{xl_path.stat().st_size / 1e9:.3f} GB, {len(mine)} tensors; "
+            f"save_sdxl_checkpoint {save_s:.2f} s, the CLI's build() with --ckpt (load_sdxl_params "
+            f"and the tokenizer) {load_s:.2f} s; parameters that differ from the seeded "
+            f"model: {len(differ)}")
+        if mine.keys() != theirs.keys() or differ:
+            fail(f"the SDXL checkpoint did not read back bit for bit: {differ[:8]}")
+        del seeded, mine, theirs
+        torch.cuda.empty_cache()
+    # the checkpoint is gone here
+    finite_latents("main-sdxl", job.latents(), (1, 128, 128, 4))
+    warm_xl = job.image()
+    torch.cuda.synchronize()
+    images("main-sdxl", job.image, 2, (want_xl[0], vae_1024, want_xl[1]), (1, 1024, 1024, 3),
+           f"SDXL-base 1024x1024 {STEPS}-step DDIM CFG {GUIDANCE}, from the checkpoint through "
+           f"examples/txt2img_torch.py --preset sdxl --ckpt,", path="sdxl")
+
+    # 6x. profile: one more SDXL image -------------------------------------------
+    prof = profile(job.image)
+    say(f"[profile] one SDXL-base 1024x1024 image under torch.profiler: {json.dumps(prof)}")
+    del job, warm_xl
+    torch.cuda.empty_cache()
+
+    stamp("5x, 6x (SDXL)")
+
     # 7. the kernels line and the contract line ---------------------------
     sources = {"flash_packed": ("tinyfusers_tpu_torch/csrc/flash_attention.cu",
                                 "tinyfusers_tpu/kernels/flash_attention.py:117"),
@@ -1710,14 +1861,13 @@ def main() -> None:
                              "the int8 image's and the fp8 image's launches at bf16", "quant")
     paths["quant_matmul_int4"] = ({"sd15_int4": q_launches["int4"]}, q_shapes["int4"],
                                   "the int4 image's launches at bf16", "quant")
-    for kn in ("flash_packed", "flash_bhsd", "geglu"):  # and phases 5n-5i's images
+    for kn in ("flash_packed", "flash_bhsd", "geglu"):  # and phases 5n-5i's and 5x's images
         by_path, counted, per_what, family = paths[kn]
-        by_path.update({tag.replace("main-", "sd15_").replace("-", "_"): c[kn]
-                        for tag, (c, _) in extra_paths.items()})
+        by_path.update({name: c[kn] for name, (c, _) in extra_paths.items()})
         paths[kn] = (by_path, summed(counted, *(sh[kn] for _, sh in extra_paths.values())),
-                     per_what + ", and one image of each SD1.5 path of phases 5n-5i (ControlNet, "
+                     per_what + ", one image of each SD1.5 path of phases 5n-5i (ControlNet, "
                      "DeepCache, DeepCache with cached CFG, FreeU, hires fix, img2img, "
-                     "inpainting)", family)
+                     "inpainting) and one SDXL-base image", family)
     kernels = []
     for kname, by_key in report.items():
         by_path, counted, per_what, family = paths[kname]

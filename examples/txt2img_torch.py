@@ -5,13 +5,16 @@ counterpart of examples/txt2img.py.
         --steps 4 --out /tmp/t.png
     python examples/txt2img_torch.py --preset sd21-v --ckpt sd21v.safetensors \\
         --sampler dpmpp_2m --schedule karras --cfg-rescale 0.7 --timing
+    python examples/txt2img_torch.py --preset tinyxl --cpu --dtype float32 \\
+        --steps 4 --out /tmp/xl.png
 
 Tokenize (CLIP BPE with "(word:1.2)" emphasis) -> CLIP on the prompt and
 the negative prompt -> the sampler loop over the UNet -> VAE decode ->
 PNG (or .npy without PIL). It runs on the GPU unless --cpu is given, and
-raises without one. Weights: --ckpt loads an SD1.x / SD2.x checkpoint
-(.safetensors or torch-zip .ckpt); without it, seeded random weights are
-made on the device (their images are noise). Options, as the JAX CLI's:
+raises without one. Weights: --ckpt loads an SD1.x / SD2.x checkpoint,
+or an SDXL one with --preset sdxl / tinyxl (.safetensors or torch-zip
+.ckpt); without it, seeded random weights are made on the device (their
+images are noise). Options, as the JAX CLI's:
 ControlNet (--control-ckpt, --control-image, --control-scale), DeepCache
 (--deepcache-interval, --deepcache-split), FreeU (--freeu), textual
 inversion (--ti WORD=PATH, repeatable) and the hires fix (--hires-scale,
@@ -37,8 +40,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 PRESETS = {"sd15": "SD15", "sd15-quarter": "SD15_QUARTER", "sd21-base": "SD21_BASE",
            "sd21-v": "SD21_V", "tiny": "TINY"}
+# the SDXL presets: configs of pipeline/sdxl.py
+XL_PRESETS = {"sdxl": "SDXL_BASE", "tinyxl": "TINY_XL"}
 
 
+XL_REFUSED = ("--ti/--control-ckpt/--no-cfg are SD1.x/2.x-pipeline features; "
+              "not wired into the SDXL CLI path yet")
 HIRES_REFUSED = ("--hires-scale composes with samplers/schedules/cached CFG; "
                  "control/prompt-weights/DeepCache are not wired into the hires path yet")
 
@@ -53,13 +60,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--guidance", type=float, default=7.5)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--out", default="rendered.png")
-    p.add_argument("--ckpt", default=None, help="SD1.x / SD2.x .safetensors or .ckpt")
+    p.add_argument("--ckpt", default=None, help="SD1.x / SD2.x / SDXL .safetensors or .ckpt")
     p.add_argument("--fallback-tokenizer", action="store_true",
                    help="allow the byte-level tokenizer even with --ckpt (only for "
                         "synthetic weights: its ids are not CLIP's)")
-    p.add_argument("--preset", choices=list(PRESETS), default="sd15",
-                   help="tiny = toy config for smoke tests; sd15-quarter = SD1.5 at a "
-                        "quarter of its channels")
+    p.add_argument("--preset", choices=[*PRESETS, *XL_PRESETS], default="sd15",
+                   help="tiny / tinyxl = toy configs for smoke tests; sd15-quarter = SD1.5 "
+                        "at a quarter of its channels")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
     p.add_argument("--cpu", action="store_true", help="run on the CPU (default: the GPU)")
     p.add_argument("--quant", choices=["none", "int8", "fp8", "int4"], default="none",
@@ -99,16 +106,23 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
-    """The arguments, with --freeu as a tuple of 4 floats (or None); the
-    JAX CLI's refusals of a malformed --freeu and of hires with ControlNet
-    or DeepCache exit here (hires with prompt weights in ``build``)."""
+    """The arguments, with --freeu as a tuple of 4 floats (or None). The
+    JAX CLI's refusals exit here, in its order: --ti, --control-ckpt and
+    --no-cfg on the SDXL presets, a malformed --freeu, then (SD1.x / SD2.x
+    only) hires with ControlNet or DeepCache (hires with prompt weights in
+    ``build``). As in the JAX CLI, the SDXL presets ignore the hires,
+    DeepCache and --control-image flags and read no prompt weights."""
     p = _parser()
     args = p.parse_args(argv)
+    args.xl = args.preset in XL_PRESETS
+    if args.xl and (args.ti or args.control_ckpt or args.no_cfg):
+        raise SystemExit(XL_REFUSED)
     args.freeu = (tuple(float(v) for v in args.freeu.split(","))
                   if args.freeu else None)
     if args.freeu is not None and len(args.freeu) != 4:
         p.error("--freeu needs exactly 4 comma-separated floats")
-    if args.hires_scale > 1 and (args.control_ckpt or args.deepcache_interval > 1):
+    if (not args.xl and args.hires_scale > 1
+            and (args.control_ckpt or args.deepcache_interval > 1)):
         p.error(HIRES_REFUSED)
     return args
 
@@ -176,44 +190,103 @@ class Job:
                                      **self._sampling(), **self._extras())
 
 
-def build(args: argparse.Namespace) -> Job:
-    """Load the weights and tokenize: everything before the first image."""
+@dataclass
+class XLJob:
+    """A loaded StableDiffusionXL and its inputs: both towers' ids of the
+    prompt and of the negative prompt; ``image()`` makes the images as
+    ``sdxl.generate`` does, ``latents()`` the sampled latents alone."""
+    model: object
+    ids_l: object
+    ids_g: object
+    uids_l: object
+    uids_g: object
+    latent: object
+    args: argparse.Namespace
+
+    _generator = Job._generator
+    _sampling = Job._sampling
+
+    def image(self):
+        from tinyfusers_tpu_torch.pipeline import sdxl
+
+        return sdxl.generate(self.model, self.ids_l, self.ids_g, self.uids_l, self.uids_g,
+                             self.latent, self.args.guidance, **self._sampling())
+
+    def latents(self):
+        import torch
+
+        from tinyfusers_tpu_torch.pipeline import sdxl
+
+        with torch.inference_mode():
+            dt = self.latent.dtype
+            cond = sdxl.conditioning(self.model, self.ids_l, self.ids_g, dt)
+            uncond = sdxl.conditioning(self.model, self.uids_l, self.uids_g, dt)
+            return sdxl.sample_latents(self.model.unet, self.latent, cond, uncond,
+                                       self.args.guidance, **self._sampling())
+
+
+def _load(args, dev, dtype):
+    """The model of the preset: from --ckpt, or seeded random weights;
+    the UNet quantized under --quant (after loading, as the JAX CLI does)."""
     import torch
 
-    from tinyfusers_tpu_torch.device import resolve_device
-    from tinyfusers_tpu_torch.pipeline import sd
-    from tinyfusers_tpu_torch.tokenizer import bpe
-    from tinyfusers_tpu_torch.tokenizer import prompt_weights as pw
-
-    dev = resolve_device("cpu" if args.cpu else "cuda")
-    cfg = getattr(sd, PRESETS[args.preset])
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    from tinyfusers_tpu_torch.io import checkpoints
+    from tinyfusers_tpu_torch.pipeline import sd, sdxl
 
     t0 = time.monotonic()
+    pipe, name = (sdxl, XL_PRESETS[args.preset]) if args.xl else (sd, PRESETS[args.preset])
+    cfg = getattr(pipe, name)
     if args.ckpt:
-        from tinyfusers_tpu_torch.io import checkpoints
-
-        model = checkpoints.load_sd_params(args.ckpt, cfg, device=dev, dtype=dtype)
+        load = checkpoints.load_sdxl_params if args.xl else checkpoints.load_sd_params
+        model = load(args.ckpt, cfg, device=dev, dtype=dtype)
     else:
         print("no --ckpt given: seeded random weights (noise images)")
-        model = sd.StableDiffusion(cfg, device=dev, dtype=dtype, seed=0)
+        make = sdxl.StableDiffusionXL if args.xl else sd.StableDiffusion
+        model = make(cfg, device=dev, dtype=dtype, seed=0)
     if args.quant != "none":
         from tinyfusers_tpu_torch.io.quantize_tree import quantize_params
 
         qdtype = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "int4": "int4"}[args.quant]
         quantize_params(model.unet, qdtype)
     print(f"weights ready in {time.monotonic() - t0:.1f}s on {dev}")
+    return model
+
+
+def build(args: argparse.Namespace):
+    """Load the weights and tokenize: everything before the first image. A
+    Job, or an XLJob on the SDXL presets."""
+    import torch
+
+    from tinyfusers_tpu_torch.device import resolve_device
+    from tinyfusers_tpu_torch.pipeline import sd, sdxl
+    from tinyfusers_tpu_torch.tokenizer import bpe
+    from tinyfusers_tpu_torch.tokenizer import prompt_weights as pw
+
+    dev = resolve_device("cpu" if args.cpu else "cuda")
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = _load(args, dev, dtype)
+    cfg = model.cfg
 
     # with real weights the byte-level tokenizer would give garbage
     # conditioning: refused unless this is a random-weight run
     tok = bpe.ClipTokenizer.load_default(
         allow_fallback=args.ckpt is None or args.fallback_tokenizer)
-    # SD2.x conditions on OpenCLIP, which pads with 0, not EOT
+    # SD2.x conditions on OpenCLIP, which pads with 0, not EOT; the SDXL
+    # presets pad both towers with EOT, as the JAX CLI does
     pad = 0 if args.preset.startswith("sd21") else bpe.EOT
-    length = cfg.clip.max_length
 
     def batch(row, dt=torch.long):
         return torch.tensor([row] * args.batch, dtype=dt, device=dev)
+
+    if args.xl:
+        def ids(text, tower):
+            return batch(tok.encode(text, tower.max_length, pad_token=pad))
+
+        latent = sdxl.initial_latent(args.seed, args.batch, cfg, device=dev, dtype=dtype)
+        return XLJob(model, ids(args.prompt, cfg.clip_l), ids(args.prompt, cfg.clip_g),
+                     ids(args.negative_prompt, cfg.clip_l),
+                     ids(args.negative_prompt, cfg.clip_g), latent, args)
+    length = cfg.clip.max_length
 
     ti_ids = None
     if args.ti:

@@ -243,3 +243,100 @@ def test_cli_control_flags_load_the_controlnet(cli, ckpt, tmp_path, capsys):
     want = np.asarray(Image.fromarray(img).resize((128, 128), Image.LANCZOS), np.float32) / 255
     np.testing.assert_array_equal(job.control[1][0].numpy(), want)
     assert job.image().shape == (1, 32, 32, 3)
+
+
+# --- the SDXL presets ----------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def xl_ckpt(tmp_path_factory):
+    """A TINY_XL checkpoint in the JAX map's SDXL layout."""
+    from tinyfusers_tpu.io import safetensors_io as jst
+    from tinyfusers_tpu.io import state_map as jsm
+    from tinyfusers_tpu.pipeline import sdxl as jsdxl
+
+    params = jax.tree.map(lambda x: np.asarray(x, np.float32),
+                          random_tree(lambda k: jsdxl.init(k, jsdxl.TINY_XL), 2))
+    path = tmp_path_factory.mktemp("xl") / "tinyxl.safetensors"
+    jst.save_state_dict(jsm.sdxl_state_from_params(params, jsdxl.TINY_XL), path)
+    return path
+
+
+def _xl_argv(out, *more):
+    return ["--preset", "tinyxl", "--cpu", "--dtype", "float32", "--steps", "2",
+            "--out", str(out), *more]
+
+
+def test_cli_tinyxl_writes_an_image(cli, tmp_path):
+    out = tmp_path / "xl.png"
+    img = cli.main(_xl_argv(out, "--sampler", "euler_ancestral", "--quant", "int8"))
+    assert img.dtype == np.uint8 and img.shape == (64, 64, 3)
+    from PIL import Image
+
+    assert np.array_equal(np.asarray(Image.open(out)), img)
+
+
+def test_cli_tinyxl_builds_the_jax_clis_job(cli, xl_ckpt, tmp_path, monkeypatch):
+    """examples/txt2img.py and the port's CLI with the same SDXL arguments
+    (the hires and DeepCache flags accepted and unused by both): the JAX
+    CLI's call of sdxl.generate is recorded, and the port's job holds the
+    checkpoint's weights, the same ids (both towers padded with EOT), the
+    same options and the ancestral samplers' seed + 1."""
+    from tinyfusers_tpu.pipeline import sdxl as jsdxl
+    from tinyfusers_tpu_torch.io import state_map as tsm
+    from tinyfusers_tpu_torch.pipeline import sdxl as tsdxl
+
+    argv = _xl_argv(tmp_path / "j.png", "--ckpt", str(xl_ckpt), "--fallback-tokenizer",
+                    "--prompt", "a red cat", "--negative-prompt", "ugly", "--batch", "2",
+                    "--sampler", "euler_ancestral", "--seed", "9", "--uncond-interval", "2",
+                    "--cfg-rescale", "0.7", "--freeu", "1.3,1.4,0.9,0.2", "--hires-scale",
+                    "2", "--deepcache-interval", "2")
+    calls = []
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return jnp.zeros((2, 64, 64, 3), jnp.uint8)
+
+    monkeypatch.setattr(jsdxl, "generate", record)
+    monkeypatch.setattr(sys, "argv", ["txt2img.py", *argv])
+    _jax_cli().main()
+    (a, kw), = calls
+    job = cli.build(cli.parse_args(argv))
+    assert isinstance(job, cli.XLJob) and isinstance(job.model, tsdxl.StableDiffusionXL)
+    state = tsm.sdxl_state_from_params(job.model)
+    from tinyfusers_tpu_torch.io import safetensors_io as tst
+
+    for k, v in tst.load_state_dict(xl_ckpt).items():
+        assert torch.equal(state[k], v), k
+    for got, want in zip((job.ids_l, job.ids_g, job.uids_l, job.uids_g), a[1:5]):
+        assert got.tolist() == np.asarray(want).tolist()
+    assert job.ids_l[0, -1] == jbpe.EOT and job.uids_g[0, -1] == jbpe.EOT
+    assert job.args.freeu == kw["freeu"] and (kw["uncond_interval"], kw["cfg_rescale"]) == (
+        job.args.uncond_interval, job.args.cfg_rescale)
+    assert (kw["method"], kw["schedule"], kw["num_steps"]) == ("euler_ancestral", "ladder", 2)
+    assert torch.equal(job.latent, tsdxl.initial_latent(9, 2, tsdxl.TINY_XL, device="cpu"))
+    assert torch.equal(torch.randn(3, generator=job._generator()),
+                       torch.randn(3, generator=torch.Generator().manual_seed(10)))
+
+
+@pytest.mark.parametrize("extra", [["--ti", "<cat>=x.pt"], ["--control-ckpt", "cn.safetensors"],
+                                   ["--no-cfg"]])
+def test_cli_tinyxl_refuses_what_the_jax_cli_refuses(cli, tmp_path, monkeypatch, extra):
+    argv = _xl_argv(tmp_path / "t.png", *extra)
+    monkeypatch.setattr(sys, "argv", ["txt2img.py", *argv])
+    with pytest.raises(SystemExit) as jax_exit:
+        _jax_cli().main()
+    with pytest.raises(SystemExit) as port_exit:
+        cli.build(cli.parse_args(argv))
+    assert port_exit.value.code == jax_exit.value.code == cli.XL_REFUSED
+
+
+def test_cli_tinyxl_quantizes_the_unet(cli, tmp_path):
+    from tinyfusers_tpu_torch.models.layers import Linear
+    from tinyfusers_tpu_torch.ops.quant import is_quantized
+
+    job = cli.build(cli.parse_args(_xl_argv(tmp_path / "t.png", "--quant", "int8")))
+    leaves = [m for m in job.model.unet.modules() if isinstance(m, Linear)]
+    assert leaves and any(is_quantized(m.w) for m in leaves)
+    assert not any(is_quantized(m.w) for m in job.model.clip_g.modules()
+                   if isinstance(m, Linear))
+    assert job.image().shape == (1, 64, 64, 3)

@@ -33,7 +33,8 @@ from tinyfusers_tpu_torch.models import controlnet as tcn
 from tinyfusers_tpu_torch.models import unet as tunet
 from tinyfusers_tpu_torch.pipeline import sd as tsd
 
-from torch_parity import few_torch_threads, random_tree, tiny_sd  # noqa: F401
+from torch_parity import (bf16_against_jax_jit, every_finite_bf16, few_torch_threads,  # noqa: F401
+                          random_tree, tiny_sd)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 UCFG = jsd.TINY.unet
@@ -230,3 +231,18 @@ def test_controlnet_runs_on_the_gpu_or_raises():
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tcn.ControlNet(tsd.TINY.unet)
+
+
+@pytest.mark.parametrize("scale,unrounded", [(0.9, 21832), (1.0, 0)])
+def test_controlnet_scale_bf16_equals_jax_jit_at_every_normal_value(scale, unrounded):
+    """The JAX ControlNet's ``scale * residual`` rounds the scale to bf16
+    first; the port's ``scaled`` must give the same bits at every value XLA
+    does not flush, at chip_smoke.py's 0.9 and the CLI's default 1.0. The
+    scale left in fp32 (the parent's form) differs at 0.9, not at 1.0."""
+    x = every_finite_bf16()
+    jax_fn = lambda r: scale * r  # noqa: E731  (models/controlnet.py's residual scaling)
+    differ, flushed = bf16_against_jax_jit(tcn.scaled(x, scale), jax_fn, x)
+    assert differ.numel() == 0, differ[:8].tolist()
+    assert flushed == (284 if scale == 0.9 else 254)
+    assert bf16_against_jax_jit(scale * x, jax_fn, x)[0].numel() == unrounded
+    assert torch.equal(tcn.scaled(x, torch.tensor(scale)), tcn.scaled(x, scale))

@@ -865,6 +865,30 @@ def test_cuda_hires_and_batch1_packed_match_plain(cuda, b, sq, sk, heads, d):
     assert _row_rel(got, want) <= ATTN_ROW_REL[torch.bfloat16]
 
 
+# SDXL-base at 1024x1024: 10 heads of 64 over the 64x64 level's 4096
+# tokens, 20 over the 32x32 level's 1024, self and 77-key cross attention
+XL_PACKED = [(2, 4096, 4096, 10, 64), (2, 4096, 77, 10, 64), (2, 1024, 1024, 20, 64),
+             (2, 1024, 77, 20, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,heads,d", XL_PACKED)
+def test_cuda_sdxl_packed_matches_plain(cuda, b, sq, sk, heads, d):
+    """SDXL-base's four flash_packed shapes, bf16, on the wgmma variant, each
+    counted under its call shape."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(b, s, heads * d, generator=g, device=cuda).to(torch.bfloat16)
+               for s in (sq, sk, sk))
+    key = (b, sq, sk, heads * d, heads, sk)
+    n0, w0 = flash_packed.shapes[key], flash_packed.variants["wgmma"]
+    got = flash_packed(q, k, v, heads=heads)
+    torch.cuda.synchronize()
+    assert flash_packed.shapes[key] == n0 + 1 and flash_packed.variants["wgmma"] == w0 + 1
+    want = flash_packed_plain(q, k, v, heads=heads)
+    assert _rel(got, want) <= ATTN_REL[torch.bfloat16]
+    assert _row_rel(got, want) <= ATTN_ROW_REL[torch.bfloat16]
+
+
 @pytest.mark.cuda
 def test_cuda_hires_128_self_attention_matches_plain_over_row_chunks(cuda):
     """The hires 128x128 self attention (2, 16384, 16384, 320), 8 heads of

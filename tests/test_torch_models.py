@@ -19,7 +19,8 @@ from tinyfusers_tpu_torch.models import clip as tclip
 from tinyfusers_tpu_torch.models import unet as tunet
 from tinyfusers_tpu_torch.models import vae as tvae
 
-from torch_parity import few_torch_threads, random_tree  # noqa: F401
+from torch_parity import (bf16_against_jax_jit, every_finite_bf16, few_torch_threads,  # noqa: F401
+                          random_tree)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -128,3 +129,64 @@ def test_from_jax_rejects_bad_trees():
         load_params(model, partial)
     with pytest.raises(ValueError, match="no counterpart"):
         load_params(model, dict(params, extra={"weight": np.zeros(1)}))
+
+
+def _jax_vae_configs():
+    from tinyfusers_tpu.pipeline import sd3 as jsd3
+    from tinyfusers_tpu.pipeline import sdxl as jsdxl
+
+    return {"sd1": jvae.VAEConfig(), "sdxl": jsdxl.SDXL_BASE.vae, "sd3": jsd3.SD3Config().vae}
+
+
+# (config, step) -> (values flushed, values where the unrounded constants differ)
+_AFFINE = {("sd1", "decode"): (254, 30184), ("sd1", "encode"): (862, 30186),
+           ("sdxl", "decode"): (254, 35146), ("sdxl", "encode"): (1004, 36154),
+           ("sd3", "decode"): (254, 3177), ("sd3", "encode"): (254, 3362)}
+
+
+@pytest.mark.parametrize("name,step", list(_AFFINE))
+def test_vae_affine_bf16_equals_jax_jit_at_every_normal_value(name, step):
+    """decode's z / scale_factor + shift_factor and encode's (means -
+    shift_factor) * scale_factor, as the JAX package's vae.py writes them
+    with the constants of SD1.x (0.18215), SDXL (0.13025) and SD3 (1.5305,
+    shift 0.0609): JAX rounds both constants to bf16 before the op, and
+    the port must give the same bits at every value XLA does not flush.
+    The constants left in fp32 (the parent's form) differ at the counted
+    values."""
+    jcfg = _jax_vae_configs()[name]
+    tcfg = tvae.VAEConfig(scale_factor=jcfg.scale_factor, shift_factor=jcfg.shift_factor)
+    c, s = jcfg.scale_factor, jcfg.shift_factor
+    x = every_finite_bf16()
+    if step == "decode":
+        got, old, jax_fn = tvae.unscale_latent(x, tcfg), x / c + s, lambda z: z / c + s
+    else:
+        got, old, jax_fn = tvae.scale_latent(x, tcfg), (x - s) * c, lambda m: (m - s) * c
+    flushed, unrounded = _AFFINE[(name, step)]
+    differ, n_flushed = bf16_against_jax_jit(got, jax_fn, x)
+    assert differ.numel() == 0, differ[:8].tolist()
+    assert n_flushed == flushed
+    assert bf16_against_jax_jit(old, jax_fn, x)[0].numel() == unrounded
+
+
+def test_vae_decode_bf16_matches_jax():
+    """The TINY VAE at SDXL's scale factor, bf16 weights and latent, against
+    jax.jit of the JAX decode: the convolutions and norms sum in another
+    order, so outputs of magnitude ~2 agree within 2^-5 (two bf16 ulps
+    there) and the uint8 images within 2 levels."""
+    jcfg = jvae.VAEConfig(base_channels=16, channel_mult=(1, 1, 2), num_groups=8,
+                          scale_factor=0.13025)
+    tcfg = tvae.VAEConfig(base_channels=16, channel_mult=(1, 1, 2), num_groups=8,
+                          scale_factor=0.13025)
+    params = random_tree(lambda k: jvae.init(k, jcfg), 0)
+    model = tvae.AutoencoderKL(tcfg, device="cpu", dtype=torch.bfloat16)
+    load_params(model, params)
+    z = rand(1, 1, 4, 4, 4)
+    pb = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params)
+    want = jax.jit(lambda p, z: jvae.decode(p, z, jcfg))(pb, jnp.asarray(z, jnp.bfloat16))
+    with torch.no_grad():
+        got = tvae.decode(model, torch.from_numpy(z).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 8, 8, 3)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=0,
+                               atol=2 ** -5)
+    img = tvae.to_image(got).numpy().astype(int)
+    assert np.abs(img - np.asarray(jvae.to_image(want)).astype(int)).max() <= 2

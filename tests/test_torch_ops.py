@@ -13,7 +13,7 @@ import jax.numpy as jnp
 from tinyfusers_tpu import ops as jops
 from tinyfusers_tpu_torch import ops as tops
 
-from torch_parity import few_torch_threads  # noqa: F401
+from torch_parity import bf16_against_jax_jit, every_finite_bf16, few_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -186,3 +186,35 @@ def test_gelu_erf_bf16_equals_jax_jit_at_every_normal_value():
     assert int((~normal).sum()) == 516, x[~normal & (a >= tiny)].tolist()
     old = torch.nn.functional.gelu(x).float()
     assert int(((old != w) & normal).sum()) == 1086
+
+
+# The parent forms: torch.sigmoid rounds once, and a Python float stays
+# fp32 inside a bf16 op, where JAX rounds it to bf16 first.
+_UNROUNDED = {
+    "sigmoid": torch.sigmoid,
+    "silu": lambda x: x * torch.sigmoid(x),
+    "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
+    "gelu_tanh": lambda x: 0.5 * x * (1.0 + torch.tanh(
+        0.7978845608 * x * (1.0 + 0.044715 * x * x))),
+}
+
+
+@pytest.mark.parametrize("name,flushed,unrounded", [
+    ("sigmoid", 257, 1113), ("silu", 513, 999), ("swish", 513, 999),
+    ("quick_gelu", 514, 1068), ("gelu_tanh", 510, 77)])
+def test_sigmoid_family_bf16_equals_jax_jit_at_every_normal_value(name, flushed, unrounded):
+    """jax.jit(jax.nn.sigmoid) is 1 / (1 + exp(-x)) with each op rounded to
+    bf16, and every Python constant is rounded to bf16 before its op: the
+    port must give the same bits at every value XLA does not flush
+    (subnormal inputs, or a subnormal result on either side, counted, not
+    compared). The forms with torch.sigmoid and fp32 constants differ at
+    ``unrounded`` values."""
+    x = every_finite_bf16()
+    jax_fn = getattr(jops, name)
+    got = getattr(tops, name)(x)
+    assert got.dtype == torch.bfloat16
+    differ, n_flushed = bf16_against_jax_jit(got, jax_fn, x)
+    assert differ.numel() == 0, differ[:8].tolist()
+    assert n_flushed == flushed
+    old = _UNROUNDED["silu" if name == "swish" else name](x)
+    assert bf16_against_jax_jit(old, jax_fn, x)[0].numel() == unrounded

@@ -86,3 +86,26 @@ def replay_noise(monkeypatch, noises):
 
     monkeypatch.setattr(samplers, "_normal", draw)
     return queue
+
+
+def every_finite_bf16() -> torch.Tensor:
+    """All 65,280 finite bf16 values (both zeros included)."""
+    x = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    return x[torch.isfinite(x)]
+
+
+def bf16_against_jax_jit(got: torch.Tensor, jax_fn, x: torch.Tensor):
+    """(values where ``got`` differs from ``jax.jit(jax_fn)`` at x, the
+    number of values not compared). XLA on the CPU flushes subnormal
+    inputs and results to zero, so where the input is subnormal, or either
+    side's result is subnormal or zero against a normal other, the value
+    is counted, not compared."""
+    import jax.numpy as jnp
+
+    want = torch.from_numpy(np.asarray(
+        jax.jit(jax_fn)(jnp.asarray(x.float().numpy(), jnp.bfloat16)), np.float32))
+    tiny = torch.finfo(torch.bfloat16).tiny
+    a, g, w = x.float().abs(), got.float(), want.to(torch.bfloat16).float()
+    compared = (a == 0) | (a >= tiny)
+    compared &= (g == w) | ((g.abs() >= tiny) & (w.abs() >= tiny))
+    return x[(g != w) & compared], int((~compared).sum())

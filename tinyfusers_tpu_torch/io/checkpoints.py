@@ -6,8 +6,8 @@ a pipeline.sd.StableDiffusion holding its weights on the device, in the
 requested dtype. save_sd_checkpoint(model, path, cfg): the model as an
 SD-format .safetensors file. load_controlnet_params(path, cfg) and
 save_controlnet_checkpoint(model, path): the same for a ControlNet in
-lllyasviel's ``control_model.*`` layout. The SDXL loader is not ported
-yet.
+lllyasviel's ``control_model.*`` layout; load_sdxl_params(path, cfg) and
+save_sdxl_checkpoint(model, path) for SDXL-base's layout.
 """
 from __future__ import annotations
 
@@ -82,4 +82,27 @@ def save_controlnet_checkpoint(model, path, *, dtype: Optional[torch.dtype] = No
     state = state_map.controlnet_to_state(model)
     if dtype is not None:
         state = {k: v.to(dtype) for k, v in state.items()}
+    safetensors_io.save_state_dict(state, path)
+
+
+def load_sdxl_params(path, cfg=None, *, device: Union[str, torch.device] = "cuda",
+                     dtype: torch.dtype = torch.bfloat16):
+    """An SDXL-base checkpoint (.safetensors or torch-zip) -> a
+    pipeline.sdxl.StableDiffusionXL on ``device`` (the GPU unless the caller
+    asks for the CPU) in ``dtype``."""
+    from ..pipeline import sdxl as sdxl_pipeline
+
+    cfg = cfg or sdxl_pipeline.SDXL_BASE
+    state = load_state_dict(path)
+    model = sdxl_pipeline.StableDiffusionXL(cfg, device=device, dtype=dtype, seed=None)
+    state_map.sdxl_params_from_state(state, model)
+    return model
+
+
+def save_sdxl_checkpoint(model, path, *, dtype: Optional[torch.dtype] = None) -> None:
+    """Write a StableDiffusionXL as an SDXL-layout .safetensors file;
+    ``dtype`` casts the floating tensors on the way out."""
+    state = state_map.sdxl_state_from_params(model)
+    if dtype is not None:
+        state = {k: v.to(dtype) if v.is_floating_point() else v for k, v in state.items()}
     safetensors_io.save_state_dict(state, path)

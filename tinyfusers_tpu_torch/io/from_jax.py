@@ -10,7 +10,7 @@ axis for ``lax.scan`` (CLIP's and T5's layers, the MMDiT's blocks) are
 split across the ModuleList.
 Every parameter must be written exactly once and every shape must match.
 The same walk (``load_params``) loads a UNet of any config (the
-9-channel inpainting one too) and a ControlNet (``controlnet.init``'s
+9-channel inpainting one and SDXL's too) and a ControlNet (``controlnet.init``'s
 tree into a ``models.controlnet.ControlNet``).
 
 A weight-only quantized tree, as ``jax.tree.map(np.asarray,
@@ -132,4 +132,11 @@ def load_sd3(model: nn.Module, params) -> None:
     """Load a JAX ``sd3.init`` tree ({'clip_l', 'clip_g', 'mmdit', 'vae'}
     and, with T5, 't5'; a learned 'mmdit.pos_embed' when the MMDiT holds
     one) into a ``pipeline.sd3.StableDiffusion3``."""
+    load_params(model, params)
+
+
+def load_sdxl(model: nn.Module, params) -> None:
+    """Load a JAX ``sdxl.init`` tree ({'clip_l', 'clip_g', 'unet', 'vae'};
+    the UNet's 'label_emb' included) into a
+    ``pipeline.sdxl.StableDiffusionXL``."""
     load_params(model, params)

@@ -16,13 +16,15 @@ weights, schedules, ...) are left alone, as in the JAX package. Each
 ``*_to_state`` is the inverse and gives the checkpoint's tensors.
 
 Checkpoint prefixes:
-  model.diffusion_model.*                       UNet
+  model.diffusion_model.*                       UNet (SDXL's with label_emb.0.{0,2})
   first_stage_model.*                           VAE
   cond_stage_model.transformer.text_model.*     CLIP, HF layout (SD1.x)
   cond_stage_model.model.*                      OpenCLIP layout (SD2.x)
+  conditioner.embedders.0.transformer.text_model.*   SDXL's CLIP-L, HF layout
+  conditioner.embedders.1.model.*               SDXL's bigG, OpenCLIP layout
   control_model.*                               ControlNet (a file of its own)
 
-The SDXL, SD3 / T5 and CLIP-vision maps are not ported yet.
+The SD3 / T5 and CLIP-vision maps are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ VAE_PREFIX = "first_stage_model"
 CLIP_PREFIX = "cond_stage_model.transformer.text_model"
 OPENCLIP_PREFIX = "cond_stage_model.model"
 CONTROLNET_PREFIX = "control_model"
+SDXL_CLIP_L_PREFIX = "conditioner.embedders.0.transformer.text_model"
+SDXL_CLIP_G_PREFIX = "conditioner.embedders.1.model"
 
 
 def _leaf(out: List[Entry], port: str, key: str, bias: bool = True) -> None:
@@ -129,6 +133,9 @@ def _unet_entries(cfg: unet_model.UNetConfig) -> List[Entry]:
     pre = UNET_PREFIX
     _leaf(out, "time_embed.fc1", f"{pre}.time_embed.0")
     _leaf(out, "time_embed.fc2", f"{pre}.time_embed.2")
+    if cfg.adm_in_channels:  # SDXL's ADM MLP: Linear, SiLU, Linear
+        _leaf(out, "label_emb.fc1", f"{pre}.label_emb.0.0")
+        _leaf(out, "label_emb.fc2", f"{pre}.label_emb.0.2")
     inp, mid, outp = unet_model.build_plan(cfg)
     for i, b in enumerate(inp):
         _block_entries(out, f"input.{i}", f"{pre}.input_blocks.{i}", b)
@@ -141,7 +148,8 @@ def _unet_entries(cfg: unet_model.UNetConfig) -> List[Entry]:
 
 
 def unet_from_state(state: Mapping, unet: nn.Module) -> None:
-    """Write the UNet of an SD checkpoint into ``unet`` (a models.unet.UNet)."""
+    """Write the UNet of an SD or SDXL checkpoint into ``unet`` (a
+    models.unet.UNet; its label_emb too when its config has ADM)."""
     _write(unet, state, _unet_entries(unet.cfg), "unet")
 
 
@@ -336,6 +344,32 @@ def sd_state_from_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model as an SD checkpoint's flat dict (CLIP in HF layout, as the
     JAX package writes it)."""
     out = clip_to_state(model.clip)
+    out.update(unet_to_state(model.unet))
+    out.update(vae_to_state(model.vae))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SDXL (sd_xl_base's layout)
+# ---------------------------------------------------------------------------
+
+def sdxl_params_from_state(state: Mapping, model: nn.Module) -> None:
+    """Write an SDXL checkpoint into ``model`` (a
+    pipeline.sdxl.StableDiffusionXL): CLIP-L in HF's layout, bigG in
+    OpenCLIP's, the UNet with its label_emb, the VAE. The JAX package's
+    clip_hf_* and sdxl_unet_* maps are clip_* under the SDXL prefix and
+    unet_* here (the UNet map reads label_emb when the config has ADM)."""
+    clip_from_state(state, model.clip_l, SDXL_CLIP_L_PREFIX)
+    openclip_from_state(state, model.clip_g, SDXL_CLIP_G_PREFIX)
+    unet_from_state(state, model.unet)
+    vae_from_state(state, model.vae)
+
+
+def sdxl_state_from_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model as an SDXL checkpoint's flat dict, the JAX package's
+    layout."""
+    out = clip_to_state(model.clip_l, SDXL_CLIP_L_PREFIX)
+    out.update(openclip_to_state(model.clip_g, SDXL_CLIP_G_PREFIX))
     out.update(unet_to_state(model.unet))
     out.update(vae_to_state(model.vae))
     return out

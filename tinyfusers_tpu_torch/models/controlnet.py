@@ -104,6 +104,14 @@ def apply(model: ControlNet, x: torch.Tensor, hint: Optional[torch.Tensor],
         x = unet_model._run_block(mods, block, x, emb, context, cfg)
         if i == 0:
             x = x + guided  # the hint enters after conv_in (cldm.py)
-        residuals.append(scale * model.zero_convs[i](x))
+        residuals.append(scaled(model.zero_convs[i](x), scale))
     x = unet_model._run_block(model.middle, mid, x, emb, context, cfg)
-    return residuals, scale * model.middle_out(x)
+    return residuals, scaled(model.middle_out(x), scale)
+
+
+def scaled(residual: torch.Tensor, scale) -> torch.Tensor:
+    """scale * residual with the scale (a float or a tensor) in the
+    residual's dtype first, as the JAX package takes it."""
+    s = (scale.to(residual.dtype) if isinstance(scale, torch.Tensor)
+         else ops.rounded_to(float(scale), residual.dtype))
+    return s * residual

@@ -5,9 +5,9 @@ The topology is generated from the config by ``build_plan`` exactly as in
 the JAX package; the module tree mirrors the JAX param tree ("input",
 "middle", "output" lists of blocks, each a list of per-spec leaves), so
 io/from_jax.py loads it by walking both. ``apply`` takes the JAX
-package's extra inputs: DeepCache (``deepcache``, ``cache``), ControlNet
+package's extra inputs: SDXL's ADM conditioning (``adm_cond``, into the
+``label_emb`` MLP), DeepCache (``deepcache``, ``cache``), ControlNet
 residuals (``control``, from models/controlnet.py) and FreeU (``freeu``).
-SDXL's ADM conditioning comes with the SDXL part of the port.
 """
 from __future__ import annotations
 
@@ -36,6 +36,9 @@ class UNetConfig:
     num_heads: int = 8
     head_dim: Optional[int] = None
     num_groups: int = 32
+    # SDXL's "text_time" ADM conditioning: the pooled text embedding and the
+    # size embeddings through a second MLP, added to the timestep embedding
+    adm_in_channels: Optional[int] = None
 
     def heads_for(self, ch: int) -> Tuple[int, int]:
         if self.head_dim is not None:
@@ -55,6 +58,18 @@ SD21_CONFIG = UNetConfig(context_dim=1024, num_heads=-1, head_dim=64)
 
 # SD 1.5 inpainting: the input is latent (4) + mask (1) + masked latent (4).
 SD15_INPAINT_CONFIG = UNetConfig(in_channels=9)
+
+# SDXL-base: 3 levels, transformer depths (0, 2, 10), 64-wide heads, the
+# two text towers' 2048-wide context, ADM 2816 = 1280 pooled + 6 * 256.
+SDXL_CONFIG = UNetConfig(
+    channel_mult=(1, 2, 4),
+    attention_levels=(1, 2),
+    transformer_depth=(0, 2, 10),
+    context_dim=2048,
+    num_heads=-1,
+    head_dim=64,
+    adm_in_channels=2816,
+)
 
 TINY_CONFIG = UNetConfig(
     model_channels=32,
@@ -197,6 +212,8 @@ def _block_modules(block, cfg: UNetConfig, emb_ch: int, **kw) -> nn.ModuleList:
 
 
 class _TimeEmbed(nn.Module):
+    """fc2(silu(fc1(.))): the timestep MLP, and SDXL's ADM MLP (label_emb)."""
+
     def __init__(self, ch: int, emb_ch: int, **kw):
         super().__init__()
         self.fc1 = Linear(ch, emb_ch, **kw)
@@ -211,14 +228,16 @@ class UNet(nn.Module):
         inp, mid, outp = build_plan(cfg)
         emb_ch = cfg.model_channels * 4
         self.time_embed = _TimeEmbed(cfg.model_channels, emb_ch, **kw)
+        if cfg.adm_in_channels:
+            self.label_emb = _TimeEmbed(cfg.adm_in_channels, emb_ch, **kw)
         self.input = nn.ModuleList(_block_modules(b, cfg, emb_ch, **kw) for b in inp)
         self.middle = _block_modules(mid, cfg, emb_ch, **kw)
         self.output = nn.ModuleList(_block_modules(b, cfg, emb_ch, **kw) for b in outp)
         self.out_norm = Norm(cfg.model_channels, **kw)
         self.out_conv = Conv(cfg.model_channels, cfg.out_channels, 3, **kw)
 
-    def forward(self, x, timesteps, context):
-        return apply(self, x, timesteps, context)
+    def forward(self, x, timesteps, context, adm_cond=None):
+        return apply(self, x, timesteps, context, adm_cond=adm_cond)
 
 
 # ---------------------------------------------------------------------------
@@ -321,13 +340,8 @@ def _apply_freeu(x: torch.Tensor, skip: torch.Tensor, level: int, freeu):
     else:
         return x, skip
     half = x.shape[-1] // 2
-    x = torch.cat([x[..., :half] * _rounded(b, x.dtype), x[..., half:]], dim=-1)
+    x = torch.cat([x[..., :half] * ops.rounded_to(b, x.dtype), x[..., half:]], dim=-1)
     return x, _fourier_filter(skip, threshold=1, scale=s)
-
-
-@functools.lru_cache(maxsize=None)
-def _rounded(value: float, dtype: torch.dtype) -> float:
-    return float(torch.tensor(value, dtype=dtype))
 
 
 def _add_control(skips: List[torch.Tensor], residuals: Sequence[torch.Tensor]):
@@ -335,11 +349,17 @@ def _add_control(skips: List[torch.Tensor], residuals: Sequence[torch.Tensor]):
 
 
 def apply(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
-          context: torch.Tensor, *, deepcache: Optional[Tuple[str, int]] = None,
+          context: torch.Tensor, *, adm_cond: Optional[torch.Tensor] = None,
+          deepcache: Optional[Tuple[str, int]] = None,
           cache: Optional[torch.Tensor] = None, control=None,
           freeu: Optional[Tuple[float, float, float, float]] = None):
     """x (B, H, W, C_in) NHWC latents, timesteps (B,) float, context
     (B, S, context_dim) -> noise prediction (B, H, W, C_out).
+
+    adm_cond (B, adm_in_channels): SDXL's conditioning vector (pooled text
+    embedding and size embeddings), needed when the config has
+    adm_in_channels; label_emb's MLP of it is added to the timestep
+    embedding.
 
     control: (skip residuals, middle residual) from models/controlnet.apply;
     each skip residual is added to its skip as it is popped, the middle one
@@ -357,6 +377,10 @@ def apply(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
     inp, mid, outp = build_plan(cfg)
     t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
     emb = model.time_embed.fc2(ops.silu(model.time_embed.fc1(t_emb)))
+    if cfg.adm_in_channels:
+        if adm_cond is None:
+            raise ValueError("this UNet config has adm_in_channels: apply needs adm_cond")
+        emb = emb + model.label_emb.fc2(ops.silu(model.label_emb.fc1(adm_cond.to(x.dtype))))
     mode, m = deepcache if deepcache is not None else (None, 0)
     if mode is not None and not 1 <= m <= min(len(inp), len(outp)):
         raise ValueError(

@@ -160,8 +160,8 @@ def _mid_apply(p: Mid, x, g: int):
 
 
 def encode(model: AutoencoderKL, x: torch.Tensor) -> torch.Tensor:
-    """Image (B, H, W, 3) -> latent means (B, H/8, W/8, latent_ch), shifted
-    and scaled for the diffusion loop. The stride-2 downsample convs pad
+    """Image (B, H, W, 3) -> latent means (B, H/8, W/8, latent_ch), through
+    scale_latent for the diffusion loop. The stride-2 downsample convs pad
     (0, 1, 0, 1): bottom and right only."""
     cfg = model.cfg
     g = cfg.num_groups
@@ -177,16 +177,30 @@ def encode(model: AutoencoderKL, x: torch.Tensor) -> torch.Tensor:
     x = p.conv_out(ops.swish(x), padding=1)
     if cfg.use_quant_conv:
         x = model.quant_conv(x)
-    means = x[..., :cfg.latent_channels]  # the logvars are dropped
-    return (means - cfg.shift_factor) * cfg.scale_factor
+    return scale_latent(x[..., :cfg.latent_channels], cfg)  # the logvars are dropped
+
+
+def scale_latent(means: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
+    """(means - shift_factor) * scale_factor: the encoder's means as the
+    diffusion loop takes them, both constants rounded to the means' dtype
+    first, as the JAX package takes them."""
+    shift, scale = (ops.rounded_to(c, means.dtype) for c in (cfg.shift_factor, cfg.scale_factor))
+    return (means - shift) * scale
+
+
+def unscale_latent(z: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
+    """z / scale_factor + shift_factor, scale_latent's inverse, the
+    constants rounded to z's dtype first."""
+    scale, shift = (ops.rounded_to(c, z.dtype) for c in (cfg.scale_factor, cfg.shift_factor))
+    return z / scale + shift
 
 
 def decode(model: AutoencoderKL, z: torch.Tensor) -> torch.Tensor:
     """Latent (B, h, w, latent_ch) -> image in [-1, 1], (B, 8h, 8w, 3),
-    with the 1/scale_factor pre-scale, shift_factor and post_quant_conv."""
+    with unscale_latent and post_quant_conv."""
     cfg = model.cfg
     g = cfg.num_groups
-    z = z / cfg.scale_factor + cfg.shift_factor
+    z = unscale_latent(z, cfg)
     if cfg.use_quant_conv:
         z = model.post_quant_conv(z)
     p = model.decoder

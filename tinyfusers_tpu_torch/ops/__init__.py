@@ -1,4 +1,5 @@
-from .activations import gelu_erf, gelu_tanh, geglu, quick_gelu, sigmoid, silu, swish
+from .activations import (gelu_erf, gelu_tanh, geglu, quick_gelu, rounded_to, sigmoid, silu,
+                          swish)
 from .attention import packed_beneficial, sdpa, sdpa_math, sdpa_packed
 from .conv import conv2d, upsample_nearest_2x
 from .embedding import embedding
@@ -8,7 +9,7 @@ from .quant import (Int4Tensor, QuantizedTensor, dequantize, is_quantized, quant
                     quantize_int4)
 
 __all__ = [
-    "gelu_erf", "gelu_tanh", "geglu", "quick_gelu", "sigmoid", "silu", "swish",
+    "gelu_erf", "gelu_tanh", "geglu", "quick_gelu", "rounded_to", "sigmoid", "silu", "swish",
     "packed_beneficial", "sdpa", "sdpa_math", "sdpa_packed",
     "conv2d", "upsample_nearest_2x",
     "embedding",
