@@ -7,8 +7,9 @@ and with a weight-only int8, fp8 or int4 UNet, its SD3-medium path
 (MMDiT, rectified flow), without and with T5-XXL, with seeded random
 weights made on the card, its SD2.1-v path from a checkpoint file
 through the port's CLI, SD1.5 with a ControlNet from a checkpoint
-file, DeepCache, FreeU, the hires fix, img2img and inpainting, and
-SDXL-base from a checkpoint file through the CLI, and holds every
+file, DeepCache, FreeU, the hires fix, img2img and inpainting,
+SDXL-base from a checkpoint file through the CLI, and SD1.5 served by the
+continuous-batching engine over 4 slots, and holds every
 hand-written CUDA kernel of those paths against its plain PyTorch
 version. Imports neither jax nor
 tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
@@ -40,7 +41,8 @@ Phases, one or more lines each:
    self-attention shape; in bf16 also flash_packed at the hires fix's
    three 1024x1024 levels (8 heads of 40, 80 and 160) and SD1.5's shapes at
    batch 1 and SDXL-base's four shapes (10 heads of 64 over 4096 tokens,
-   20 over 1024), geglu at the hires levels (SDXL's two shapes among them)
+   20 over 1024) and the serving engine's four at batch 8 (8 heads of 40 /
+   80 over 4096 / 1024 tokens), geglu at the hires levels (SDXL's two shapes among them)
    and at batch 1 (their plain attention, where its fp32 logits would
    pass 4 Gi elements, over chunks of query rows with all keys each, timed
    by events); a [gelu] line counting the bf16 values where ops.gelu_erf
@@ -152,6 +154,24 @@ Phases, one or more lines each:
    kept half equal to the source bit for bit) at 512x512;
    each image phase prints s/image, held and peak memory, the launches by
    wrapper, by shape and by variant (every shape measured in phase 3);
+5e. serving (``serve/engine.py`` over the native scheduler core, 4 slots, a
+   fresh SD1.5 bf16 model, ids 49406 then 49407 padding, CFG 7.5): a
+   4-step warm-up request, then [serve] 12 requests of 20 / 30 / 25 DDIM
+   steps in turn (seeds 0-11), one submitted a tick, run until idle: the
+   launches checked exactly (20 flash_packed a tick with an active slot,
+   all on wgmma at the four batch-8 shapes of phase 3; 16 geglu a tick; 1
+   flash_bhsd a request); images/s, wall seconds, ticks, submit -> result
+   p50 / p95 (``utils/profiling.StepMetrics``), the first result, held and
+   peak memory, model TFLOP/s (``utils/flops``) and the device's busy share
+   over 4 profiled ticks, and the conv shapes the engine runs one row at a
+   time (``ops.conv.RowInvariance``); [serve-join] the request of seed 6,
+   which joined a busy engine in slot 2, run alone in the idle engine (slot
+   0): the same uint8 image bit for bit; [serve-sync] every tick of 10 two-step requests (admissions
+   and encodes staged inside a tick included) under
+   ``torch.cuda.set_sync_debug_mode("error")``; [serve-router] a Router over
+   the 4-slot engine and a 1-slot one with one injected failure: every
+   request completes, ``health()`` counts 1 failure, the same engine and
+   buffers are reused;
 4x. unet-sdxl: the full-width SDXL UNet (ADM 2816, context 2048) in fp32
    with a random ADM vector at a 64x64 latent, batch 1, on the card
    against the CPU (20 flash_packed at its 32x32 level, 70 geglu);
@@ -167,7 +187,8 @@ Phases, one or more lines each:
 7. the ``kernels`` JSON line: per kernel the main paths' launches (for
    the quant matmuls, those of the quantized images; flash_packed's SD3
    calls, the counterpart of the TPU's multi-k kernel, as their own
-   entry; the SDXL image's under the path "sdxl"), and per shape the launches counted there beside the per-call
+   entry; the SDXL image's under the path "sdxl", the serving run's under
+   "serve"), and per shape the launches counted there beside the per-call
    times of phase 3; the per-image times are those counts times those
    per-call times. Then nvidia-smi's line again, then the last line
    ``{"ok": true, ...}``.
@@ -265,6 +286,16 @@ XL_PACKED_SHAPES = [("SDXL 64x64 self", (2, 4096, 4096, 640, 10, 4096)),
                     ("SDXL 64x64 cross", (2, 4096, 77, 640, 10, 77)),
                     ("SDXL 32x32 self", (2, 1024, 1024, 1280, 20, 1024)),
                     ("SDXL 32x32 cross", (2, 1024, 77, 1280, 20, 77))]
+# ... and the serving engine's (serve/engine.py): SD1.5's UNet at the 2S rows
+# of S = 4 slots, [uncond ‖ cond].
+SERVE_PACKED_SHAPES = [("serve 64x64 self", (8, 4096, 4096, 320, 8, 4096)),
+                       ("serve 64x64 cross", (8, 4096, 77, 320, 8, 77)),
+                       ("serve 32x32 self", (8, 1024, 1024, 640, 8, 1024)),
+                       ("serve 32x32 cross", (8, 1024, 77, 640, 8, 77))]
+SERVE_SLOTS = 4
+# serve_demo.py's sd15 step mix, one request a tick, seeds 0-11
+SERVE_MIX = [20, 30, 25]
+SERVE_REQUESTS = 12
 # The plain attention's fp32 logits of one call: above this many elements
 # (4 GiB) it runs over query-row chunks of half as many, all keys each
 # (rows are independent: the same function, all rows held).
@@ -762,10 +793,10 @@ def main() -> None:
         isz = torch.tensor([], dtype=dt).element_size()
         packed_rows = ([("flash_packed", *row) for row in PACKED_SHAPES + SD21_PACKED_SHAPES]
                        + [("flash_packed_multik", *row) for row in MULTIK_SHAPES])
-        if dt == torch.bfloat16:  # the hires fix's, the batch-1 branches', SDXL's (bf16 paths)
+        if dt == torch.bfloat16:  # the hires fix's, the batch-1 branches', SDXL's, serving's
             packed_rows += [("flash_packed", *row)
                             for row in HIRES_PACKED_SHAPES + B1_PACKED_SHAPES
-                            + XL_PACKED_SHAPES]
+                            + XL_PACKED_SHAPES + SERVE_PACKED_SHAPES]
         for entry, label, (b, sq, sk, c, h, kvl) in packed_rows:
             q, k, v = randn(b, sq, c, dtype=dt), randn(b, sk, c, dtype=dt), randn(b, sk, c, dtype=dt)
             reset_counts()
@@ -1725,6 +1756,207 @@ def main() -> None:
 
     stamp("5i (img2img, inpainting)")
 
+    # 5e. serving: the continuous-batching engine over 4 slots ------------------
+    import numpy as np
+
+    from tinyfusers_tpu_torch.native import get_lib
+    from tinyfusers_tpu_torch.serve import Engine, Router
+    from tinyfusers_tpu_torch.serve.engine import _NativeSchedulerCore, _PySchedulerCore
+    from tinyfusers_tpu_torch.utils import flops as flops_mod
+    from tinyfusers_tpu_torch.utils.profiling import (
+        StepMetrics, device_memory_stats, device_time_from_trace, trace)
+
+    if get_lib() is None:
+        fail("serve: libtfnative could not be built from native/*.cpp with g++")
+    serve_model = sd.StableDiffusion(sd15, device=dev, dtype=dtype, seed=0)
+    serve_ids = np.full((77,), 49407, np.int64)  # as benchmarks/serve_quant_bench.py
+    serve_ids[0] = 49406
+    eng = Engine(serve_model, num_slots=SERVE_SLOTS)
+    if not isinstance(eng.core, _NativeSchedulerCore):
+        fail(f"serve: the engine runs the {type(eng.core).__name__}, not the native core")
+    eng.submit(eng.make_request(serve_ids, serve_ids, num_steps=4, seed=100))  # warm-up
+    warm = eng.run_until_idle()
+    if len(warm) != 1 or warm[0].image.shape != (512, 512, 3) or warm[0].image.dtype != np.uint8:
+        fail(f"serve: warm-up gave {[(r.image.shape, r.image.dtype) for r in warm]}")
+
+    # the ticks that run the UNet, by the scheduler's own rules
+    sim, active_ticks = _PySchedulerCore(SERVE_SLOTS), 0
+    for i in range(SERVE_REQUESTS + 10 ** 4):
+        if i < SERVE_REQUESTS:
+            sim.submit(i, SERVE_MIX[i % 3])
+        elif not (sim.active() or sim.pending()):
+            break
+        sim.assign()
+        active_ticks += sim.active() > 0
+        sim.tick()
+    reqs = [eng.make_request(serve_ids, serve_ids, num_steps=SERVE_MIX[i % 3], seed=i)
+            for i in range(SERVE_REQUESTS)]
+    submitted, served, latency = {}, {}, StepMetrics()
+
+    def collect(batch):
+        now = time.perf_counter()
+        for r in batch:
+            served[r.request_id] = r.image
+            latency.record(now - submitted[r.request_id])
+
+    eng.stats = {"submitted": 0, "completed": 0, "first_submit_t": None, "first_result_s": None}
+    torch.cuda.synchronize()
+    held = device_memory_stats()["bytes_in_use"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    ticks = 0
+    for r in reqs:  # one submission a tick: requests join mid-flight
+        submitted[r.request_id] = time.perf_counter()
+        eng.submit(r)
+        collect(eng.step())
+        ticks += 1
+    while eng.core.active() or eng.core.pending():
+        collect(eng.step())
+        ticks += 1
+    collect(eng.flush())
+    wall = time.perf_counter() - t0
+    counts = {kn: w.launches for kn, w in wrappers.items()}
+    counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+    by_variant = variants()
+    mem = device_memory_stats()
+    bad = [rid for rid, img in served.items() if img.shape != (512, 512, 3) or img.dtype != np.uint8]
+    if sorted(served) != sorted(r.request_id for r in reqs) or bad:
+        fail(f"serve: results {sorted(served)} (bad {bad}) for requests "
+             f"{[r.request_id for r in reqs]}")
+    per_tick = unet_launches(sd15.unet, 64, 2 * SERVE_SLOTS)  # one UNet call on 2S rows
+    want_flash, want_geglu = launches_of((active_ticks, per_tick))
+    want_bhsd = {key: SERVE_REQUESTS for key in vae_512}
+    want_shapes = {kn: {} for kn in wrappers}
+    want_shapes.update(flash_packed=want_flash, flash_bhsd=want_bhsd, geglu=want_geglu)
+    want_counts = {kn: sum(c.values()) for kn, c in want_shapes.items()}
+    want_by_variant = want_variants_of(want_flash, want_bhsd, want_geglu)
+    say(f"[serve] launches over {SERVE_REQUESTS} requests, {active_ticks} ticks with an active "
+        f"slot: {counts} (want {want_counts}: 20 flash_packed and 16 geglu a tick, 1 "
+        f"flash_bhsd a request); shapes {counted}; by variant {by_variant}")
+    if (counts != want_counts or counted != want_shapes or by_variant != want_by_variant
+            or set(by_variant["flash_packed"]) != {"wgmma"}
+            or set(want_flash) != {key for _, key in SERVE_PACKED_SHAPES}):
+        fail(f"serve: launches {counts}, shapes {counted}, variants {by_variant} against "
+             f"{want_counts}, {want_shapes}, {want_by_variant}")
+    for kn, by_shape in counted.items():
+        if set(by_shape) - measured(kn):
+            fail(f"serve {kn}: shapes {by_shape} not all measured in phase 3")
+    extra_paths["serve"] = (counts, counted)
+    lat_s = latency.summary()
+    model_flops = (flops_mod.unet_fwd_flops(sd15.unet, 64, 64, 2 * SERVE_SLOTS) * active_ticks
+                   + flops_mod.vae_decode_flops(sd15.vae, 64, 64, 1) * SERVE_REQUESTS)
+    say(f"[serve] SD1.5 512x512 bf16, {SERVE_SLOTS} slots (native scheduler core), CFG "
+        f"{GUIDANCE}, {SERVE_REQUESTS} requests of {SERVE_MIX} DDIM steps in turn, one submitted "
+        f"a tick: {SERVE_REQUESTS / wall:.4f} images/s, wall {wall:.3f} s, {ticks} ticks "
+        f"({active_ticks} with an active slot, {wall / ticks * 1e3:.1f} ms a tick); submit -> "
+        f"result p50 {lat_s['p50_s']:.3f} s, p95 {lat_s['p95_s']:.3f} s, mean "
+        f"{lat_s['mean_s']:.3f} s; first result {eng.stats['first_result_s']:.3f} s after the "
+        f"first submit; held {held / 1e9:.2f} GB, peak {mem['peak_bytes_in_use'] / 1e9:.2f} GB; "
+        f"model {model_flops / 1e12:.2f} TFLOP (UNet at batch {2 * SERVE_SLOTS} x "
+        f"{active_ticks} + {SERVE_REQUESTS} VAE decodes): {model_flops / wall / 1e12:.1f} "
+        f"TFLOP/s, {model_flops / wall / flops_mod.H100_PEAK_BF16:.3f} of the bf16 peak; "
+        f"card {card}")
+    apart = sorted((k[0], k[1]) for k, v in eng._rows.apart.items() if v)
+    say(f"[serve] conv call shapes (x NHWC, w HWIO) the engine runs one row at a time, their "
+        f"rows rounding by batch position under cuDNN: {len(apart)} of {len(eng._rows.apart)}: "
+        f"{apart}")
+
+    # the device's busy share over a profiled window of 4 ticks, all slots busy
+    for i in range(SERVE_SLOTS):
+        eng.submit(eng.make_request(serve_ids, serve_ids, num_steps=8, seed=30 + i))
+    eng.step()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                eng.step()
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        busy = device_time_from_trace(tmp)
+    eng.run_until_idle()
+    if busy is None:
+        fail("serve: the profiled window holds no device kernel")
+    say(f"[serve] 4 ticks of {SERVE_SLOTS} busy slots under torch.profiler: {window:.3f} s, "
+        f"device busy {busy:.3f} s (the union of the kernels' intervals), busy share "
+        f"{busy / window:.3f}; card {card}")
+
+    # [serve-join] the request with seed 6 joined a busy engine: alone, the same bits
+    join = reqs[6]
+    eng.submit(eng.make_request(serve_ids, serve_ids, num_steps=join.num_steps, seed=join.seed))
+    solo = eng.run_until_idle()
+    diff = np.abs(solo[0].image.astype(np.int16) - served[join.request_id].astype(np.int16))
+    say(f"[serve-join] request seed {join.seed} ({join.num_steps} steps), joined mid-flight "
+        f"into {SERVE_SLOTS} busy slots against alone in the idle engine: {int((diff > 0).sum())} "
+        f"of {diff.size} uint8 values differ, max {int(diff.max())}")
+    if diff.any():
+        fail("serve-join: a request's image depends on the other requests in the batch")
+
+    # [serve-sync] every tick of a short run, admissions (and encodes staged
+    # inside the tick) included, without a synchronising call
+    for i in range(2 * SERVE_SLOTS + 2):  # past the stage window: the tick stages encodes
+        eng.submit(eng.make_request(serve_ids, serve_ids, num_steps=2, seed=40 + i))
+    torch.cuda.synchronize()
+    n_sync, done = 0, []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while eng.core.active() or eng.core.pending():
+            done += eng.step()
+            n_sync += 1
+    except RuntimeError as e:
+        fail(f"serve-sync: tick {n_sync} synchronised with the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    done += eng.flush()
+    # the embedding's NaN fill as it was (a Python scalar made a device tensor)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        serve_model.unet.out_conv.weight.new_tensor(float("nan"))
+        scalar_fill_syncs = False
+    except RuntimeError:
+        scalar_fill_syncs = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    say(f"[serve-sync] {n_sync} ticks ({2 * SERVE_SLOTS + 2} requests, the first tick admitting "
+        f"{SERVE_SLOTS} and staging 2 encodes) under torch.cuda.set_sync_debug_mode('error'): "
+        f"no synchronising call; {len(done)} images; the embedding's former NaN fill "
+        f"(rows.new_tensor(nan) on the card) raises under the same mode: {scalar_fill_syncs}")
+    if len(done) != 2 * SERVE_SLOTS + 2:
+        fail(f"serve-sync: {len(done)} images for {2 * SERVE_SLOTS + 2} requests")
+
+    # [serve-router] the 4-slot engine and a 1-slot one (batch 2: the main
+    # path's shapes) behind a Router; the 4-slot engine's first tick fails
+    eng1 = Engine(serve_model, num_slots=1)
+    router = Router({"s4": eng, "s1": eng1}, max_retries=1)
+    real_step, ptr = eng.step, eng.latents.data_ptr()
+    injected = []
+
+    def flaky_step():
+        if not injected:
+            injected.append(True)
+            raise RuntimeError("injected device failure")
+        return real_step()
+
+    eng.step = flaky_step
+    rids = [router.submit("s4" if i % 2 == 0 else "s1", serve_ids, serve_ids, num_steps=3,
+                          seed=60 + i) for i in range(4)]
+    routed = router.run_until_idle()
+    del eng.step
+    health = router.health()
+    say(f"[serve-router] {len(routed)} of {len(rids)} requests completed after one injected "
+        f"failure; health {health}; the same engine and buffers reused: "
+        f"{router.engines['s4'] is eng and eng.latents.data_ptr() == ptr}")
+    if (sorted(r.request_id for r in routed) != sorted(rids) or health["s4"]["failures"] != 1
+            or health["s1"]["failures"] != 0 or router.engines["s4"] is not eng
+            or eng.latents.data_ptr() != ptr):
+        fail("serve-router: a request was lost, the failure was not counted or the engine "
+             "was replaced")
+    del serve_model, eng, eng1, router, warm, served, solo
+    torch.cuda.empty_cache()
+
+    stamp("5e (serving)")
+
     # 4x. the SDXL UNet: full width, fp32, with a random ADM vector, card vs
     # CPU; a 64x64 latent at batch 1, so that its 32x32 level (1024 tokens,
     # 10 heads of 64) takes flash_packed and its 16x16 level the math route
@@ -1867,7 +2099,8 @@ def main() -> None:
         paths[kn] = (by_path, summed(counted, *(sh[kn] for _, sh in extra_paths.values())),
                      per_what + ", one image of each SD1.5 path of phases 5n-5i (ControlNet, "
                      "DeepCache, DeepCache with cached CFG, FreeU, hires fix, img2img, "
-                     "inpainting) and one SDXL-base image", family)
+                     "inpainting), one SDXL-base image and phase 5e's serving run (12 "
+                     "requests over 4 slots)", family)
     kernels = []
     for kname, by_key in report.items():
         by_path, counted, per_what, family = paths[kname]

@@ -967,3 +967,78 @@ def test_cuda_gelu_erf_bf16_equals_the_cpu(cuda):
     want = gelu_erf(x)
     assert got.dtype == torch.bfloat16
     assert int((got.float() != want.float()).sum()) == GELU_CARD_DIFFS
+
+
+def _serve_engine(cuda, slots=2, **kw):
+    from tinyfusers_tpu_torch.pipeline import sd
+    from tinyfusers_tpu_torch.serve import Engine
+
+    model = sd.StableDiffusion(sd.TINY, device=cuda, dtype=torch.bfloat16, seed=4)
+    return model, Engine(model, num_slots=slots, **kw)
+
+
+def _serve_request(eng, seed, steps, tok=7):
+    import numpy as np
+
+    n = eng.cfg.clip.max_length
+    return eng.make_request(np.full((n,), tok, np.int32), np.zeros((n,), np.int32),
+                            num_steps=steps, seed=seed)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_join_matches_solo(cuda):
+    """On the card, in bf16: a request that joins a busy engine mid-flight
+    gives the image it gives alone, bit for bit."""
+    from tinyfusers_tpu_torch.serve import Engine
+
+    model, eng = _serve_engine(cuda)
+    eng.submit(_serve_request(eng, seed=1, steps=5, tok=3))
+    eng.step()
+    eng.step()
+    late = _serve_request(eng, seed=5, steps=3)
+    eng.submit(late)
+    joined = {r.request_id: r.image for r in eng.run_until_idle()}[late.request_id]
+    solo = Engine(model, num_slots=2)
+    solo.submit(_serve_request(solo, seed=5, steps=3))
+    alone = solo.run_until_idle()[0].image
+    assert joined.shape == (32, 32, 3) and (joined == alone).all()
+
+
+@pytest.mark.cuda
+def test_cuda_serve_ticks_do_not_synchronize(cuda):
+    """Every tick, the one admitting requests (and staging encodes past the
+    stage window) included, runs under torch.cuda.set_sync_debug_mode
+    ("error"): nothing in it waits for the card."""
+    _, eng = _serve_engine(cuda, stage_window=2)
+    for i in range(5):
+        eng.submit(_serve_request(eng, seed=i, steps=2))
+    assert len(eng._staged) == 2 and len(eng._unstaged) == 3
+    torch.cuda.synchronize()
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while eng.core.active() or eng.core.pending():
+            got += eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got += eng.flush()
+    assert sorted(r.request_id for r in got) == [0, 1, 2, 3, 4]
+
+
+@pytest.mark.cuda
+def test_cuda_conv_rows_do_not_depend_on_their_position_under_row_invariance(cuda):
+    """SD1.5's 3x3 conv with 1280 output channels at 16x16, batch 8 (the
+    serving engine's 16x16 level): under ops.conv.RowInvariance, rolling the
+    batch rolls the result bit for bit."""
+    from tinyfusers_tpu_torch import ops
+    from tinyfusers_tpu_torch.ops.conv import RowInvariance
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((8, 16, 16, 1280), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((3, 3, 1280, 1280), generator=g, device=cuda) / 100).bfloat16()
+    b = torch.randn((1280,), generator=g, device=cuda).bfloat16()
+    with RowInvariance() as policy:
+        y = ops.conv2d(x, w, b, padding=1)
+        rolled = ops.conv2d(x.roll(1, 0), w, b, padding=1)
+    assert len(policy.apart) == 1
+    assert torch.equal(rolled, y.roll(1, 0))

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from tinyfusers_tpu.models import clip as jclip
 from tinyfusers_tpu.models import unet as junet
 from tinyfusers_tpu.models import vae as jvae
+from tinyfusers_tpu import ops as jops
 from tinyfusers_tpu_torch.io.from_jax import load_params
 from tinyfusers_tpu_torch.models import clip as tclip
 from tinyfusers_tpu_torch.models import unet as tunet
@@ -190,3 +191,43 @@ def test_vae_decode_bf16_matches_jax():
                                atol=2 ** -5)
     img = tvae.to_image(got).numpy().astype(int)
     assert np.abs(img - np.asarray(jvae.to_image(want)).astype(int)).max() <= 2
+
+
+def _bf16_diff(got: torch.Tensor, want) -> tuple:
+    """(worst |got - want|, share of the values that differ)."""
+    d = np.abs(got.float().numpy() - np.asarray(want, np.float32))
+    return float(d.max()), float(np.mean(d > 0))
+
+
+def test_resblock_bf16_against_jax_jit():
+    """One bf16 ResBlock (group norm eps 1e-5, silu, 3x3 convs, the
+    timestep projection, a 1x1 skip) against jax.jit of the JAX block.
+    Every op alone equals its jax.jit bit for bit, the convs up to their
+    summation order; under one jit XLA on the CPU feeds a conv the fp32
+    silu of its group norm where the port (and a bf16 matrix unit) takes it
+    rounded to bf16, so the block moves by an ulp in many places. The worst
+    difference is held at 2^-4 (two bf16 ulps at the output's ~5) and,
+    with the share that differs, printed."""
+    cfg_j, cfg_t = junet.UNetConfig(), tunet.UNetConfig()
+    params = random_tree(lambda k: junet._res_init(k, junet.ResSpec(64, 128), 256, cfg_j,
+                                                    jnp.float32), 3)
+    block = tunet.ResBlock(tunet.ResSpec(64, 128), 256, device="cpu", dtype=torch.bfloat16)
+    load_params(block, params)
+    x, emb = rand(4, 2, 16, 16, 64), rand(5, 2, 256)
+    pb = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    tb = lambda a: torch.from_numpy(np.asarray(a, np.float32)).bfloat16()  # noqa: E731
+    want = jax.jit(lambda p, a, e: junet._res_apply(p, a, e, cfg_j))(pb, bf(x), bf(emb))
+    with torch.no_grad():
+        got = tunet._res_apply(block, tb(x), tb(emb), cfg_t)
+        # the conv's input from the JAX side, rounded to bf16: the conv alone
+        s = jax.jit(lambda p, a: jops.silu(jops.group_norm(a, 32, p["norm1"]["weight"],
+                                                           p["norm1"]["bias"])))(pb, bf(x))
+        conv_alone = _bf16_diff(block.conv1(tb(s), padding=1), jax.jit(
+            lambda p, a: jops.conv2d(a, p["conv1"]["weight"], p["conv1"]["bias"], padding=1))(pb, s))
+    worst, share = _bf16_diff(got, want)
+    print(f"bf16 ResBlock vs jax.jit: worst |diff| {worst:.4g} at |out| max "
+          f"{np.abs(np.asarray(want, np.float32)).max():.3g}; {share:.3f} of the outputs "
+          f"differ; the first conv alone on the same bf16 input: {conv_alone[1]:.5f} differ")
+    assert got.dtype == torch.bfloat16 and worst <= 2 ** -4
+    assert conv_alone[1] < 1e-3

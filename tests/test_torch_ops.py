@@ -218,3 +218,33 @@ def test_sigmoid_family_bf16_equals_jax_jit_at_every_normal_value(name, flushed,
     assert n_flushed == flushed
     old = _UNROUNDED["silu" if name == "swish" else name](x)
     assert bf16_against_jax_jit(old, jax_fn, x)[0].numel() == unrounded
+
+
+def test_row_invariance_runs_a_position_dependent_conv_one_row_at_a_time(monkeypatch):
+    """Under ops.conv.RowInvariance a conv call shape whose rows round by
+    their position in the batch (cuDNN's split at some shapes on the card;
+    here a stand-in that adds the row index) runs one row at a time, so each
+    row equals that row convolved alone; a shape without it runs whole."""
+    from tinyfusers_tpu_torch.ops import conv as conv_mod
+
+    real = conv_mod._conv2d
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 6, 6, 8), generator=g)
+    w = torch.randn((3, 3, 8, 5), generator=g)
+    with conv_mod.RowInvariance() as plain:
+        whole = tops.conv2d(x, w, padding=1)
+    assert list(plain.apart.values()) == [False]
+    torch.testing.assert_close(whole, real(x, w, None, stride=1, padding=1, compute_dtype=None),
+                               rtol=0, atol=0)
+
+    def by_position(x, *a, **k):
+        return real(x, *a, **k) + 1e-3 * torch.arange(x.shape[0]).view(-1, 1, 1, 1)
+
+    monkeypatch.setattr(conv_mod, "_conv2d", by_position)
+    with conv_mod.RowInvariance() as policy:
+        rows = tops.conv2d(x, w, padding=1)
+        tops.conv2d(x[:1], w, padding=1)  # a batch of one is never probed
+    assert list(policy.apart.values()) == [True]
+    for i in range(4):
+        assert torch.equal(rows[i], tops.conv2d(x[i:i + 1], w, padding=1)[0])
+    assert not torch.equal(tops.conv2d(x, w, padding=1)[3], rows[3])  # outside: whole

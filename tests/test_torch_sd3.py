@@ -29,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tinyfusers_tpu import ops as jops
 from tinyfusers_tpu.models import clip as jclip
 from tinyfusers_tpu.models import dit as jdit
 from tinyfusers_tpu.models import mmdit as jmmdit
@@ -436,3 +437,48 @@ def test_entry_points_default_to_the_gpu_and_never_fall_back():
         tsd3.initial_latent(0, 1, tsd3.TINY_SD3)
     lat = tsd3.initial_latent(0, 2, tsd3.TINY_SD3, device="cpu")
     assert lat.shape == (2, 16, 16, 4) and lat.dtype == torch.float32
+
+
+def test_mmdit_block_bf16_against_jax_jit():
+    """One bf16 MMDiT block (fp32 layer norms without affine, _modulate,
+    the gated residuals, gelu_tanh, joint attention over 64 image and 16
+    text tokens) against jax.jit of the JAX block. Every op alone equals
+    its jax.jit bit for bit; under one jit XLA on the CPU feeds each layer
+    norm the unrounded fp32 residual sum x + g * proj(o), where the port
+    (and the JAX ops one by one) round it to bf16 first: the port's layer
+    norm of the fp32 sum equals the jit's bit for bit. The block's worst
+    difference is held at 2^-4 (two bf16 ulps at its outputs' ~5) and, with
+    the share that differs, printed."""
+    kw = dict(input_size=8, patch_size=2, in_channels=4, out_channels=4, dim=128, depth=1,
+              num_heads=2, context_dim=64, pooled_dim=32, context_len=8)
+    cfg_j, cfg_t = jmmdit.MMDiTConfig(**kw), tmmdit.MMDiTConfig(**kw)
+    params = random_tree(lambda k: jmmdit._block_init(k, cfg_j, jnp.float32), 5)
+    block = tmmdit._Block(cfg_t, device="cpu", dtype=torch.bfloat16)
+    load_params(block, params)
+    rng = np.random.default_rng(4)
+    img, txt, c = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((2, 64, 128), (2, 16, 128), (2, 128)))
+    pb = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    tb = lambda a: torch.from_numpy(np.asarray(a, np.float32)).bfloat16()  # noqa: E731
+    want = jax.jit(lambda p, a, b, cc: jmmdit._block(p, a, b, cc, cfg_j))(pb, bf(img), bf(txt), bf(c))
+    with torch.no_grad():
+        got = tmmdit._block(block, tb(img), tb(txt), tb(c), cfg_t)
+    for stream, g, w in zip(("image", "text"), got, want):
+        d = np.abs(g.float().numpy() - np.asarray(w, np.float32))
+        print(f"bf16 MMDiT block vs jax.jit, {stream} stream: worst |diff| {d.max():.4g} at "
+              f"|out| max {np.abs(np.asarray(w, np.float32)).max():.3g}; "
+              f"{np.mean(d > 0):.3f} of the outputs differ")
+        assert g.dtype == torch.bfloat16 and d.max() <= 2 ** -4
+    # where they part: the layer norm after the first gated residual
+    x, g1, o = img, c, rng.standard_normal((2, 64, 128)).astype(np.float32)
+    w = pb["img"]["proj"]
+    res = lambda a, gg, oo: a + gg[:, None, :] * jops.linear(oo, w["weight"], w["bias"])  # noqa: E731
+    want_ln = np.asarray(jax.jit(lambda a, gg, oo: jops.layer_norm(res(a, gg, oo)))(
+        bf(x), bf(g1), bf(o)), np.float32)
+    with torch.no_grad():
+        prod = tb(g1)[:, None, :] * block.img.proj(tb(o))
+        rounded = tops.layer_norm(tb(x) + prod).float().numpy()
+        unrounded = tops.layer_norm(tb(x).float() + prod.float()).bfloat16().float().numpy()
+    assert np.mean(rounded != want_ln) > 0.05
+    np.testing.assert_array_equal(unrounded, want_ln)

@@ -19,10 +19,20 @@ by 2^-8 of the scaled sum beyond the last rounding; the library call
 keeps the bf16 tensor cores, which an fp32 conv would give up. An
 ``Int4Tensor`` (packed along the input channels, HWIO axis 2) is
 dequantized to the compute dtype and convolved like a dense weight.
+
+Row invariance: cuDNN may split a convolution's sums by output tile, so
+that the same batch row rounds differently at another position in the
+batch (on the H100, SD1.5's 3x3 convs with 1280 output channels at 16x16
+and 32x32, batch 8). Under a ``RowInvariance`` (the serving engine's, so
+that a request's image does not depend on its slot) each conv2d call shape
+is probed once, and a shape whose rows move with their position runs one
+row at a time.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import contextvars
+import functools
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +54,38 @@ def _normalize_padding(padding: PadLike) -> Tuple[int, int, int, int]:
     raise ValueError(f"bad padding {padding}")
 
 
+_row_invariance: contextvars.ContextVar = contextvars.ContextVar("row_invariance",
+                                                                default=None)
+
+
+class RowInvariance:
+    """``with policy:`` makes every conv2d call inside compute each batch row
+    as it would at any other position in the batch. A call shape is probed
+    the first time it is seen: the conv of seeded random rows, rolled by one
+    row, against the conv of the rolled rows; where they differ, that shape
+    runs one row at a time from then on. The probe reads a result back to
+    the host, so a caller that must not wait for the device runs its calls
+    once under the policy beforehand. ``apart`` maps each probed shape to
+    whether it runs row by row."""
+
+    def __init__(self):
+        self.apart: Dict[tuple, bool] = {}
+
+    def __enter__(self) -> "RowInvariance":
+        self._token = _row_invariance.set(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _row_invariance.reset(self._token)
+
+    def rows_apart(self, key: tuple, run, x: torch.Tensor) -> bool:
+        if key not in self.apart:
+            g = torch.Generator(device=x.device).manual_seed(0)
+            rows = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+            self.apart[key] = not torch.equal(run(rows.roll(1, 0)), run(rows).roll(1, 0))
+        return self.apart[key]
+
+
 def conv2d(
     x: torch.Tensor,
     w,
@@ -55,6 +97,18 @@ def conv2d(
 ) -> torch.Tensor:
     """x (N, H, W, Cin), w (kh, kw, Cin, Cout) -> (N, H', W', Cout); w may
     be a QuantizedTensor or an Int4Tensor of that shape."""
+    run = functools.partial(_conv2d, w=w, b=b, stride=stride, padding=padding,
+                            compute_dtype=compute_dtype)
+    policy = _row_invariance.get()
+    if policy is not None and x.shape[0] > 1:
+        key = (tuple(x.shape), tuple(w.shape), stride, _normalize_padding(padding),
+               x.dtype, compute_dtype, x.device)
+        if policy.rows_apart(key, run, x):
+            return torch.cat([run(x[i:i + 1]) for i in range(x.shape[0])])
+    return run(x)
+
+
+def _conv2d(x: torch.Tensor, w, b, *, stride, padding, compute_dtype) -> torch.Tensor:
     cd = compute_dtype or x.dtype
     if isinstance(w, Int4Tensor):
         w = w.dequantize(cd)

@@ -18,4 +18,5 @@ def embedding(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     vocab = weight.shape[0]
     valid = (ids >= -vocab) & (ids < vocab)
     rows = weight[torch.where(valid, ids, 0)]
-    return torch.where(valid[..., None], rows, rows.new_tensor(float("nan")))
+    # the fill value goes to the kernel as an argument: no host-to-device copy
+    return rows.masked_fill(~valid[..., None], float("nan"))

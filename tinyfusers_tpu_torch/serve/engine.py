@@ -1,0 +1,382 @@
+"""Continuous-batching generation engine (port of
+tinyfusers_tpu/serve/engine.py).
+
+- The device holds S fixed slots: latents (S, h, w, c) and contexts
+  (2S, T, D) = [uncond(S) ‖ cond(S)], in the UNet's dtype. One denoise
+  step runs the UNet on all 2S rows with per-slot timesteps, guidance and
+  DDIM alphas, so requests at different progress points batch together,
+  a finished request vacates its slot at a step boundary and a queued one
+  joins mid-flight. Shapes never change, so every tick launches the same
+  kernels at the same shapes. The step runs under an
+  ``ops.conv.RowInvariance``, probed once at construction, so that a
+  request's image does not depend on its slot: cuDNN rounds some
+  convolutions' rows by their position in the batch, and those run one
+  row at a time.
+- Slot and queue bookkeeping runs in the C++ core (native/scheduler.cpp
+  through ctypes), with a pure-Python core of the same semantics.
+- Nothing in a tick waits for the device. The CLIP encode ([uncond ‖
+  cond] in one call) and the seeded initial latent are issued at
+  submit(), for at most ``stage_window`` queued requests, and admission
+  copies them into the slot buffers on the device. The per-slot control
+  vectors are built on the host in numpy and uploaded from pinned memory
+  without blocking. Each completion's VAE decode is issued at once and
+  copied to pinned host memory without blocking, behind a CUDA event; a
+  later tick hands it out once the event has passed (flush() waits).
+- The engine refuses what it would get wrong: a v-prediction model (the
+  JAX engine feeds v to the DDIM update as if it were epsilon) and a
+  device mesh (the sharded, multi-host engine is not ported yet).
+"""
+from __future__ import annotations
+
+import ctypes
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models import unet as unet_model
+from ..models import vae as vae_model
+from ..ops.conv import RowInvariance
+from ..pipeline import ddim, sd
+
+
+@dataclass
+class Request:
+    request_id: int
+    prompt_ids: np.ndarray       # (T,) int token ids
+    uncond_ids: np.ndarray       # (T,)
+    num_steps: int = 20
+    guidance: float = 7.5
+    seed: int = 0
+
+
+@dataclass
+class Result:
+    request_id: int
+    image: np.ndarray            # (H, W, 3) uint8
+
+
+class _PySchedulerCore:
+    """Pure-Python core with native/scheduler.cpp's semantics."""
+
+    def __init__(self, num_slots: int):
+        self.queue: List = []
+        self.slots = [None] * num_slots  # None | [request_id, remaining]
+
+    def submit(self, rid: int, steps: int):
+        self.queue.append((rid, steps))
+        return len(self.queue)
+
+    def assign(self):
+        out = []
+        for i, s in enumerate(self.slots):
+            if s is None and self.queue:
+                rid, steps = self.queue.pop(0)
+                self.slots[i] = [rid, steps]
+                out.append((rid, i, steps))
+        return out
+
+    def tick(self):
+        done = []
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            s[1] -= 1
+            if s[1] <= 0:
+                done.append((s[0], i))
+                self.slots[i] = None
+        return done
+
+    def active(self):
+        return sum(1 for s in self.slots if s is not None)
+
+    def pending(self):
+        return len(self.queue)
+
+    def remaining(self, slot: int) -> int:
+        s = self.slots[slot]
+        return s[1] if s else 0
+
+
+class _NativeSchedulerCore:
+    def __init__(self, lib, num_slots: int):
+        self._lib = lib
+        self._h = lib.tf_sched_create(num_slots)
+        self._cap = num_slots
+
+    def submit(self, rid, steps):
+        return self._lib.tf_sched_submit(self._h, rid, steps)
+
+    def assign(self):
+        req = (ctypes.c_long * self._cap)()
+        slot = (ctypes.c_int * self._cap)()
+        steps = (ctypes.c_int * self._cap)()
+        n = self._lib.tf_sched_assign(self._h, req, slot, steps, self._cap)
+        return [(req[i], slot[i], steps[i]) for i in range(n)]
+
+    def tick(self):
+        req = (ctypes.c_long * self._cap)()
+        slot = (ctypes.c_int * self._cap)()
+        n = self._lib.tf_sched_tick(self._h, req, slot, self._cap)
+        return [(req[i], slot[i]) for i in range(n)]
+
+    def active(self):
+        return self._lib.tf_sched_active(self._h)
+
+    def pending(self):
+        return self._lib.tf_sched_pending(self._h)
+
+    def remaining(self, slot):
+        return self._lib.tf_sched_slot_steps_remaining(self._h, slot)
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.tf_sched_destroy(self._h)
+
+
+def make_scheduler_core(num_slots: int, prefer_native: bool = True):
+    if prefer_native:
+        from ..native import get_lib
+
+        lib = get_lib()
+        if lib is not None:
+            return _NativeSchedulerCore(lib, num_slots)
+    return _PySchedulerCore(num_slots)
+
+
+# rows of the per-tick control block uploaded to the device
+_T, _A_T, _A_PREV, _ACTIVE, _GUIDANCE = range(5)
+
+
+class Engine:
+    def __init__(
+        self,
+        model: sd.StableDiffusion,
+        cfg: Optional[sd.SDConfig] = None,
+        *,
+        num_slots: int = 4,
+        prefer_native: bool = True,
+        mesh=None,
+        stage_window: Optional[int] = None,
+    ):
+        """model: a pipeline.sd.StableDiffusion; the engine runs on its
+        device in its UNet's dtype. cfg, if given, must be model.cfg.
+
+        stage_window: how many queued requests may hold issued device
+        state (CLIP context + initial latent) ahead of admission; default
+        2 x num_slots, so a deep queue holds O(slots) device memory, not
+        O(queue), and the window is topped up as slots are assigned."""
+        cfg = model.cfg if cfg is None else cfg
+        if cfg != model.cfg:
+            raise ValueError("Engine: cfg is not the model's config")
+        if cfg.prediction_type != "epsilon":
+            raise ValueError(
+                f"Engine: prediction_type {cfg.prediction_type!r} is not served: the "
+                "slot step's DDIM update takes epsilon predictions (the JAX engine "
+                "would treat v as epsilon and return a wrong image)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "Engine: the sharded, multi-host engine (mesh, sync_decision) waits "
+                "for the parallelism port (ROADMAP §1 item 9)")
+        param = next(model.unet.parameters())
+        self.model = model
+        self.cfg = cfg
+        self.S = num_slots
+        self.device = param.device
+        self.dtype = param.dtype
+        self.core = make_scheduler_core(num_slots, prefer_native)
+        h, w, c = cfg.latent_shape
+        self.latents = torch.zeros((num_slots, h, w, c), dtype=self.dtype, device=self.device)
+        self.contexts = torch.zeros((2 * num_slots, cfg.clip.max_length, cfg.clip.dim),
+                                    dtype=self.dtype, device=self.device)
+        self.guidance = np.zeros((num_slots,), np.float32)
+        self._steps_total: Dict[int, int] = {}     # slot -> total steps
+        self._ladders: Dict[int, np.ndarray] = {}  # per distinct num_steps
+        self._acp = ddim.alphas_cumprod().numpy()  # host copy, read once
+        self._next_rid = 0
+        self._requests: Dict[int, Request] = {}    # in flight and queued only
+        # (rid, host uint8 image, CUDA event of its copy or None on the CPU)
+        self._pending_decodes: List = []
+        # rid -> (ctx2 (2, T, D) [uncond ‖ cond], lat0 (1, h, w, c)) on the
+        # device, for at most stage_window queued requests; the overflow
+        # stages in FIFO order (the scheduler core's) as the window drains.
+        self._staged: Dict[int, tuple] = {}
+        self._unstaged: List[int] = []
+        self.stage_window = 2 * num_slots if stage_window is None else stage_window
+        # time-to-first-image observability (serving cold-start metric)
+        self.stats = {"submitted": 0, "completed": 0,
+                      "first_submit_t": None, "first_result_s": None}
+        # one step on the empty slots probes every convolution of the step
+        # now, so that no tick reads back
+        self._rows = RowInvariance()
+        with torch.inference_mode(), self._rows:
+            zero = torch.zeros((num_slots,), dtype=torch.float32, device=self.device)
+            self._slot_step(model.unet, self.latents, self.contexts, zero, zero, zero + 1.0,
+                            zero + 1.0, zero > 0)
+
+    # -- the per-tick step over all slots ---------------------------------
+
+    @staticmethod
+    def _slot_step(unet, latents, contexts, guidance, t, a_t, a_prev, active):
+        """Denoise every slot by one step: latents (S, h, w, c), contexts
+        (2S, T, D), the rest (S,); inactive slots keep their latents."""
+        s = latents.shape[0]
+        eps = unet_model.apply(unet, torch.cat([latents, latents], dim=0),
+                               torch.cat([t, t], dim=0), contexts)
+        e_t = ddim.cfg_combine(eps[:s], eps[s:], guidance[:, None, None, None])
+        new = ddim.ddim_step(latents, e_t, a_t[:, None, None, None],
+                             a_prev[:, None, None, None])
+        return torch.where(active[:, None, None, None], new, latents)
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device without waiting: copied from
+        a pinned buffer of its own (the caching host allocator hands the
+        buffer out again only after the copy's event has passed)."""
+        x = torch.from_numpy(host)
+        if self.device.type != "cuda":
+            return x
+        return x.pin_memory().to(self.device, non_blocking=True)
+
+    # -- public API ---------------------------------------------------------
+
+    @torch.inference_mode()
+    def submit(self, req: Request) -> int:
+        self.core.submit(req.request_id, req.num_steps)
+        self._requests[req.request_id] = req
+        if self.stats["first_submit_t"] is None:
+            self.stats["first_submit_t"] = time.perf_counter()
+        self.stats["submitted"] += 1
+        # Issue the encode and the initial latent now, so that admission
+        # finds them on the device; only the first stage_window queued
+        # requests hold device state.
+        if len(self._staged) < self.stage_window:
+            self._stage(req)
+        else:
+            self._unstaged.append(req.request_id)
+        return req.request_id
+
+    def _stage(self, req: Request) -> None:
+        ids2 = np.stack([np.asarray(req.uncond_ids), np.asarray(req.prompt_ids)]).astype(np.int64)
+        ctx2 = sd.encode_text(self.model, self._upload(ids2))
+        lat0 = sd.initial_latent(req.seed, 1, self.cfg, device=self.device, dtype=self.dtype)
+        self._staged[req.request_id] = (ctx2, lat0)
+
+    def _inject(self, slot: int, lat0: torch.Tensor, ctx2: torch.Tensor) -> None:
+        """One admitted request's state into its slot, on the device."""
+        self.latents[slot] = lat0[0]
+        self.contexts[slot] = ctx2[0]
+        self.contexts[slot + self.S] = ctx2[1]
+
+    def reset(self) -> None:
+        """Drop all queued and in-flight state; keep the model and the
+        device buffers (failure recovery reuses them)."""
+        self.core = make_scheduler_core(self.S, isinstance(self.core, _NativeSchedulerCore))
+        self._steps_total.clear()
+        self._requests.clear()
+        self._pending_decodes.clear()
+        self._staged.clear()
+        self._unstaged.clear()
+        self.guidance[:] = 0.0
+
+    def make_request(self, prompt_ids, uncond_ids, *, num_steps=20,
+                     guidance=7.5, seed=0) -> Request:
+        rid = self._next_rid
+        self._next_rid += 1
+        return Request(rid, np.asarray(prompt_ids), np.asarray(uncond_ids),
+                       num_steps, guidance, seed)
+
+    def _ladder(self, num_steps: int) -> np.ndarray:
+        if num_steps not in self._ladders:
+            self._ladders[num_steps] = ddim.ddim_timesteps_np(num_steps)
+        return self._ladders[num_steps]
+
+    @torch.inference_mode()
+    def step(self) -> List[Result]:
+        """One scheduler tick: admit, denoise every active slot by one
+        step, issue the decodes of completions, hand out the decoded
+        results that are ready. Nothing here waits for the device."""
+        for rid, slot, steps in self.core.assign():
+            req = self._requests[rid]
+            self._steps_total[slot] = steps
+            self.guidance[slot] = req.guidance
+            if rid not in self._staged:  # beyond the window: stage now
+                self._unstaged.remove(rid)
+                self._stage(req)
+            ctx2, lat0 = self._staged.pop(rid)
+            self._inject(slot, lat0, ctx2)
+        # top the window back up (FIFO), so the next admissions find their
+        # encodes already issued
+        while self._unstaged and len(self._staged) < self.stage_window:
+            nxt = self._unstaged.pop(0)
+            if nxt in self._requests:
+                self._stage(self._requests[nxt])
+
+        # per-slot (t, a_t, a_prev) from the remaining counts; inactive
+        # slots get the identity (a_t = a_prev = 1)
+        ctl = np.zeros((5, self.S), np.float32)
+        ctl[_A_T] = ctl[_A_PREV] = 1.0
+        ctl[_GUIDANCE] = self.guidance
+        for slot in range(self.S):
+            rem = self.core.remaining(slot)
+            if rem <= 0:
+                continue
+            ladder = self._ladder(self._steps_total[slot])
+            idx = rem - 1  # remaining steps -> position in the ascending ladder
+            ts = ladder[idx]
+            ctl[_T, slot] = ts
+            ctl[_A_T, slot] = self._acp[ts]
+            ctl[_A_PREV, slot] = self._acp[ladder[idx - 1]] if idx > 0 else 1.0
+            ctl[_ACTIVE, slot] = 1.0
+
+        if ctl[_ACTIVE].any():
+            v = self._upload(ctl)
+            with self._rows:
+                self.latents.copy_(self._slot_step(
+                    self.model.unet, self.latents, self.contexts, v[_GUIDANCE], v[_T],
+                    v[_A_T], v[_A_PREV], v[_ACTIVE] > 0.5))
+
+        for rid, slot in self.core.tick():
+            img = vae_model.to_image(
+                vae_model.decode(self.model.vae, self.latents[slot:slot + 1]))[0]
+            event = None
+            if img.is_cuda:  # copy out behind an event, harvested when it passed
+                host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+                host.copy_(img, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+                img = host
+            self._pending_decodes.append((rid, img, event))
+            self._steps_total.pop(slot, None)
+            self._requests.pop(rid, None)
+        return self._harvest(block=False)
+
+    def _harvest(self, block: bool) -> List[Result]:
+        done, still = [], []
+        for rid, img, event in self._pending_decodes:
+            if event is not None and block:
+                event.synchronize()
+            if event is None or block or event.query():
+                done.append(Result(rid, img.numpy()))
+                if self.stats["first_result_s"] is None:
+                    self.stats["first_result_s"] = (
+                        time.perf_counter() - self.stats["first_submit_t"])
+                self.stats["completed"] += 1
+            else:
+                still.append((rid, img, event))
+        self._pending_decodes = still
+        return done
+
+    def flush(self) -> List[Result]:
+        """Wait for and return every outstanding decoded result."""
+        return self._harvest(block=True)
+
+    def run_until_idle(self, max_ticks: int = 10000) -> List[Result]:
+        out = []
+        for _ in range(max_ticks):
+            if not (self.core.active() or self.core.pending()):
+                break
+            out.extend(self.step())
+        out.extend(self.flush())
+        return out
