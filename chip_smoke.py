@@ -8,8 +8,9 @@ and with a weight-only int8, fp8 or int4 UNet, its SD3-medium path
 weights made on the card, its SD2.1-v path from a checkpoint file
 through the port's CLI, SD1.5 with a ControlNet from a checkpoint
 file, DeepCache, FreeU, the hires fix, img2img and inpainting,
-SDXL-base from a checkpoint file through the CLI, and SD1.5 served by the
-continuous-batching engine over 4 slots, and holds every
+SDXL-base from a checkpoint file through the CLI, SD1.5 served by the
+continuous-batching engine over 4 slots, and SD1.5 fine-tuned through the
+two training CLIs' jobs (all of the UNet, and rank-8 LoRA), and holds every
 hand-written CUDA kernel of those paths against its plain PyTorch
 version. Imports neither jax nor
 tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
@@ -184,11 +185,40 @@ Phases, one or more lines each:
    1,200 at the four SDXL shapes; 1,400 geglu: 200 / 1,200; 1 flash_bhsd
    at (1, 16384, 16384, 512));
 6x. profile: one more SDXL image under ``torch.profiler``, as phase 6;
+3g. [train-grad] (in phase 3): flash_packed at the training step's four
+   batch-4 shapes and flash_bhsd at the 512x512 VAE's, geglu at the
+   training step's four (M, K, N), bf16 and fp32: the gradients through
+   the kernels' autograd Functions (``flash_packed_diff``,
+   ``flash_bhsd_diff``, ``geglu_matmul_diff``: the kernel forward, one
+   launch each) against autograd through the plain versions, with the
+   tolerance (GRAD_TOL); phase 3 itself also times flash_packed and geglu
+   at those shapes;
+5f. training: [train-grad-unet] the full-width SD1.5 UNet in fp32 at
+   batch 1 on a 64x64 latent, every parameter's gradient with the kernels
+   (20 flash_packed, 16 geglu) against the same model with the plain
+   versions in their place, per tensor within UNET_GRAD_TOL, every
+   parameter with a finite non-zero gradient; [train] the job of
+   ``examples/train_full_torch.py --preset sd15 --batch 4 --optimizer adamw
+   --remat`` (bf16, seeded synthetic pairs): a warm-up step, then 10 steps
+   with the launches checked exactly (40 flash_packed and 32 geglu a step,
+   remat running each forward twice, at the phase-3 training shapes, on the
+   wgmma variants), finite losses and gradient norms, steps/s and
+   samples/s, the first step's seconds, held and peak memory, the
+   optimizer state's bytes and one profiled step's busy share;
+   [train-overfit] 20 steps on one batch with t and noise fixed: the loss
+   must fall (the last below the first, the last five's mean below the
+   first five's); [train-resume] that job's train
+   state written by ``train.save_train_state`` (the JAX package's keys and
+   layouts) and read back bit for bit; [train-lora] the same for
+   ``examples/train_lora_torch.py`` (rank 8 over a frozen bf16 base, no
+   remat: 20 flash_packed and 16 geglu a step) and [train-lora-overfit],
+   with every base tensor unchanged bit for bit;
 7. the ``kernels`` JSON line: per kernel the main paths' launches (for
    the quant matmuls, those of the quantized images; flash_packed's SD3
    calls, the counterpart of the TPU's multi-k kernel, as their own
    entry; the SDXL image's under the path "sdxl", the serving run's under
-   "serve"), and per shape the launches counted there beside the per-call
+   "serve", the fine-tunes' steps under "train" and "train_lora"), and per
+   shape the launches counted there beside the per-call
    times of phase 3; the per-image times are those counts times those
    per-call times. Then nvidia-smi's line again, then the last line
    ``{"ok": true, ...}``.
@@ -338,6 +368,29 @@ B1_GEGLU_SHAPES = [("B=1 64x64", (4096, 1280, 320), None),
                    ("B=1 32x32", (1024, 2560, 640), None),
                    ("B=1 16x16", (256, 5120, 1280), None),
                    ("B=1 8x8 mid", (64, 5120, 1280), None)]
+# ... and the training step's (examples/train_full_torch.py and
+# train_lora_torch.py at --preset sd15 --batch 4: 64x64 latents, no CFG):
+# flash_packed 20 and geglu 16 a UNet forward, twice a step with remat.
+TRAIN_BATCH = 4
+TRAIN_PACKED_SHAPES = [("train 64x64 self", (4, 4096, 4096, 320, 8, 4096)),
+                       ("train 64x64 cross", (4, 4096, 77, 320, 8, 77)),
+                       ("train 32x32 self", (4, 1024, 1024, 640, 8, 1024)),
+                       ("train 32x32 cross", (4, 1024, 77, 640, 8, 77))]
+TRAIN_GEGLU_SHAPES = [("train 64x64", (16384, 1280, 320), None),
+                      ("train 32x32", (4096, 2560, 640), None),
+                      ("train 16x16", (1024, 5120, 1280), None),
+                      ("train 8x8 mid", (256, 5120, 1280), None)]  # B=1 16x16's too
+TRAIN_STEPS = 10      # timed steps of each training job, after one warm-up step
+OVERFIT_STEPS = 20    # steps on one repeated batch, t and noise fixed
+# Gradients through the autograd Functions (the kernel forward, the exact-math
+# backward) against autograd through the plain versions, ||d|| / ||plain||:
+# in bf16 the plain versions round otherwise (q's base-2 prescale in bf16, the
+# A-S erf and its rounded product), at most 6.2e-3 (attention) and 3.8e-3
+# (GEGLU) on the CPU at these widths; fp32 differs in summation order only.
+GRAD_TOL = {torch.bfloat16: 1.5e-2, torch.float32: 1e-5}
+# The full-width SD1.5 UNet's parameter gradients in fp32, kernels against
+# plain versions, per tensor: summation orders compounded through the network.
+UNET_GRAD_TOL = 1e-3
 QUANT_F32 = [(2, 1280, 320), (154, 768, 640), (2048, 640, 640), (512, 5120, 1280)]
 # The int4 shapes whose weight bytes, not x's, dominate (the tinygemm regime).
 SMALL_M = 154
@@ -566,11 +619,13 @@ def main() -> None:
 
     from tinyfusers_tpu_torch.kernels import _build
     from tinyfusers_tpu_torch.kernels.flash_attention import (
-        _plan, flash_bhsd, flash_bhsd_plain, flash_packed, flash_packed_plain)
+        _plan, flash_bhsd, flash_bhsd_diff, flash_bhsd_plain, flash_packed, flash_packed_diff,
+        flash_packed_plain)
     from tinyfusers_tpu_torch.io import checkpoints
     from tinyfusers_tpu_torch.io.quantize_tree import quantize_params
     from tinyfusers_tpu_torch.kernels.geglu_ff import _plan as geglu_plan
-    from tinyfusers_tpu_torch.kernels.geglu_ff import erf_as, geglu_matmul, geglu_matmul_plain
+    from tinyfusers_tpu_torch.kernels.geglu_ff import (
+        erf_as, geglu_matmul, geglu_matmul_diff, geglu_matmul_plain)
     from tinyfusers_tpu_torch.kernels.quant_matmul import _plan as quant_plan
     from tinyfusers_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
@@ -796,7 +851,7 @@ def main() -> None:
         if dt == torch.bfloat16:  # the hires fix's, the batch-1 branches', SDXL's, serving's
             packed_rows += [("flash_packed", *row)
                             for row in HIRES_PACKED_SHAPES + B1_PACKED_SHAPES
-                            + XL_PACKED_SHAPES + SERVE_PACKED_SHAPES]
+                            + XL_PACKED_SHAPES + SERVE_PACKED_SHAPES + TRAIN_PACKED_SHAPES]
         for entry, label, (b, sq, sk, c, h, kvl) in packed_rows:
             q, k, v = randn(b, sq, c, dtype=dt), randn(b, sk, c, dtype=dt), randn(b, sk, c, dtype=dt)
             reset_counts()
@@ -846,6 +901,8 @@ def main() -> None:
         geglu_rows = GEGLU_SHAPES + SD21_GEGLU_SHAPES
         if dt == torch.bfloat16:
             geglu_rows = geglu_rows + HIRES_GEGLU_SHAPES + B1_GEGLU_SHAPES
+            geglu_rows += [row for row in TRAIN_GEGLU_SHAPES
+                           if row[1] not in {r[1] for r in geglu_rows}]
         for label, (m, kd, nd), _ in geglu_rows:
             proj = randn(m, 2 * kd, dtype=dt)
             gx, gate = proj.chunk(2, dim=-1)  # strided halves, as in the UNet
@@ -1000,6 +1057,70 @@ def main() -> None:
             say(f"[kernel] {kname} {qname} per image over {label}: kernel {per['ms']:.3f} ms, "
                 f"library {lib}, dense {per['dense_ms']:.3f}, bound {per['bound_ms']:.3f} "
                 f"({sum(n for n, _ in rows)} launches)")
+
+    # [train-grad] the kernels' autograd Functions at the training shapes
+    def grads(fn, inputs, cot):
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        fn(*leaves).backward(cot)
+        return [x.grad for x in leaves]
+
+    grad_worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        cases = [("flash_packed", label, ((b, sq, c), (b, sk, c)), h, kvl)
+                 for label, (b, sq, sk, c, h, kvl) in TRAIN_PACKED_SHAPES]
+        bhsd_label, (bh, bsq, bsk, bd) = BHSD_SHAPES[0]  # off the training path
+        cases.append(("flash_bhsd", bhsd_label, ((1, bh, bsq, bd), (1, bh, bsk, bd)), None,
+                      None))
+        for kname, label, (q_shape, k_shape), h, kvl in cases:
+            q, cot = randn(*q_shape, dtype=dt), randn(*q_shape, dtype=dt)
+            k, v = randn(*k_shape, dtype=dt), randn(*k_shape, dtype=dt)
+            if kname == "flash_packed":
+                fn = lambda q, k, v: flash_packed_diff(q, k, v, heads=h, kv_len=kvl)  # noqa: E731
+                ref = lambda q, k, v: flash_packed_plain(q, k, v, heads=h, kv_len=kvl)  # noqa: E731
+            else:
+                fn, ref = flash_bhsd_diff, flash_bhsd_plain
+            reset_counts()
+            got = grads(fn, (q, k, v), cot)
+            torch.cuda.synchronize()
+            if wrappers[kname].launches != 1:
+                fail(f"[train-grad] {kname} {label}: {wrappers[kname].launches} launches, want 1")
+            want = grads(ref, (q, k, v), cot)
+            rels = {n: rel_err(g_, w_)[1] for n, g_, w_ in zip("qkv", got, want)}
+            grad_worst[(kname, dt)] = max(grad_worst.get((kname, dt), 0.0), *rels.values())
+            say(f"[train-grad] {kname} {label} {str(dt)[6:]}: gradient rel err "
+                f"{' '.join(f'd{n}={r:.3e}' for n, r in rels.items())} (tol {GRAD_TOL[dt]:.1e})")
+            if not all(r <= GRAD_TOL[dt] for r in rels.values()) or not all(
+                    g_.abs().sum() > 0 for g_ in got):
+                fail(f"[train-grad] {kname} {label} {dt}: gradients {rels}")
+            del q, k, v, cot, got, want
+        for label, (m, kd, nd), _ in TRAIN_GEGLU_SHAPES:
+            proj = randn(m, 2 * kd, dtype=dt)
+            w = (randn(nd, kd, dtype=torch.float32) * kd ** -0.5).to(dt).t()
+            bias, cot = randn(nd, dtype=dt), randn(m, nd, dtype=dt)
+
+            def through(fn):
+                p_, w_, b_ = (x.detach().requires_grad_() for x in (proj, w, bias))
+                gx, gate = p_.chunk(2, dim=-1)  # strided halves, as in the UNet
+                fn(gx, gate, w_, b_).backward(cot)
+                return p_.grad[:, :kd], p_.grad[:, kd:], w_.grad, b_.grad
+
+            reset_counts()
+            got = through(geglu_matmul_diff)
+            torch.cuda.synchronize()
+            if geglu_matmul.launches != 1:
+                fail(f"[train-grad] geglu {label}: {geglu_matmul.launches} launches, want 1")
+            want = through(geglu_matmul_plain)
+            rels = {n: rel_err(g_, w_)[1] for n, g_, w_ in zip(("gx", "gate", "w", "b"), got,
+                                                                   want)}
+            grad_worst[("geglu", dt)] = max(grad_worst.get(("geglu", dt), 0.0), *rels.values())
+            say(f"[train-grad] geglu {label} ({m},{kd},{nd}) {str(dt)[6:]}: gradient rel err "
+                f"{' '.join(f'd{n}={r:.3e}' for n, r in rels.items())} (tol {GRAD_TOL[dt]:.1e})")
+            if not all(r <= GRAD_TOL[dt] for r in rels.values()):
+                fail(f"[train-grad] geglu {label} {dt}: gradients {rels}")
+            del proj, w, bias, cot, got, want
+        torch.cuda.empty_cache()
+    say(f"[train-grad] worst gradient rel err by kernel and dtype: "
+        f"{ {f'{k} {str(d)[6:]}': round(v, 7) for (k, d), v in grad_worst.items()} }")
 
     stamp("3 (kernels)")
 
@@ -2054,6 +2175,213 @@ def main() -> None:
 
     stamp("5x, 6x (SDXL)")
 
+    # 5f. training: the UNet's gradients through the kernels, the two
+    # fine-tune CLIs' jobs, a train-state file ------------------------------
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_full_torch
+    import train_lora_torch
+
+    from tinyfusers_tpu_torch import train as train_mod
+    from tinyfusers_tpu_torch.models.layers import set_trainable
+
+    # the modules (the ops package's ``linear`` is the function of that name)
+    attention_ops = sys.modules["tinyfusers_tpu_torch.ops.attention"]
+    linear_ops = sys.modules["tinyfusers_tpu_torch.ops.linear"]
+
+    def plain_kernels(on: bool):
+        """Route the ops' kernel calls through the plain versions (autograd
+        differentiates them) or back through the kernels' Functions."""
+        attention_ops.flash_packed_diff = flash_packed_plain if on else flash_packed_diff
+        linear_ops.geglu_matmul_diff = geglu_matmul_plain if on else geglu_matmul_diff
+
+    # [train-grad-unet] the full-width SD1.5 UNet, fp32, batch 1 at 64x64
+    ucfg = sd.SD15.unet
+    unet_t = unet_mod.UNet(ucfg, device=dev, dtype=torch.float32)
+    init_weights(unet_t, seed=21)
+    params_t = train_mod.params_of(set_trainable(unet_t), trainable_only=True)
+    g_t = torch.Generator(device=dev).manual_seed(22)
+    x_t = torch.randn(1, 64, 64, ucfg.in_channels, generator=g_t, device=dev)
+    ctx_t = torch.randn(1, 77, ucfg.context_dim, generator=g_t, device=dev)
+    cot_t = torch.randn(1, 64, 64, ucfg.out_channels, generator=g_t, device=dev)
+    t_t = torch.tensor([500], dtype=torch.int32, device=dev)
+    apply_t = train_mod.module_apply(unet_t)
+
+    def unet_grads():
+        return train_mod.step.value_and_grad(
+            lambda prm: (apply_t(prm, x_t, t_t, ctx_t) * cot_t).sum(), params_t)[1]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    g_kernel = unet_grads()
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    want_t = unet_launches(ucfg, 64, 1)
+    got_t = (dict(flash_packed.shapes), dict(geglu_matmul.shapes))
+    if got_t != want_t:
+        fail(f"[train-grad-unet] launches by shape {got_t}, want {want_t}")
+    plain_kernels(True)
+    try:
+        g_plain = unet_grads()
+    finally:
+        plain_kernels(False)
+    rels = {n: rel_err(g_kernel[n], g_plain[n])[1] for n in params_t}
+    dead = [n for n, gr in g_kernel.items()
+            if gr is None or not torch.isfinite(gr).all() or not gr.abs().sum() > 0]
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+    say(f"[train-grad-unet] SD1.5 UNet fp32 batch 1 64x64: {len(params_t)} parameter tensors "
+        f"({sum(p.numel() for p in params_t.values()) / 1e6:.1f}M), gradients with the kernels "
+        f"({sum(want_t[0].values())} flash_packed, {sum(want_t[1].values())} geglu; "
+        f"{kernel_s:.2f} s) against the plain versions: worst per-tensor rel err "
+        f"{[(n, f'{r:.3e}') for n, r in worst]} (tol {UNET_GRAD_TOL:.1e}); median "
+        f"{sorted(rels.values())[len(rels) // 2]:.3e}; without a finite non-zero gradient: "
+        f"{len(dead)}")
+    if dead or worst[0][1] > UNET_GRAD_TOL:
+        fail(f"[train-grad-unet] {dead[:8]} without gradients, worst {worst}")
+    del unet_t, params_t, g_kernel, g_plain, apply_t
+    torch.cuda.empty_cache()
+
+    step_pass = unet_launches(sd15.unet, 64, TRAIN_BATCH)  # one UNet forward at batch 4
+
+    def build_job(cli, argv):
+        """A CLI's job as its main() builds it, and the seconds it took."""
+        t0 = time.perf_counter()
+        job = cli.build(cli.parse_args(argv))
+        torch.cuda.synchronize()
+        return job, time.perf_counter() - t0
+
+    def train_job(tag, job, build_s, remat, what):
+        """A warm-up step of a CLI's job, then TRAIN_STEPS steps with the
+        counts checked exactly (twice the forward's launches a step with
+        remat), finite losses and gradient norms, steps/s, memory, and one
+        profiled step's busy share; the counts go to the kernels line."""
+        t0 = time.perf_counter()
+        m = job.step()
+        loss0 = float(m["loss"])
+        first_s = time.perf_counter() - t0
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = [job.step() for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {kn: w.launches for kn, w in wrappers.items()}
+        counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+        by_variant = variants()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [loss0] + [float(mt["loss"]) for mt in metrics]
+        gnorms = [float(mt["grad_norm"]) for mt in metrics]
+        want = launches_of((TRAIN_STEPS * (2 if remat else 1), step_pass))
+        want_shapes = {kn: {} for kn in wrappers}
+        want_shapes.update(flash_packed=want[0], geglu=want[1])
+        want_by_variant = want_variants_of(want[0], {}, want[1])
+        say(f"[{tag}] launches in {TRAIN_STEPS} steps: {counts}; shapes {counted}; flash and "
+            f"geglu launches by variant {by_variant}")
+        if (counted != want_shapes or by_variant != want_by_variant
+                or set(by_variant["flash_packed"]) - set(WGMMA)):
+            fail(f"[{tag}] shapes {counted}, variants {by_variant} against {want_shapes}, "
+                 f"{want_by_variant}")
+        for kn, by_shape in counted.items():
+            if set(by_shape) - measured(kn):
+                fail(f"[{tag}] {kn}: shapes {by_shape} not all measured in phase 3")
+        if not all(map(lambda v: v == v and abs(v) < float("inf"), losses + gnorms)):
+            fail(f"[{tag}] losses {losses}, gradient norms {gnorms} not all finite")
+        prof = profile(job.step, host_ops=True)
+        say(f"[{tag}] {what}: {TRAIN_STEPS / secs:.3f} steps/s, "
+            f"{TRAIN_STEPS * TRAIN_BATCH / secs:.3f} samples/s over {TRAIN_STEPS} steps "
+            f"({secs:.2f} s); model built in {build_s:.2f} s, first step {first_s:.2f} s; "
+            f"held {held_gb:.2f} GB after it, peak {peak_gb:.2f} GB in the steps; optimizer "
+            f"state {train_mod.optim.state_bytes(job.state.opt_state) / 1e9:.3f} GB; losses "
+            f"{[round(v, 4) for v in losses]}; gradient norms {[round(v, 3) for v in gnorms]}; "
+            f"one profiled step: host {prof['host_s']:.3f} s, device {prof['device_ms']:.1f} ms "
+            f"in {prof['device_kernels']} kernels, busy share {prof['device_busy_share']:.3f}, "
+            f"by group {json.dumps(prof['groups_ms'])}, host's top ops "
+            f"{json.dumps(prof['host_top_ops'])}; card {card}")
+        extra_paths[tag.replace("-", "_")] = (counts, counted)
+        return job
+
+    def overfit(tag, job):
+        """OVERFIT_STEPS steps on one batch with the same t and noise each
+        step (the generator reseeded): a fixed regression the optimizer must
+        drive down, as the JAX package's test_overfit_tiny_unet does. The
+        losses then depend on nothing random: the last must be below the
+        first, and the last five's mean below the first five's."""
+        batch = job.batches()
+        losses = []
+        for _ in range(OVERFIT_STEPS):
+            job.generator.manual_seed(7)
+            losses.append(float(job.step(batch)["loss"]))
+        say(f"[{tag}] {OVERFIT_STEPS} steps on one batch, t and noise fixed: losses "
+            f"{[round(v, 4) for v in losses]}; last / first {losses[-1] / losses[0]:.4f}")
+        if not (losses[-1] < losses[0] and sum(losses[-5:]) < sum(losses[:5])):
+            fail(f"[{tag}] the loss did not fall: {losses}")
+
+    # [train-full] examples/train_full_torch.py's job: all of the UNet, AdamW, remat
+    full_argv = ["--preset", "sd15", "--batch", str(TRAIN_BATCH), "--optimizer", "adamw",
+                 "--remat", "--lr", "1e-4"]
+    job = train_job("train", *build_job(train_full_torch, full_argv), True,
+                    "SD1.5 full fine-tune bf16 batch 4 64x64, AdamW, remat "
+                    "(examples/train_full_torch.py " + " ".join(full_argv) + ")")
+    overfit("train-overfit", job)
+
+    # [train-resume] the job's train state: a file, read back bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "train_state.safetensors"
+        need = train_mod.optim.state_bytes((job.state.params, job.state.opt_state))
+        free = shutil.disk_usage(tmp).free
+        if free < need * 1.2:
+            fail(f"{tmp} has {free / 1e9:.1f} GB free, the train state needs {need / 1e9:.1f}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_mod.save_train_state(job.state, path, job.layouts)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = train_mod.load_train_state(job.state, path, job.layouts)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size_gb = path.stat().st_size / 1e9
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        items = tree.values() if isinstance(tree, dict) else tree
+        return [t for item in items for t in leaves(item)]
+
+    pairs = list(zip(leaves((job.state.params, job.state.opt_state)),
+                     leaves((back.params, back.opt_state))))
+    differ = sum(not (a.dtype == b.dtype and a.device == b.device and torch.equal(a, b))
+                 for a, b in pairs)
+    say(f"[train-resume] the full fine-tune's train state at step {job.state.step}: "
+        f"{len(pairs)} tensors, a {size_gb:.3f} GB file (the JAX package's keys and layouts), "
+        f"saved in {save_s:.2f} s, loaded in {load_s:.2f} s; tensors that differ: {differ}; "
+        f"step {back.step}")
+    if differ or back.step != job.state.step:
+        fail(f"[train-resume] the train state did not read back bit for bit ({differ} differ)")
+    del job, back, pairs
+    torch.cuda.empty_cache()
+
+    # [train-lora] examples/train_lora_torch.py's job: rank-8 adapters, frozen bf16 base
+    lora_argv = ["--preset", "sd15", "--batch", str(TRAIN_BATCH), "--rank", "8", "--lr", "1e-3",
+                 "--steps", str(OVERFIT_STEPS)]
+    job, build_s = build_job(train_lora_torch, lora_argv)
+    base_copy = {k: v.clone() for k, v in job.base.items()}
+    job = train_job("train-lora", job, build_s, False,
+                    "SD1.5 LoRA rank 8 over a frozen bf16 base, batch 4 64x64, no remat "
+                    "(examples/train_lora_torch.py " + " ".join(lora_argv) + ")")
+    overfit("train-lora-overfit", job)
+    moved = sum(not torch.equal(v, base_copy[k]) for k, v in job.base.items())
+    model_moved = sum(not torch.equal(p, base_copy[n]) for n, p in job.unet.named_parameters())
+    say(f"[train-lora] after {1 + TRAIN_STEPS + 1 + OVERFIT_STEPS} steps: {len(job.state.params)} "
+        f"adapter tensors, {train_mod.optim.state_bytes(job.state.params) / 1e6:.2f} MB; base "
+        f"tensors that changed: {moved} of {len(base_copy)}, the model's own: {model_moved}; "
+        f"adapters b non-zero: {sum(bool(v.any()) for k, v in job.state.params.items() if k.endswith('.b'))}")
+    if moved or model_moved:
+        fail(f"[train-lora] the frozen base changed ({moved}, {model_moved})")
+    del job, base_copy
+    torch.cuda.empty_cache()
+
+    stamp("5f (training)")
+
     # 7. the kernels line and the contract line ---------------------------
     sources = {"flash_packed": ("tinyfusers_tpu_torch/csrc/flash_attention.cu",
                                 "tinyfusers_tpu/kernels/flash_attention.py:117"),
@@ -2099,8 +2427,9 @@ def main() -> None:
         paths[kn] = (by_path, summed(counted, *(sh[kn] for _, sh in extra_paths.values())),
                      per_what + ", one image of each SD1.5 path of phases 5n-5i (ControlNet, "
                      "DeepCache, DeepCache with cached CFG, FreeU, hires fix, img2img, "
-                     "inpainting), one SDXL-base image and phase 5e's serving run (12 "
-                     "requests over 4 slots)", family)
+                     "inpainting), one SDXL-base image, phase 5e's serving run (12 "
+                     "requests over 4 slots) and phase 5f's ten timed steps of each fine-tune "
+                     "(train: full, remat; train_lora: LoRA)", family)
     kernels = []
     for kname, by_key in report.items():
         by_path, counted, per_what, family = paths[kname]

@@ -340,3 +340,84 @@ def test_cli_tinyxl_quantizes_the_unet(cli, tmp_path):
     assert not any(is_quantized(m.w) for m in job.model.clip_g.modules()
                    if isinstance(m, Linear))
     assert job.image().shape == (1, 64, 64, 3)
+
+
+# -- the training CLIs (examples/train_full_torch.py, train_lora_torch.py) ------
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _losses(out: str):
+    import re
+
+    return [float(m) for m in re.findall(r"loss ([0-9.]+)", out)]
+
+
+def test_train_full_cli_loss_falls_and_saves_the_unet(tmp_path, capsys):
+    """At the tiny preset on the CPU with the defaults (bf16, AdamW, remat):
+    the loss falls (tests/test_train.py's criterion for the JAX CLI, over
+    30 steps at a higher learning rate), the memory line prints, and the
+    saved fp16 file holds the keys the JAX CLI's state_map.unet_to_state
+    writes."""
+    from tinyfusers_tpu.io import state_map as jstate_map
+    from tinyfusers_tpu.models import unet as junet
+    from tinyfusers_tpu_torch.io import safetensors_io
+
+    cli = _example("train_full_torch")
+    out = tmp_path / "unet_ft.safetensors"
+    state = cli.main(["--preset", "tiny", "--cpu", "--steps", "30", "--lr", "1e-3",
+                      "--log-every", "5", "--out", str(out)])
+    text = capsys.readouterr().out
+    losses = _losses(text)
+    assert len(losses) == 6 and state.step == 30
+    assert np.mean(losses[-2:]) < losses[0] * 0.92, losses
+    assert "device memory: not measured on the CPU" in text and "optimizer state" in text
+    saved = safetensors_io.load_state_dict(out)
+    shapes = jax.eval_shape(lambda k: junet.init(k, jsd.TINY.unet), jax.random.key(0))
+    want = jstate_map.unet_to_state(
+        jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes), jsd.TINY.unet)
+    assert set(saved) == set(want)
+    assert all(v.dtype == torch.float16 and tuple(v.shape) == want[k].shape
+               for k, v in saved.items())
+
+
+def test_train_lora_cli_loss_falls_and_writes_the_jax_clis_files(tmp_path, capsys):
+    """The adapter file has the JAX CLI's dotted keys and shapes (its
+    init_lora tree over the tiny UNet, flattened); the train state resumes
+    in the port's CLI and loads in the JAX package."""
+    from tinyfusers_tpu import train as jtrain
+    from tinyfusers_tpu.models import unet as junet
+    from tinyfusers_tpu.train.checkpoint import _flatten
+    from tinyfusers_tpu_torch.io import safetensors_io
+
+    cli = _example("train_lora_torch")
+    out, st = tmp_path / "lora.safetensors", tmp_path / "state.safetensors"
+    first = cli.main(["--preset", "tiny", "--cpu", "--steps", "40", "--rank", "4",
+                      "--lr", "1e-2", "--log-every", "5", "--out", str(out),
+                      "--save-state", str(st)])
+    losses = _losses(capsys.readouterr().out)
+    assert len(losses) == 8
+    assert np.mean(losses[-3:]) < losses[0] * 0.9, losses
+    base = jax.eval_shape(lambda k: junet.init(k, jsd.TINY.unet, jnp.bfloat16),
+                          jax.random.key(0))
+    jlora = jax.eval_shape(lambda p: jtrain.init_lora(jax.random.key(1), p, rank=4), base)
+    want = {".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_flatten_with_path(jlora)[0]}
+    saved = safetensors_io.load_state_dict(out)
+    assert {k: tuple(v.shape) for k, v in saved.items()} == want
+    assert all(v.dtype == torch.float32 for v in saved.values())
+    # the train state: resumed by the port's CLI, read by the JAX package
+    state = cli.main(["--preset", "tiny", "--cpu", "--steps", "42", "--rank", "4",
+                      "--lr", "1e-2", "--out", str(out), "--resume", str(st)])
+    assert "resumed at step 40" in capsys.readouterr().out and state.step == 42
+    jopt = jtrain.default_optimizer(1e-2, warmup_steps=4)
+    zeros = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), jlora)
+    got = jtrain.load_train_state(jtrain.TrainState.create(zeros, jopt), st)
+    assert int(got.step) == 40
+    for k, v in _flatten(got.params, "").items():
+        np.testing.assert_array_equal(v, first.params[k[1:]].numpy(), err_msg=k)

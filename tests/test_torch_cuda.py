@@ -26,6 +26,7 @@ ATTN_ROW_REL).
 """
 import copy
 import dataclasses
+import sys
 
 import pytest
 import torch
@@ -1042,3 +1043,145 @@ def test_cuda_conv_rows_do_not_depend_on_their_position_under_row_invariance(cud
         rolled = ops.conv2d(x.roll(1, 0), w, b, padding=1)
     assert len(policy.apart) == 1
     assert torch.equal(rolled, y.roll(1, 0))
+
+
+# -- training: gradients through the kernels -------------------------------------
+# The autograd Functions' backward is the exact-math attention's / the exact-erf
+# GEGLU's gradient recomputed from the saved inputs; against autograd through
+# the plain versions (the base-2 prescale rounded to q's dtype, the A-S erf)
+# the gradients differ in bf16 by the plain versions' own roundings (at most
+# 6.2e-3 attention, 3.8e-3 GEGLU, measured on the CPU at these shapes' widths)
+# and in fp32 by summation order (at most 7.5e-7).
+GRAD_REL = {torch.bfloat16: 1.5e-2, torch.float32: 1e-5}
+
+
+def _grads(fn, inputs, cot):
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    fn(*leaves).backward(cot)
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,heads,c,kv_len", [
+    (4, 4096, 4096, 8, 320, None), (4, 4096, 77, 8, 320, None),  # training batch 4
+    (4, 1024, 1024, 8, 640, None), (4, 1024, 77, 8, 640, None),
+    (1, 1152, 1152, 2, 128, 1101),  # kv_len: dk and dv zero past it
+])
+def test_cuda_sdpa_packed_gives_gradients_through_the_kernel(cuda, dtype, b, sq, sk, heads,
+                                                             c, kv_len):
+    """ops.sdpa_packed on CUDA launches flash_packed once and its gradients
+    reach q, k and v: the plain versions' autograd's, within GRAD_REL."""
+    from tinyfusers_tpu_torch import ops
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, cot = (torch.randn(b, s, c, generator=g, device=cuda).to(dtype)
+                    for s in (sq, sk, sk, sq))
+    n0 = flash_packed.launches
+    got = _grads(lambda q, k, v: ops.sdpa_packed(q, k, v, heads=heads, kv_len=kv_len),
+                 (q, k, v), cot)
+    assert flash_packed.launches == n0 + 1
+    want = _grads(lambda q, k, v: flash_packed_plain(q, k, v, heads=heads, kv_len=kv_len),
+                  (q, k, v), cot)
+    for name, gr, w in zip("qkv", got, want):
+        assert gr is not None and gr.dtype == dtype and torch.isfinite(gr).all(), name
+        assert gr.abs().sum() > 0 and _rel(gr, w) <= GRAD_REL[dtype], (name, _rel(gr, w))
+    if kv_len is not None:
+        assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_sdpa_gives_gradients_through_the_bhsd_kernel(cuda, dtype):
+    from tinyfusers_tpu_torch import ops
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, cot = (torch.randn(1, 1, 4096, 512, generator=g, device=cuda).to(dtype)
+                    for _ in range(4))
+    n0 = flash_bhsd.launches
+    got = _grads(lambda q, k, v: ops.sdpa(q, k, v), (q, k, v), cot)
+    assert flash_bhsd.launches == n0 + 1
+    want = _grads(lambda q, k, v: flash_bhsd_plain(q, k, v), (q, k, v), cot)
+    for name, gr, w in zip("qkv", got, want):
+        assert gr is not None and gr.abs().sum() > 0, name
+        assert _rel(gr, w) <= GRAD_REL[dtype], (name, _rel(gr, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(16384, 1280, 320), (4096, 2560, 640),
+                                   (1024, 5120, 1280), (256, 5120, 1280)])
+def test_cuda_geglu_linear_gives_gradients_through_the_kernel(cuda, dtype, m, k, n):
+    """ops.geglu_linear on CUDA (the strided halves of one projection, as the
+    UNet gives them) launches the GEGLU kernel once; gx, gate, w and b get
+    the plain version's gradients within GRAD_REL."""
+    from tinyfusers_tpu_torch import ops
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    proj = torch.randn(m, 2 * k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(k, n, generator=g, device=cuda) * k ** -0.5).to(dtype)
+    bias = torch.randn(n, generator=g, device=cuda).to(dtype)
+    cot = torch.randn(m, n, generator=g, device=cuda).to(dtype)
+
+    def run(fn):
+        p, w_, b_ = (x.detach().requires_grad_() for x in (proj, w, bias))
+        gx, gate = p.chunk(2, dim=-1)
+        fn(gx, gate, w_, b_).backward(cot)
+        return p.grad[:, :k], p.grad[:, k:], w_.grad, b_.grad
+
+    n0 = geglu_matmul.launches
+    got = run(ops.geglu_linear)
+    assert geglu_matmul.launches == n0 + 1
+    want = run(geglu_matmul_plain)
+    for name, gr, w_ in zip(("gx", "gate", "w", "b"), got, want):
+        assert gr.dtype == dtype and gr.abs().sum() > 0, name
+        assert _rel(gr, w_) <= GRAD_REL[dtype], (name, _rel(gr, w_))
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_unet_train_step_through_the_kernels(cuda):
+    """A TINY UNet at a 32x32 latent (1024 tokens: its first level takes
+    flash_packed) in fp32: one remat train step launches each kernel twice
+    per call site, every parameter gets a gradient, and the gradients are
+    those of the same model with the kernels' plain versions in their place
+    within 1e-4 per tensor (exact fp32 on both sides, other summation
+    orders through the network)."""
+    from tinyfusers_tpu_torch import train
+    from tinyfusers_tpu_torch.kernels import flash_attention as fa
+    from tinyfusers_tpu_torch.kernels import geglu_ff as gf
+    from tinyfusers_tpu_torch.models import unet
+    from tinyfusers_tpu_torch.models.layers import init_weights, set_trainable
+
+    attention = sys.modules["tinyfusers_tpu_torch.ops.attention"]
+    linear = sys.modules["tinyfusers_tpu_torch.ops.linear"]  # not ops.linear, the function
+
+    model = unet.UNet(unet.TINY_CONFIG, device=cuda, dtype=torch.float32)
+    init_weights(model, 0)
+    params = train.params_of(set_trainable(model), trainable_only=True)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 32, 32, 4, generator=g, device=cuda)
+    ctx = torch.randn(2, 77, unet.TINY_CONFIG.context_dim, generator=g, device=cuda)
+    t = torch.tensor([10, 700], dtype=torch.int32, device=cuda)
+    apply_fn = train.step.rematerialized(train.module_apply(model))
+
+    def grads():
+        return train.step.value_and_grad(lambda p: apply_fn(p, x, t, ctx).square().mean(),
+                                         params)[1]
+
+    f0, g0 = flash_packed.launches, geglu_matmul.launches
+    got = grads()
+    # with remat each call runs twice: 5 transformer blocks at the 1024-token
+    # level (a self and a cross attention each), 11 FF tails in all
+    assert flash_packed.launches - f0 == 2 * 2 * 5
+    assert geglu_matmul.launches - g0 == 2 * 11
+    orig = attention.flash_packed_diff, linear.geglu_matmul_diff
+    attention.flash_packed_diff, linear.geglu_matmul_diff = (fa.flash_packed_plain,
+                                                             gf.geglu_matmul_plain)
+    try:
+        want = grads()
+    finally:
+        attention.flash_packed_diff, linear.geglu_matmul_diff = orig
+    assert set(got) == set(params)
+    for name, gr in got.items():
+        assert gr is not None and torch.isfinite(gr).all(), name
+        assert _rel(gr, want[name]) <= 1e-4, (name, _rel(gr, want[name]))

@@ -227,3 +227,111 @@ def test_geglu_plan(dtype, m, k, n, aligned, want):
     sd15 = {(8192, 1280, 320): (320, 1), (2048, 2560, 640): (320, 2),
             (512, 5120, 1280): (160, 2), (128, 5120, 1280): (160, 4)}
     assert sd15.get((m, k, n), (bn, split)) == (bn, split)
+
+
+# -- gradients: the autograd Functions against the JAX package's custom_vjps --
+# The JAX functions run their Pallas forward in interpret mode (monkeypatched
+# as tests/test_kernels.py does); the JAX tests' shapes and tolerances
+# (atol 2e-4 / rtol 2e-3: the port's backward is the same exact-math
+# gradient, summed in another order).
+
+GRAD = dict(atol=2e-4, rtol=2e-3)
+
+
+@pytest.fixture
+def interpret_flash(monkeypatch):
+    import functools as ft
+
+    from tinyfusers_tpu.kernels import flash_attention as fa_mod
+
+    monkeypatch.setattr(fa_mod, "flash_attention",
+                        ft.partial(fa_mod.flash_attention, interpret=True))
+
+
+def _torch_grads(fn, *arrays):
+    leaves = [to_t(a).requires_grad_() for a in arrays]
+    (fn(*leaves) ** 2).sum().backward()
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("kv_len", [None, 200])
+def test_flash_packed_diff_grads_match_jax(interpret_flash, kv_len):
+    import jax
+
+    from tinyfusers_tpu.ops import attention as att
+    from tinyfusers_tpu_torch.kernels.flash_attention import flash_packed_diff
+
+    b, s, h, d = 1, 256, 2, 40
+    q, k, v = (rand(i, b, s, h * d) for i in range(3))
+    want = jax.grad(lambda q, k, v: jnp.sum(att._flash_packed_diff(q, k, v, h, None, kv_len) ** 2),
+                    argnums=(0, 1, 2))(to_j(q), to_j(k), to_j(v))
+    got = _torch_grads(lambda q, k, v: flash_packed_diff(q, k, v, heads=h, kv_len=kv_len),
+                       q, k, v)
+    for g, w in zip(got, want):
+        close(g, w, GRAD)
+    if kv_len is not None:  # dk and dv are zero past kv_len
+        assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.parametrize("kv_len", [None, 100])
+def test_flash_bhsd_diff_grads_match_jax(interpret_flash, kv_len):
+    import jax
+
+    from tinyfusers_tpu.ops import attention as att
+    from tinyfusers_tpu_torch.kernels.flash_attention import flash_bhsd_diff
+
+    bh, s, d = 2, 256, 64
+    q, k, v = (rand(i, bh, s, d) for i in range(3))
+    want = jax.grad(lambda q, k, v: jnp.sum(att._flash_bhsd_diff(q, k, v, None, kv_len) ** 2),
+                    argnums=(0, 1, 2))(to_j(q), to_j(k), to_j(v))
+    got = _torch_grads(lambda q, k, v: flash_bhsd_diff(q, k, v, kv_len=kv_len), q, k, v)
+    for g, w in zip(got, want):
+        close(g, w, GRAD)
+    if kv_len is not None:
+        assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_geglu_matmul_diff_grads_match_jax(monkeypatch, bias):
+    """The JAX backward recomputes a with the exact erf, as the port's does.
+    Without a bias the JAX ops pass fp32 zeros, whose gradient is dropped."""
+    import functools as ft
+
+    import jax
+
+    import tinyfusers_tpu.kernels.geglu_ff as gf
+    from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul_diff
+
+    monkeypatch.setattr(gf, "geglu_matmul", ft.partial(gf.geglu_matmul, interpret=True))
+    gx, gate = rand(0, 32, 128), rand(1, 32, 128)
+    w, b = rand(2, 128, 64) / 11.3, (rand(3, 64) if bias else np.zeros(64, np.float32))
+    want = jax.grad(lambda *a: jnp.sum(gf.geglu_matmul_diff(*a) ** 2),
+                    argnums=(0, 1, 2, 3))(to_j(gx), to_j(gate), to_j(w), to_j(b))
+    if bias:
+        got = _torch_grads(geglu_matmul_diff, gx, gate, w, b)
+    else:
+        got = _torch_grads(lambda x, g, w: geglu_matmul_diff(x, g, w, None), gx, gate, w)
+    for g, w_ in zip(got, want):
+        close(g, w_, GRAD)
+
+
+def test_geglu_matmul_diff_bf16_rounds_as_jax():
+    """bf16: da with fp32 sums rounded to bf16, dw in fp32 rounded to w's
+    dtype, db summed in fp32 and rounded once; against the JAX backward at
+    BF16 (one bf16 ulp). The JAX backward is jitted, as it runs inside a
+    jitted step (the port's gelu_erf rounds as jax.jit's does)."""
+    import jax
+
+    import tinyfusers_tpu.kernels.geglu_ff as gf
+    from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul_diff
+
+    gx, gate, w = rand(0, 2, 24, 128), rand(1, 2, 24, 128), rand(2, 128, 32) / 11.3
+    b, g = rand(3, 32), rand(4, 2, 24, 32)
+    bf = lambda x: to_j(x, jnp.bfloat16)  # noqa: E731
+    want = jax.jit(gf._diff_bwd)((bf(gx), bf(gate), bf(w)), bf(g))
+    tb = lambda x: to_t(x, torch.bfloat16).requires_grad_()  # noqa: E731
+    leaves = [tb(gx), tb(gate), tb(w), tb(b)]
+    geglu_matmul_diff(*leaves).backward(to_t(g, torch.bfloat16))
+    for leaf, w_ in zip(leaves, want):
+        assert leaf.grad.dtype == torch.bfloat16
+        close(leaf.grad, np.asarray(w_, np.float32), BF16)

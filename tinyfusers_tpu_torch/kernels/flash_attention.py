@@ -28,6 +28,16 @@ columns >= kv_len (and above the diagonal when causal) are masked with
 The plain versions take one softmax over all keys at once (the Pallas
 single-k-block form); the kernels' online softmax over key tiles
 equals it up to rounding.
+
+Gradients (``flash_packed_diff``, ``flash_bhsd_diff``: the counterparts of
+the JAX package's ``ops/attention.py::_flash_packed_diff`` and
+``_flash_bhsd_diff``): the forward is the wrapper above, so the kernel on
+CUDA and its launch count as in inference; the backward is the exact-math
+attention's gradient (``ops.attention.sdpa_math``, the JAX package's
+``sdpa_xla``) recomputed from the saved q, k and v over the unpacked heads
+and the first kv_len keys, so dk and dv are zero past kv_len. No backward
+kernel: the JAX package's backward is XLA recompute, not Pallas. Its
+transient memory is the fp32 logits of the call, O(Sq * Sk) per head.
 """
 from __future__ import annotations
 
@@ -217,3 +227,71 @@ def flash_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_bhsd.launches = 0
 flash_bhsd.shapes = collections.Counter()  # (batch*heads, Sq, Sk, d) -> launches
 flash_bhsd.variants = collections.Counter()  # variant -> launches
+
+
+class _FlashPacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads, ctx.scale, ctx.kv_len = heads, scale, kv_len
+        return flash_packed(q, k, v, heads=heads, scale=scale, kv_len=kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..ops.attention import sdpa_math
+
+        q, k, v = ctx.saved_tensors
+        heads, kv_len = ctx.heads, ctx.kv_len
+        b, sq, c = q.shape
+        sk = k.shape[1]
+        n = sk if kv_len is None else kv_len
+        d = c // heads
+
+        def ref(q_, k_, v_):
+            unpack = lambda x, s: x[:, :s].reshape(b, s, heads, d).transpose(1, 2)  # noqa: E731
+            o = sdpa_math(unpack(q_, sq), unpack(k_, n), unpack(v_, n), scale=ctx.scale)
+            return o.transpose(1, 2).reshape(b, sq, c)
+
+        return (*_vjp(ref, (q, k, v), g), None, None, None)
+
+
+class _FlashBhsd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.kv_len = scale, kv_len
+        return flash_bhsd(q, k, v, scale=scale, kv_len=kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..ops.attention import sdpa_math
+
+        kv_len = ctx.kv_len
+
+        def ref(q_, k_, v_):
+            if kv_len is not None:  # the slice's gradient is zero past kv_len
+                k_, v_ = k_[..., :kv_len, :], v_[..., :kv_len, :]
+            return sdpa_math(q_, k_, v_, scale=ctx.scale)
+
+        return (*_vjp(ref, ctx.saved_tensors, g), None, None)
+
+
+def _vjp(fn, inputs, g):
+    """The gradients of fn(*inputs) against the cotangent g."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+def flash_packed_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      heads: int, scale: Optional[float] = None,
+                      kv_len: Optional[int] = None) -> torch.Tensor:
+    """``flash_packed`` with gradients to q, k and v."""
+    return _FlashPacked.apply(q, k, v, heads, scale, kv_len)
+
+
+def flash_bhsd_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """``flash_bhsd`` (not causal) with gradients to q, k and v."""
+    return _FlashBhsd.apply(q, k, v, scale, kv_len)

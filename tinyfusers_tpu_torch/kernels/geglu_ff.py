@@ -20,6 +20,13 @@ Semantics, as in the Pallas kernel: the GELU is fp32 with the
 Abramowitz-Stegun 7.1.26 erf (within 1.5e-7 of the exact erf), the
 product is rounded to gx's dtype before the matrix product, accumulation
 and bias are fp32, the output is in gx's dtype.
+
+``geglu_matmul_diff`` (the JAX package's ``geglu_matmul_diff``) gives
+gradients to gx, gate, w and b: its forward is ``geglu_matmul``, its
+backward recomputes a = ops.activations.geglu(gx, gate) with the exact
+erf GELU (not the kernel's polynomial, as the JAX backward does) and forms
+da = g w^T with fp32 sums rounded to a's dtype, dw = a^T g in fp32
+rounded to w's dtype and db summed in fp32 and rounded once to b's dtype.
 """
 from __future__ import annotations
 
@@ -145,3 +152,34 @@ def geglu_matmul(gx: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
 geglu_matmul.launches = 0
 geglu_matmul.shapes = collections.Counter()  # (M, K, N) -> launches
 geglu_matmul.variants = collections.Counter()  # "wgmma" | "mma" | "fma" -> launches
+
+
+class _GegluMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gx, gate, w, b):
+        ctx.save_for_backward(gx, gate, w)
+        ctx.b_dtype = None if b is None else b.dtype
+        return geglu_matmul(gx, gate, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..ops.activations import geglu
+
+        gx, gate, w = ctx.saved_tensors
+        k, n = w.shape
+        g2 = g.reshape(-1, n).float()
+        with torch.enable_grad():
+            leaves = [gx.detach().requires_grad_(), gate.detach().requires_grad_()]
+            a = geglu(*leaves)
+            da = (g2 @ w.to(g.dtype).float().t()).to(a.dtype).reshape(a.shape)
+            dgx, dgate = torch.autograd.grad(a, leaves, da)
+        a2 = a.detach().reshape(-1, k)
+        dw = (a2.float().t() @ g2.to(a.dtype).float()).to(w.dtype)
+        db = None if ctx.b_dtype is None else g2.sum(dim=0).to(ctx.b_dtype)
+        return dgx, dgate, dw, db
+
+
+def geglu_matmul_diff(gx: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
+                      b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``geglu_matmul`` with gradients to gx, gate, w and b."""
+    return _GegluMatmul.apply(gx, gate, w, b)

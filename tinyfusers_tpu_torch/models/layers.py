@@ -4,8 +4,9 @@ Each leaf holds one params dict of the JAX package's tree ({"weight",
 "bias"}) in torch layout: linear weights (out, in), conv weights OIHW.
 Their ``forward`` calls the ops with the JAX layout (the transposed views
 of the stored weights, so no copy is made). Parameters are created empty
-on the requested device; ``init_weights`` fills a whole model from one
-seed on that device (utils/init.py).
+on the requested device and frozen (``set_trainable`` turns gradients on
+for a fine-tune); ``init_weights`` fills a whole model from one seed on
+that device (utils/init.py).
 
 A Linear or Conv may hold a weight-only quantized weight instead
 (``set_weight``, as io/quantize_tree.py and io/from_jax.py use it). It is
@@ -178,6 +179,17 @@ class Embedding(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(vocab, dim, device=device, dtype=dtype),
                                    requires_grad=False)
+
+
+def set_trainable(module: nn.Module, trainable: bool = True) -> nn.Module:
+    """Turn gradients on (or off) for every floating-point parameter of
+    ``module``: a full fine-tune's switch. Parameters are made frozen, so
+    inference builds no autograd graph; quantized weights are buffers and
+    stay frozen."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.requires_grad_(trainable)
+    return module
 
 
 def init_weights(model: nn.Module, seed: int) -> None:

@@ -9,7 +9,10 @@ Two routes, dispatched as the JAX package does with "on the TPU" read as
   CUDA tensors when there is no mask and Sq >= 1024 (the UNet's 64x64 and
   32x32 levels, the VAE's mid attention, the MMDiT's joint attention).
   CLIP's 77 tokens with their causal mask, T5's with their position bias,
-  and the UNet's 16x16 and 8x8 levels take the math route.
+  and the UNet's 16x16 and 8x8 levels take the math route. The kernel
+  route goes through the kernels' autograd Functions, so training
+  differentiates through it (the JAX package's ``_flash_packed_diff`` /
+  ``_flash_bhsd_diff``): the kernel forward, the math route's gradient.
 
 The JAX package's ``packed_ok`` / ``packed_multik_ok`` and block tables
 are TPU VMEM bounds, not semantics: on the GPU every packed call with
@@ -25,7 +28,7 @@ from typing import Optional, Union
 
 import torch
 
-from ..kernels.flash_attention import flash_bhsd, flash_packed
+from ..kernels.flash_attention import flash_bhsd_diff, flash_packed_diff
 
 
 def sdpa_math(
@@ -86,7 +89,7 @@ def sdpa_packed(
     """SDPA over channel-packed activations: q (B, Sq, H*d), k/v
     (B, Sk, H*d) -> (B, Sq, H*d). kv_len: real key count of padded k/v."""
     if _takes_kernel(q, None):
-        return flash_packed(q, k, v, heads=heads, scale=scale, kv_len=kv_len)
+        return flash_packed_diff(q, k, v, heads=heads, scale=scale, kv_len=kv_len)
     b, sq, c = q.shape
     sk = k.shape[1]
     d = c // heads
@@ -106,5 +109,5 @@ def sdpa(
 ) -> torch.Tensor:
     """Dispatching SDPA over (..., S, D): the bhsd kernel or the math."""
     if _takes_kernel(q, mask):
-        return flash_bhsd(q, k, v, scale=scale, kv_len=kv_len)
+        return flash_bhsd_diff(q, k, v, scale=scale, kv_len=kv_len)
     return _math(q, k, v, mask, scale, kv_len)

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.geglu_ff import geglu_matmul
+from ..kernels.geglu_ff import geglu_matmul_diff
 from ..kernels.quant_matmul import quant_matmul, quant_matmul_int4
 from .activations import geglu
 from .quant import Int4Tensor, QuantizedTensor, is_quantized
@@ -58,10 +58,10 @@ def geglu_linear(
 
     With a dense weight on a CUDA tensor this is the hand-written GEGLU
     kernel (kernels/geglu_ff.py), which raises for a weight it cannot
-    take. Otherwise (the CPU, or a quantized weight on any device) it is
+    take, through its autograd Function (gradients to gx, gate, w and b). Otherwise (the CPU, or a quantized weight on any device) it is
     geglu + linear, as the JAX package computes it off the TPU.
     """
     if gx.is_cuda and not is_quantized(w):
         cd = compute_dtype or gx.dtype
-        return geglu_matmul(gx.to(cd), gate.to(cd), w.to(cd), b)
+        return geglu_matmul_diff(gx.to(cd), gate.to(cd), w.to(cd), b)
     return linear(geglu(gx, gate), w, b, compute_dtype=compute_dtype)
