@@ -5,10 +5,12 @@
 Drives tinyfusers_tpu_torch's SD1.5 text-to-image path on the card, dense
 and with a weight-only int8, fp8 or int4 UNet, its SD3-medium path
 (MMDiT, rectified flow), without and with T5-XXL, with seeded random
-weights made on the card, its SD2.1-v path from a checkpoint file
+weights made on the card, from its single-file checkpoint and with its
+MMDiT quantized, DiT-XL/2, its SD2.1-v path from a checkpoint file
 through the port's CLI, SD1.5 with a ControlNet from a checkpoint
 file, DeepCache, FreeU, the hires fix, img2img and inpainting,
-SDXL-base from a checkpoint file through the CLI, SD1.5 served by the
+SDXL-base from a checkpoint file through the CLI (dense and quantized),
+the quantization harness, SD1.5 served by the
 continuous-batching engine over 4 slots, and SD1.5 fine-tuned through the
 two training CLIs' jobs (all of the UNet, and rank-8 LoRA), and holds every
 hand-written CUDA kernel of those paths against its plain PyTorch
@@ -30,7 +32,10 @@ Phases, one or more lines each:
    shape (the quant matmuls with int8, fp8 and int4 weights; flash_packed
    also at SD3's two joint-attention shapes with their kv_len and at the
    SD2.1-v UNet's four, flash_bhsd also at the 1024x1024 and 768x768 VAEs'
-   mid attention, geglu also at the SD2.1-v UNet's four), bf16 and
+   mid attention, geglu also at the SD2.1-v UNet's four; flash_packed also
+   at DiT-XL/2's 512x512 shape, 16 heads of 72; the quant matmuls in bf16
+   also at SDXL-base's 13 UNet linear shapes and the quantized SD3 MMDiT's
+   6, from ``unet_quant_launches`` and MMDIT_QUANT_SHAPES), bf16 and
    fp32, with its error and tolerance, its time, the plain version's time,
    the library call's time where one computes the same function (with its
    error against the plain version), for the quant matmuls the dense bf16
@@ -61,7 +66,8 @@ Phases, one or more lines each:
    fp8 and int4 shape must run on wgmma), its TFLOP/s and its time over
    the library call's and dense cuBLAS's, then each format per image
    (launches x ms) against its library call, dense and its bound over all
-   19 shapes and over the M <= 154 ones; every attention and quant row is
+   19 shapes and over the M <= 154 ones, over SDXL-base's and over the
+   MMDiT's; every attention and quant row is
    also held to a per-row limit (the worst row's relative error);
 4. unet: one full-width SD1.5 UNet forward at 256x256 (32x32 latents, so
    the 1024-token level takes the packed kernel) in fp32 on the card,
@@ -75,6 +81,13 @@ Phases, one or more lines each:
    (1024 image + 77 text tokens, padded to 1152 joint tokens, kv_len
    1101: 24 flash_packed launches) in fp32 on the card, against the same
    weights on the CPU;
+4d. dit: DiT-XL/2 in fp32 on the card against the CPU at 256x256 (28
+   blocks, 256 tokens: the math route, no kernel) and at 512x512
+   (``input_size=64``, 1000 classes: one fp32 flash_packed launch a block
+   at 16 heads of 72), 28 blocks each; then in bf16 one CFG forward
+   (batch 2) with its launches checked exactly (28
+   flash_packed on wgmma at 512x512, 0 at 256x256), ms a forward over
+   DIT_FORWARDS forwards, and 3 forwards under ``torch.profiler``;
 5. main path: ``generate`` at SD1.5 512x512, 20-step DDIM, CFG 7.5, bf16,
    batch 1: one warm-up through the pipeline's stages (finite latents),
    then one image with the launch counts set to 0 just before it and read
@@ -110,6 +123,22 @@ Phases, one or more lines each:
 5t. SD3-medium with T5-XXL: one warm-up and one counted image (672
    flash_packed at (2, 4352, 4352, 1536, 24, kv_len 4250), 1 flash_bhsd);
    s/image and memory;
+5sf. SD3 from its single file: [ckpt-sd3] SD3-medium seeded on the card
+   in bf16 (adaLN leaves refilled) with a seeded learned 192x192 pos_embed
+   grid, written by ``state_map.sd3_state_from_params`` as SD3's
+   single-file layout (about 6 GB) and read back by
+   ``checkpoints.load_sd3_params``: every tensor of the file bit for bit,
+   the pos_embed as the centre 64x64 of the stored grid, the pre-only
+   block's unreachable leaves zero; the file's size, save and load
+   seconds; [main-sd3-file] a warm-up and one counted 1024x1024 28-step
+   image of the loaded model (672 flash_packed); [t5-map] T5-XXL's map at
+   full width in memory, ``t5_to_state`` then ``t5_from_state``, bit for
+   bit;
+5sq. the quantized MMDiT through ``tools/sd3_bench_torch.py``'s job (the
+   JAX tool's fill): dense, int8 and int4 in turn, a warm-up's latents
+   (compared with dense's), two images, the first counted exactly (196
+   quant launches at the MMDiT's 6 shapes on wgmma, 672 flash_packed, 1
+   flash_bhsd); s/image, held and peak memory, s/image over dense's;
 5c. SD2.1-v checkpoint: the model seeded on the card in bf16, written by
    ``io/checkpoints.save_sd_checkpoint`` as fp16 safetensors to a
    temporary directory and read back by ``load_sd_params``; every
@@ -185,6 +214,14 @@ Phases, one or more lines each:
    1,200 at the four SDXL shapes; 1,400 geglu: 200 / 1,200; 1 flash_bhsd
    at (1, 16384, 16384, 512));
 6x. profile: one more SDXL image under ``torch.profiler``, as phase 6;
+5xq. SDXL-base quantized: the CLI's job from the same file with ``--quant
+   int8``, ``fp8`` and ``int4`` (``quantize_params`` on the UNet after
+   loading), a warm-up and one image each with its counts checked exactly
+   (14,420 quant launches at SDXL-base's 13 shapes on wgmma, 2,800
+   flash_packed, 1 flash_bhsd, 0 geglu); s/image, held and peak memory;
+5qe. quant-eval: ``tools/quant_eval_torch.py --preset sd15 --quant
+   int8|fp8|int4`` (seeded bf16 weights): the eps errors at t = 981, 501,
+   21, the image PSNR, the largest pixel change, the changed share;
 3g. [train-grad] (in phase 3): flash_packed at the training step's four
    batch-4 shapes and flash_bhsd at the 512x512 VAE's, geglu at the
    training step's four (M, K, N), bf16 and fp32: the gradients through
@@ -217,11 +254,13 @@ Phases, one or more lines each:
    the quant matmuls, those of the quantized images; flash_packed's SD3
    calls, the counterpart of the TPU's multi-k kernel, as their own
    entry; the SDXL image's under the path "sdxl", the serving run's under
-   "serve", the fine-tunes' steps under "train" and "train_lora"), and per
+   "serve", the fine-tunes' steps under "train" and "train_lora", one DiT
+   forward's under "dit_256" / "dit_512", the quantized SD3 and SDXL
+   images' under "sd3_int8", "sdxl_fp8" and so on), and per
    shape the launches counted there beside the per-call
    times of phase 3; the per-image times are those counts times those
-   per-call times. Then nvidia-smi's line again, then the last line
-   ``{"ok": true, ...}``.
+   per-call times. Then the whole run's seconds, nvidia-smi's line again,
+   then the last line ``{"ok": true, ...}``.
 
 A [time] line after each group of phases gives the seconds since the
 start. Any failed phase exits non-zero before the last line. Without a CUDA
@@ -331,6 +370,11 @@ SERVE_REQUESTS = 12
 # (rows are independent: the same function, all rows held).
 PLAIN_LOGITS = 1 << 30
 # flash_bhsd: (batch * heads, Sq, Sk, d), the VAEs' mid attention.
+# ... and DiT-XL/2's at 512x512 (64x64 latents, 1024 tokens): 16 heads of 72,
+# whose rows start 144 bytes apart (at 256x256, 256 tokens take the math route).
+DIT_PACKED_SHAPES = [("DiT-XL/2 512x512 self", (2, 1024, 1024, 1152, 16, 1024))]
+DIT_FORWARDS = 10     # timed bf16 CFG forwards of DiT-XL/2 at each size
+SD3_FILE_GRID = 192   # the learned pos_embed grid of SD3-medium's single file
 BHSD_SHAPES = [("VAE mid 512x512", (1, 4096, 4096, 512)),
                ("VAE mid 1024x1024", (1, 16384, 16384, 512)),
                ("VAE mid 768x768", (1, 9216, 9216, 512))]
@@ -391,6 +435,13 @@ GRAD_TOL = {torch.bfloat16: 1.5e-2, torch.float32: 1e-5}
 # The full-width SD1.5 UNet's parameter gradients in fp32, kernels against
 # plain versions, per tensor: summation orders compounded through the network.
 UNET_GRAD_TOL = 1e-3
+# (M, K, N) -> launches in one SD3-medium 1024x1024 28-step image with the
+# MMDiT quantized (tools/sd3_bench_torch.py --quant): the 7 linears outside
+# the stacked joint blocks, once per CFG call: the timestep and pooled MLPs
+# and the final modulation at M = 2, the context embedding over 2 x 77
+# tokens, the final projection over 2 x 4096 image tokens (N = 64).
+MMDIT_QUANT_SHAPES = {(2, 256, 1536): 28, (2, 1536, 1536): 56, (2, 2048, 1536): 28,
+                      (2, 1536, 3072): 28, (154, 4096, 1536): 28, (8192, 1536, 64): 28}
 QUANT_F32 = [(2, 1280, 320), (154, 768, 640), (2048, 640, 640), (512, 5120, 1280)]
 # The int4 shapes whose weight bytes, not x's, dominate (the tinygemm regime).
 SMALL_M = 154
@@ -449,6 +500,43 @@ def unet_launches(ucfg, side: int, batch: int, part: str = "all", m: int = 0):
         for j, block in enumerate(outp):
             s = walk(block, s, part != "shallow" or j >= len(outp) - m)
     return dict(flash), dict(geglu)
+
+
+def unet_quant_launches(ucfg, side: int, batch: int, ctx_len: int = 77) -> dict:
+    """(M, K, N) -> launches of the quant matmuls in one pass of ``ucfg``'s
+    UNet with quantized weights at a side x side latent and batch ``batch``,
+    from its build_plan: the timestep (and ADM) MLPs and each ResBlock's
+    embedding projection at M = batch; per transformer block the four
+    self-attention and the cross q / out projections over the level's
+    tokens, the cross k / v over the context, and the FF's two linears (the
+    FF tail takes no GEGLU kernel with a quantized weight). The 1x1 proj_in
+    / proj_out convs dequantize: no quant matmul."""
+    import collections
+
+    from tinyfusers_tpu_torch.models import unet as unet_mod
+
+    inp, mid, outp = unet_mod.build_plan(ucfg)
+    temb = 4 * ucfg.model_channels
+    out = collections.Counter({(batch, ucfg.model_channels, temb): 1})
+    out[(batch, temb, temb)] += 1
+    if ucfg.adm_in_channels:
+        out[(batch, ucfg.adm_in_channels, temb)] += 1
+        out[(batch, temb, temb)] += 1
+    s = side
+    for block in [*inp, mid, *outp]:
+        for spec in block:
+            if isinstance(spec, unet_mod.ResSpec):
+                out[(batch, temb, spec.out_ch)] += 1
+            elif isinstance(spec, unet_mod.AttnSpec):
+                c, m = spec.ch, batch * s * s
+                for _ in range(spec.depth):
+                    out[(m, c, c)] += 6
+                    out[(batch * ctx_len, ucfg.context_dim, c)] += 2
+                    out[(m, c, 8 * c)] += 1
+                    out[(m, 4 * c, c)] += 1
+            elif isinstance(spec, unet_mod.SampleSpec):
+                s = s // 2 if spec.mode == "down" else s * 2
+    return dict(out)
 
 
 def launches_of(*parts):
@@ -578,25 +666,41 @@ def int4pack_mm(x, w):
 def profile(run, host_ops: bool = False) -> dict:
     """Host seconds of run() and its device kernels' time by group; with
     host_ops, also the eight host ops with the most self CPU time (calls,
-    ms), which ``key_averages`` adds seconds to find."""
+    ms), which ``key_averages`` adds seconds to find. The device events are
+    read from the profiler's raw kineto events: the same events and
+    durations ``prof.events()`` gives, without building the ~10^5 Python
+    event objects of an image (tens of seconds each). A host_ops profile
+    builds those objects anyway, and there the two readings must agree."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    groups, n_kernels = {}, 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            low = evt.name.lower()
-            label = next((g for key, g in GROUPS if key in low), "other")
-            groups[label] = groups.get(label, 0.0) + evt.device_time_total / 1e3
-            n_kernels += 1
+    def by_group(events):  # (name, ms) of each device kernel -> (ms by group, count)
+        groups, n = {}, 0
+        for name, ms in events:
+            label = next((g for key, g in GROUPS if key in name.lower()), "other")
+            groups[label] = groups.get(label, 0.0) + ms
+            n += 1
+        return groups, n
+
+    cuda = torch.autograd.DeviceType.CUDA
+    groups, n_kernels = by_group((e.name(), e.duration_ns() / 1e6)
+                                 for e in prof.profiler.kineto_results.events()
+                                 if e.device_type() == cuda)
     device_ms = sum(groups.values())
     out = {"host_s": host_s, "device_ms": device_ms, "device_kernels": n_kernels,
            "device_busy_share": device_ms / (host_s * 1e3),
            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
     if host_ops:  # where the host's time goes: the most self time on the CPU
+        check, n_check = by_group((e.name, e.device_time_total / 1e3)
+                                  for e in prof.events() if e.device_type == cuda)
+        if n_check != n_kernels or check.keys() != groups.keys() or any(
+                abs(check[g] - ms) > 1e-6 * max(ms, 1.0) for g, ms in groups.items()):
+            fail(f"profile: the raw kineto events ({n_kernels} kernels, {groups}) and "
+                 f"prof.events() ({n_check}, {check}) disagree")
+        out["events_agree"] = n_check
         top = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CPU),
                      key=lambda e: -e.self_cpu_time_total)[:8]
@@ -629,7 +733,10 @@ def main() -> None:
     from tinyfusers_tpu_torch.kernels.quant_matmul import _plan as quant_plan
     from tinyfusers_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_plain)
+    from tinyfusers_tpu_torch.io import safetensors_io, state_map
+    from tinyfusers_tpu_torch.models import dit as dit_mod
     from tinyfusers_tpu_torch.models import mmdit as mmdit_mod
+    from tinyfusers_tpu_torch.models import t5 as t5_mod
     from tinyfusers_tpu_torch.models import unet as unet_mod
     from tinyfusers_tpu_torch.models import vae as vae_mod
     from tinyfusers_tpu_torch.models import controlnet as cn_mod
@@ -708,6 +815,14 @@ def main() -> None:
 
     # 3. each kernel against its plain version ---------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the quantized UNets' linears from their build_plan: SD1.5's must be the
+    # 19 listed shapes; SDXL-base's at 1024x1024, CFG batch 2, 20 steps
+    sd15_quant = {k: STEPS * n for k, n in unet_quant_launches(sd.SD15.unet, 64, 2).items()}
+    if sd15_quant != QUANT_SHAPES:
+        fail(f"SD1.5 quantized linears from build_plan {sd15_quant} are not QUANT_SHAPES")
+    sdxl_quant = {k: STEPS * n
+                  for k, n in unet_quant_launches(sdxl.SDXL_BASE.unet, 128, 2).items()}
+    quant_bf16 = list(dict.fromkeys([*QUANT_SHAPES, *sdxl_quant, *MMDIT_QUANT_SHAPES]))
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -846,7 +961,8 @@ def main() -> None:
 
     for dt in (torch.bfloat16, torch.float32):
         isz = torch.tensor([], dtype=dt).element_size()
-        packed_rows = ([("flash_packed", *row) for row in PACKED_SHAPES + SD21_PACKED_SHAPES]
+        packed_rows = ([("flash_packed", *row)
+                        for row in PACKED_SHAPES + SD21_PACKED_SHAPES + DIT_PACKED_SHAPES]
                        + [("flash_packed_multik", *row) for row in MULTIK_SHAPES])
         if dt == torch.bfloat16:  # the hires fix's, the batch-1 branches', SDXL's, serving's
             packed_rows += [("flash_packed", *row)
@@ -940,7 +1056,7 @@ def main() -> None:
             record("geglu", label, (m, kd, nd), dt, err, t_k, t_p, None, flops, nbytes,
                    tol[("geglu", dt)], row_tol[("geglu", dt)], **extra)
         del q, k, v, proj, gx, gate, w, wt, got, want
-        for (m, kd, nd) in (QUANT_SHAPES if dt == torch.bfloat16 else QUANT_F32):
+        for (m, kd, nd) in (quant_bf16 if dt == torch.bfloat16 else QUANT_F32):
             x = randn(m, kd, dtype=dt)
             for qname, (_, kname, plain, row_key) in qformats.items():
                 leaf, dense = quant_leaf(kd, nd, qname)
@@ -1043,14 +1159,19 @@ def main() -> None:
         if bad.any():
             fail(f"{fname}: the card's bf16 values differ from the CPU's at {int(bad.sum())}")
     # each format per image (launches x ms) against its library call, dense
-    # cuBLAS and its bound, over all 19 shapes and over the M <= 154 ones
-    # (where the weight's bytes, not x's, dominate)
+    # cuBLAS and its bound: SD1.5's over all 19 shapes and over the M <= 154
+    # ones (where the weight's bytes, not x's, dominate), SDXL-base's and the
+    # quantized SD3 MMDiT's over theirs
     for qname, (_, kname, _, row_key) in qformats.items():
-        for label, keep in (("all 19 shapes", lambda m: True),
-                            (f"the {sum(m <= SMALL_M for m, _, _ in QUANT_SHAPES)} M <= "
-                             f"{SMALL_M} shapes", lambda m: m <= SMALL_M)):
+        for label, image, keep in (
+                ("all 19 shapes", QUANT_SHAPES, lambda m: True),
+                (f"the {sum(m <= SMALL_M for m, _, _ in QUANT_SHAPES)} M <= {SMALL_M} shapes",
+                 QUANT_SHAPES, lambda m: m <= SMALL_M),
+                (f"SDXL-base's {len(sdxl_quant)} shapes", sdxl_quant, lambda m: True),
+                (f"the SD3 MMDiT's {len(MMDIT_QUANT_SHAPES)} shapes", MMDIT_QUANT_SHAPES,
+                 lambda m: True)):
             rows = [(n, report[kname][row_key(m, k, nn)])
-                    for (m, k, nn), n in QUANT_SHAPES.items() if keep(m)]
+                    for (m, k, nn), n in image.items() if keep(m)]
             per = {f: sum(n * r[f] for n, r in rows) if all(r[f] is not None for _, r in rows)
                    else None for f in ("ms", "library_ms", "dense_ms", "bound_ms")}
             lib = "n/a" if per["library_ms"] is None else f"{per['library_ms']:.3f}"
@@ -1245,6 +1366,91 @@ def main() -> None:
 
     stamp("4, 4s, 4v (models, card vs CPU)")
 
+    # 4d. DiT-XL/2: fp32 card vs CPU at 256x256 (the math route) and at
+    # 512x512 (class-conditional, flash_packed at d = 72); then bf16 CFG
+    # forwards, timed --------------------------------------------------------
+    dit_cfgs = {"256": dit_mod.DIT_XL_2,
+                "512": dataclasses.replace(dit_mod.DIT_XL_2, input_size=64, num_classes=1000)}
+    extra_paths = {}  # path -> (launches by wrapper, by wrapper and shape)
+    dit_forward_ms = {}
+    for size, dcfg in dit_cfgs.items():
+        d_gpu = dit_mod.DiT(dcfg, device=dev, dtype=torch.float32, seed=51)
+        fill_zero_init(d_gpu, 52)
+        d_cpu = dit_mod.DiT(dcfg, device="cpu", dtype=torch.float32, seed=None)
+        d_cpu.load_state_dict(d_gpu.state_dict())
+        g_cpu = torch.Generator().manual_seed(53)
+        side = dcfg.input_size
+        x = torch.randn((2, side, side, dcfg.in_channels), generator=g_cpu)
+        t = torch.tensor([981.0, 21.0])
+        kw = {"labels": torch.tensor([207, dcfg.num_classes])} if dcfg.num_classes else {}
+        reset_counts()
+        with torch.inference_mode():
+            got = dit_mod.apply(d_gpu, x.to(dev), t.to(dev), **{k: v.to(dev) for k, v in kw.items()})
+            torch.cuda.synchronize()
+            counts = {kn: w.launches for kn, w in wrappers.items()}
+            shapes_d = dict(flash_packed.shapes)
+            t0 = time.perf_counter()
+            want = dit_mod.apply(d_cpu, x, t, **kw)
+            cpu_s = time.perf_counter() - t0
+        err = rel_err(got.cpu(), want)
+        n_tok = (side // dcfg.patch_size) ** 2
+        expect = dict.fromkeys(wrappers, 0)
+        want_shapes_d = {}
+        if n_tok >= 1024:
+            expect["flash_packed"] = dcfg.depth
+            want_shapes_d = {(2, n_tok, n_tok, dcfg.dim, dcfg.num_heads, n_tok): dcfg.depth}
+        say(f"[dit] DiT-XL/2 {side * 8}x{side * 8} ({n_tok} tokens, {dcfg.depth} blocks"
+            f"{', 1000 classes' if dcfg.num_classes else ''}) fp32: card vs CPU max_abs="
+            f"{err[0]:.3e} rel={err[1]:.3e} (tol {mm_tol:.0e}); kernel launches on the card: "
+            f"{counts}, flash_packed shapes {shapes_d}; CPU forward {cpu_s:.1f} s")
+        if not (err[1] <= mm_tol and counts == expect and shapes_d == want_shapes_d):
+            fail(f"DiT {size}: the card disagrees with the CPU or its launches {counts} "
+                 f"{shapes_d} are not {expect} {want_shapes_d}")
+        del d_gpu, d_cpu, got, want
+        # bf16: one counted CFG forward, then DIT_FORWARDS timed
+        d16 = dit_mod.DiT(dcfg, device=dev, dtype=torch.bfloat16, seed=54)
+        fill_zero_init(d16, 55)
+        x16 = x.to(dev, torch.bfloat16)
+        kw16 = {k: v.to(dev) for k, v in kw.items()}
+
+        def forward():
+            with torch.inference_mode():
+                return dit_mod.apply(d16, x16, t.to(dev), **kw16)
+
+        out16 = forward()  # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        out16 = forward()
+        torch.cuda.synchronize()
+        counts = {kn: w.launches for kn, w in wrappers.items()}
+        counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+        by_variant = variants()
+        want_counts = dict.fromkeys(wrappers, 0)
+        want_counts["flash_packed"] = dcfg.depth if n_tok >= 1024 else 0
+        if (counts != want_counts or not torch.isfinite(out16.float()).all()
+                or set(counted["flash_packed"]) - measured("flash_packed")
+                or set(by_variant["flash_packed"]) - set(WGMMA)):
+            fail(f"DiT {size} bf16: launches {counts} (want {want_counts}), shapes {counted}, "
+                 f"variants {by_variant}, or a non-finite output")
+        t0 = time.perf_counter()
+        for _ in range(DIT_FORWARDS):
+            forward()
+        torch.cuda.synchronize()
+        dit_forward_ms[size] = (time.perf_counter() - t0) / DIT_FORWARDS * 1e3
+        prof = profile(lambda: [forward() for _ in range(3)])
+        say(f"[dit] DiT-XL/2 {side * 8}x{side * 8} bf16 CFG forward (batch 2, {dcfg.depth} "
+            f"blocks): {dit_forward_ms[size]:.3f} ms a forward over {DIT_FORWARDS}; launches "
+            f"in one forward {counts}, flash_packed shapes {counted['flash_packed']} by variant "
+            f"{by_variant['flash_packed']}; 3 forwards under torch.profiler: host "
+            f"{prof['host_s']:.3f} s, device {prof['device_ms']:.1f} ms in "
+            f"{prof['device_kernels']} kernels, busy share {prof['device_busy_share']:.3f}, by "
+            f"group {json.dumps(prof['groups_ms'])}; card {card}")
+        extra_paths[f"dit_{size}"] = (counts, counted)
+        del d16, x16, out16, forward
+        torch.cuda.empty_cache()
+
+    stamp("4d (DiT-XL/2)")
+
     # 5. the main path ----------------------------------------------------
     dtype = torch.bfloat16
     t0 = time.perf_counter()
@@ -1421,14 +1627,15 @@ def main() -> None:
 
     bhsd_1024 = (1, 16384, 16384, 512)
 
-    def sd3_images(tag, cfg3, seed, n_images, joint_key):
-        """Weights made on the card (adaLN leaves filled), a warm-up through
-        the stages, then n_images images, the first with its launches
-        counted and checked exactly. Returns the model, the image call and
-        the first image's counts by wrapper and by shape."""
+    def sd3_images(tag, cfg3, seed, n_images, joint_key, model3=None):
+        """Weights made on the card (adaLN leaves filled), or ``model3`` as
+        it is, a warm-up through the stages, then n_images images, the first
+        with its launches counted and checked exactly. Returns the model, the
+        image call and the first image's counts by wrapper and by shape."""
         t0 = time.perf_counter()
-        model3 = sd3.StableDiffusion3(cfg3, device=dev, dtype=dtype, seed=seed)
-        fill_zero_init(model3.mmdit, seed + 1)
+        if model3 is None:
+            model3 = sd3.StableDiffusion3(cfg3, device=dev, dtype=dtype, seed=seed)
+            fill_zero_init(model3.mmdit, seed + 1)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         ids_l, ids_g, uids = clip_ids(8), clip_ids(8), clip_ids(0)
@@ -1510,6 +1717,146 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     stamp("5s, 6s, 5t (SD3)")
+
+    # 5sf. SD3-medium from a single-file checkpoint: seeded bf16 weights on
+    # the card with a learned 192x192 pos_embed grid, written in SD3's layout
+    # by state_map.sd3_state_from_params, read back by load_sd3_params ----
+    cfg3 = sd3.SD3_MEDIUM_CFG
+    pe_key = f"{state_map.MMDIT_PREFIX}.pos_embed"
+    with tempfile.TemporaryDirectory() as tmp:
+        path3 = Path(tmp) / "sd3_medium.safetensors"
+        seeded = sd3.StableDiffusion3(cfg3, device=dev, dtype=dtype, seed=31,
+                                      learned_pos_embed=True)
+        fill_zero_init(seeded.mmdit, 32)
+        g3 = torch.Generator(device=dev).manual_seed(33)
+        grid = (torch.randn((1, SD3_FILE_GRID ** 2, cfg3.mmdit.dim), generator=g3, device=dev)
+                * 0.02).to(dtype)
+        state = state_map.sd3_state_from_params(seeded)
+        state[pe_key] = grid
+        need = sum(v.numel() * v.element_size() for v in state.values())
+        free = shutil.disk_usage(tmp).free
+        if free < need * 1.2:
+            fail(f"{tmp} has {free / 1e9:.1f} GB free, the SD3 file needs {need / 1e9:.1f}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        safetensors_io.save_state_dict(state, path3)
+        save_s = time.perf_counter() - t0
+        del state
+        t0 = time.perf_counter()
+        loaded = checkpoints.load_sd3_params(path3, cfg3, device=dev, dtype=dtype)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size_gb = path3.stat().st_size / 1e9
+    # the file is gone here; every tensor it held must have come back
+    grid_n = cfg3.mmdit.input_size // cfg3.mmdit.patch_size
+    top = (SD3_FILE_GRID - grid_n) // 2
+    crop = grid.reshape(SD3_FILE_GRID, SD3_FILE_GRID, -1)[top:top + grid_n, top:top + grid_n]
+    mine, theirs = state_map.sd3_state_from_params(seeded), state_map.sd3_state_from_params(loaded)
+    mine[pe_key] = crop.reshape(1, grid_n * grid_n, -1)
+    differ = [k for k, v in mine.items() if not torch.equal(theirs[k], v)]
+    last = f"mmdit.blocks.{cfg3.mmdit.depth - 1}.txt."
+    unreachable = [n for n, v in loaded.named_parameters()
+                   if n.startswith((last + "proj.", last + "mlp.")) and v.any()]
+    n_params = sum(v.numel() for v in seeded.parameters())
+    say(f"[ckpt-sd3] SD3-medium single-file checkpoint, bf16 safetensors: {size_gb:.3f} GB, "
+        f"{len(mine)} tensors ({n_params / 1e9:.3f} G parameters in the model; pos_embed "
+        f"stored as {SD3_FILE_GRID}x{SD3_FILE_GRID}, read as the centre {grid_n}x{grid_n}); "
+        f"save {save_s:.2f} s, load_sd3_params {load_s:.2f} s; tensors that differ from the "
+        f"seeded ones (the crop against the slice of the stored grid): {len(differ)}; the "
+        f"pre-only block's unreachable leaves non-zero: {len(unreachable)}")
+    if mine.keys() != theirs.keys() or differ or unreachable:
+        fail(f"the SD3 file did not read back bit for bit: {differ[:8]} {unreachable[:4]}")
+    del seeded, mine, theirs, grid, crop
+    torch.cuda.empty_cache()
+    model3, run3, file_launches, file_shapes = sd3_images(
+        "main-sd3-file", cfg3, 0, 1, MULTIK_SHAPES[0][1], model3=loaded)
+    del model3, run3, loaded
+    torch.cuda.empty_cache()
+
+    # [t5-map] T5-XXL's map at full width: written and read back in memory
+    t5a = t5_mod.T5Encoder(t5_mod.T5_XXL, device=dev, dtype=dtype)
+    init_weights(t5a, seed=34)
+    t0 = time.perf_counter()
+    t5_state = state_map.t5_to_state(t5a)
+    t5b = t5_mod.T5Encoder(t5_mod.T5_XXL, device=dev, dtype=dtype)
+    state_map.t5_from_state(t5_state, t5b)
+    torch.cuda.synchronize()
+    t5_s = time.perf_counter() - t0
+    back = dict(t5b.named_parameters())
+    differ = [n for n, v in t5a.named_parameters() if not torch.equal(back[n], v)]
+    t5_gb = sum(v.numel() * v.element_size() for v in t5_state.values()) / 1e9
+    say(f"[t5-map] T5-XXL ({sum(v.numel() for v in t5a.parameters()) / 1e9:.3f} G parameters) "
+        f"through t5_to_state / t5_from_state in memory: {len(t5_state)} tensors, {t5_gb:.3f} GB "
+        f"in bf16, {t5_s:.2f} s; parameters that differ: {len(differ)}")
+    if differ:
+        fail(f"the T5-XXL map did not round-trip bit for bit: {differ[:8]}")
+    del t5a, t5b, t5_state, back
+    torch.cuda.empty_cache()
+
+    # 5sq. the quantized MMDiT through tools/sd3_bench_torch.py's job: dense,
+    # int8, int4 in turn (the JAX tool's fill), a warm-up's latents, two images
+    sys.path.insert(0, str(ROOT / "tools"))
+    import sd3_bench_torch
+
+    sd3_quant, sd3q_secs, sd3q_lat = {}, {}, {}
+    want_q3 = {kn: {} for kn in wrappers}
+    want_q3.update(flash_packed={MULTIK_SHAPES[0][1]: SD3_STEPS * cfg3.mmdit.depth},
+                   flash_bhsd={bhsd_1024: 1})
+    for quant in ("none", "int8", "int4"):
+        job3 = sd3_bench_torch.build("sd3", quant, steps=SD3_STEPS, device=dev)
+        torch.cuda.synchronize()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        lat_q = job3.latents()
+        if not torch.isfinite(lat_q.float()).all():
+            fail(f"[main-sd3-{quant}] latents not finite")
+        sd3q_lat[quant] = lat_q.float()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i in range(2):
+            if i == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img_q = job3.image()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+                quant_variants = {kn: dict(wrappers[kn].variants)
+                                  for kn in ("quant_matmul", "quant_matmul_int4")}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {kn: dict(v) for kn, v in want_q3.items()}
+        want_var = {"quant_matmul": {}, "quant_matmul_int4": {}}
+        if quant != "none":
+            kname, row_key = qformats[quant][1], qformats[quant][3]
+            want[kname] = {row_key(*mkn): n for mkn, n in MMDIT_QUANT_SHAPES.items()}
+            want_var[kname] = {"wgmma": sum(MMDIT_QUANT_SHAPES.values())}
+        n_q = sum(p.numel() for n, p in job3.model.mmdit.named_buffers()
+                  if n.endswith(("weight_values", "weight_packed")))
+        rel = ((sd3q_lat[quant] - sd3q_lat["none"]).norm() / sd3q_lat["none"].norm()).item()
+        say(f"[main-sd3-{quant}] SD3-medium 1024x1024 {SD3_STEPS}-step Euler flow CFG "
+            f"{sd3_bench_torch.GUIDANCE} bf16, tools/sd3_bench_torch.py's job (--quant {quant}): "
+            f"s/image {[round(x, 4) for x in secs]}; held {held_gb:.2f} GB, peak "
+            f"{peak_gb:.2f} GB; quantized weight bytes in the MMDiT {n_q / 1e6:.2f} M; final "
+            f"latents vs dense rel {rel:.4e}; launches by shape {counted}; quant launches by "
+            f"variant {quant_variants}; card {card}")
+        if (counted != want or quant_variants != want_var or img_q.dtype != torch.uint8
+                or tuple(img_q.shape) != (1, 1024, 1024, 3)):
+            fail(f"[main-sd3-{quant}] launches {counted}, variants {quant_variants} against "
+                 f"{want}, {want_var}, or the image {img_q.dtype} {tuple(img_q.shape)}")
+        for kn, by_shape in counted.items():
+            if set(by_shape) - measured(kn):
+                fail(f"[main-sd3-{quant}] {kn}: shapes {by_shape} not all measured in phase 3")
+        sd3q_secs[quant] = secs
+        if quant != "none":
+            sd3_quant[quant] = counted[qformats[quant][1]]
+        del job3, lat_q, img_q
+        torch.cuda.empty_cache()
+    say(f"[main-sd3-quant] s/image over dense's (the better of two each): "
+        f"{ {q: round(min(v) / min(sd3q_secs['none']), 4) for q, v in sd3q_secs.items()} }")
+    del sd3q_lat
+
+    stamp("5sf, 5sq (SD3 from a file, T5-XXL map, quantized MMDiT)")
 
     # 5c. the SD2.1-v checkpoint: written, read back --------------------------
     cfg21 = sd.SD21_V
@@ -1627,7 +1974,6 @@ def main() -> None:
     sd15 = sd.SD15
     full_pass = unet_launches(sd15.unet, 64, 2)  # one SD1.5 UNet call at 512x512, CFG 2
     vae_512, vae_1024 = {(1, 4096, 4096, 512): 1}, {bhsd_1024: 1}
-    extra_paths = {}  # path -> (launches by wrapper, by wrapper and shape)
 
     def want_variants_of(flash, bhsd, geglu):
         """Launches by variant that counts by shape give: each flash_packed
@@ -1641,13 +1987,15 @@ def main() -> None:
                 "flash_bhsd": {"wgmma_wide": sum(bhsd.values())} if bhsd else {},
                 "geglu": {"wgmma": sum(geglu.values())} if geglu else {}}
 
-    def images(tag, run, n_images, want, img_shape, what, path=None):
+    def images(tag, run, n_images, want, img_shape, what, path=None, more=None):
         """n_images images of run(), the first with its launches counted and
         checked exactly against want = (flash_packed, flash_bhsd, geglu
-        launches by call shape), by variant, and every shape measured in
-        phase 3; s/image by the host clock after synchronize, held and peak
-        device memory. Keeps the counts for the kernels line under ``path``
-        (by default the SD1.5 path of the tag); returns the last image."""
+        launches by call shape) and ``more`` (a quant wrapper -> launches by
+        call shape, all on its wgmma variant), by variant, and every shape
+        measured in phase 3; s/image by the host clock after synchronize,
+        held and peak device memory. Keeps the counts for the kernels line
+        under ``path`` (by default the SD1.5 path of the tag); returns the
+        last image."""
         held_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         secs = []
@@ -1663,13 +2011,15 @@ def main() -> None:
                 counts = {kn: w.launches for kn, w in wrappers.items()}
                 counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
                 by_variant = variants()
+                by_variant.update((kn, dict(wrappers[kn].variants)) for kn in more or {})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if img.dtype != torch.uint8 or tuple(img.shape) != img_shape:
             fail(f"{tag}: image {img.dtype} {tuple(img.shape)}, want uint8 {img_shape}")
         want_shapes = {kn: {} for kn in wrappers}
-        want_shapes.update(flash_packed=want[0], flash_bhsd=want[1], geglu=want[2])
+        want_shapes.update(flash_packed=want[0], flash_bhsd=want[1], geglu=want[2], **(more or {}))
         want_counts = {kn: sum(c.values()) for kn, c in want_shapes.items()}
         want_by_variant = want_variants_of(*want)
+        want_by_variant.update((kn, {"wgmma": sum(c.values())}) for kn, c in (more or {}).items())
         say(f"[{tag}] launches in one image: {counts} (want {want_counts}); shapes {counted}; "
             f"flash and geglu launches by variant {by_variant}")
         if (counts != want_counts or counted != want_shapes or by_variant != want_by_variant
@@ -2127,39 +2477,39 @@ def main() -> None:
             != dict(zip((key for _, key in XL_PACKED_SHAPES), (200, 200, 1200, 1200)))
             or want_xl[1] != {(8192, 2560, 640): 200, (2048, 5120, 1280): 1200}):
         fail(f"SDXL launches from build_plan {want_xl} are not SDXL-base's")
-    with tempfile.TemporaryDirectory() as tmp:
-        xl_path = Path(tmp) / "sdxl_base.safetensors"
-        t0 = time.perf_counter()
-        seeded = sdxl.StableDiffusionXL(xl_cfg, device=dev, dtype=dtype, seed=43)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        need = sum(p.numel() * p.element_size() for p in seeded.parameters())
-        free = shutil.disk_usage(tmp).free
-        say(f"[ckpt-sdxl] SDXL-base seeded on the card in {init_s:.2f} s: "
-            f"{sum(p.numel() for p in seeded.parameters()) / 1e9:.3f} G parameters, "
-            f"{need / 1e9:.3f} GB in bf16; {free / 1e9:.1f} GB free in {tmp}")
-        if free < need * 1.2:
-            fail(f"{tmp} has {free / 1e9:.1f} GB free, the SDXL file needs {need / 1e9:.1f}")
-        t0 = time.perf_counter()
-        checkpoints.save_sdxl_checkpoint(seeded, xl_path)
-        save_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        job = txt2img_torch.build(txt2img_torch.parse_args(
-            SDXL_ARGV + ["--ckpt", str(xl_path)]))
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        mine, theirs = dict(seeded.named_parameters()), dict(job.model.named_parameters())
-        differ = [n for n, v in mine.items() if not torch.equal(theirs[n], v)]
-        say(f"[ckpt-sdxl] SDXL-base checkpoint, bf16 safetensors: "
-            f"{xl_path.stat().st_size / 1e9:.3f} GB, {len(mine)} tensors; "
-            f"save_sdxl_checkpoint {save_s:.2f} s, the CLI's build() with --ckpt (load_sdxl_params "
-            f"and the tokenizer) {load_s:.2f} s; parameters that differ from the seeded "
-            f"model: {len(differ)}")
-        if mine.keys() != theirs.keys() or differ:
-            fail(f"the SDXL checkpoint did not read back bit for bit: {differ[:8]}")
-        del seeded, mine, theirs
-        torch.cuda.empty_cache()
-    # the checkpoint is gone here
+    xl_tmp = tempfile.TemporaryDirectory()  # kept for the quantized images
+    tmp = xl_tmp.name
+    xl_path = Path(tmp) / "sdxl_base.safetensors"
+    t0 = time.perf_counter()
+    seeded = sdxl.StableDiffusionXL(xl_cfg, device=dev, dtype=dtype, seed=43)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    need = sum(p.numel() * p.element_size() for p in seeded.parameters())
+    free = shutil.disk_usage(tmp).free
+    say(f"[ckpt-sdxl] SDXL-base seeded on the card in {init_s:.2f} s: "
+        f"{sum(p.numel() for p in seeded.parameters()) / 1e9:.3f} G parameters, "
+        f"{need / 1e9:.3f} GB in bf16; {free / 1e9:.1f} GB free in {tmp}")
+    if free < need * 1.2:
+        fail(f"{tmp} has {free / 1e9:.1f} GB free, the SDXL file needs {need / 1e9:.1f}")
+    t0 = time.perf_counter()
+    checkpoints.save_sdxl_checkpoint(seeded, xl_path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    job = txt2img_torch.build(txt2img_torch.parse_args(
+        SDXL_ARGV + ["--ckpt", str(xl_path)]))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mine, theirs = dict(seeded.named_parameters()), dict(job.model.named_parameters())
+    differ = [n for n, v in mine.items() if not torch.equal(theirs[n], v)]
+    say(f"[ckpt-sdxl] SDXL-base checkpoint, bf16 safetensors: "
+        f"{xl_path.stat().st_size / 1e9:.3f} GB, {len(mine)} tensors; "
+        f"save_sdxl_checkpoint {save_s:.2f} s, the CLI's build() with --ckpt (load_sdxl_params "
+        f"and the tokenizer) {load_s:.2f} s; parameters that differ from the seeded "
+        f"model: {len(differ)}")
+    if mine.keys() != theirs.keys() or differ:
+        fail(f"the SDXL checkpoint did not read back bit for bit: {differ[:8]}")
+    del seeded, mine, theirs
+    torch.cuda.empty_cache()
     finite_latents("main-sdxl", job.latents(), (1, 128, 128, 4))
     warm_xl = job.image()
     torch.cuda.synchronize()
@@ -2173,7 +2523,49 @@ def main() -> None:
     del job, warm_xl
     torch.cuda.empty_cache()
 
-    stamp("5x, 6x (SDXL)")
+    # 5xq. SDXL-base with its UNet quantized: the CLI's job from the same file
+    # with --quant int8 / fp8 / int4, one image each
+    for qname in ("int8", "fp8", "int4"):
+        kname, row_key = qformats[qname][1], qformats[qname][3]
+        t0 = time.perf_counter()
+        job = txt2img_torch.build(txt2img_torch.parse_args(
+            SDXL_ARGV + ["--ckpt", str(xl_path), "--quant", qname]))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        finite_latents(f"main-sdxl-{qname}", job.latents(), (1, 128, 128, 4))
+        images(f"main-sdxl-{qname}", job.image, 1, (want_xl[0], vae_1024, {}),
+               (1, 1024, 1024, 3),
+               f"SDXL-base 1024x1024 {STEPS}-step DDIM CFG {GUIDANCE}, UNet {qname} (the CLI's "
+               f"build() --preset sdxl --ckpt --quant {qname}: {build_s:.2f} s),",
+               path=f"sdxl_{qname}", more={kname: {row_key(*mkn): n
+                                                    for mkn, n in sdxl_quant.items()}})
+        del job
+        torch.cuda.empty_cache()
+    xl_tmp.cleanup()  # the checkpoint is gone here
+
+    stamp("5x, 6x, 5xq (SDXL dense and quantized)")
+
+    # 5qe. tools/quant_eval_torch.py at --preset sd15 (seeded bf16 weights on
+    # the card), each format: its eps errors and image changes ---------------
+    import quant_eval_torch
+
+    for qname in ("int8", "fp8", "int4"):
+        t0 = time.perf_counter()
+        out = quant_eval_torch.main(["--preset", "sd15", "--quant", qname])
+        took = time.perf_counter() - t0
+        eps = out["eps_rel"]
+        say(f"[quant-eval] tools/quant_eval_torch.py --preset sd15 --quant {qname} "
+            f"(--steps 20): mean|d eps|/mean|eps| "
+            f"{ {t: round(v, 5) for t, v in eps.items()} }, image PSNR {out['psnr']:.2f} dB, "
+            f"max |d pixel| {out['max_pixel_delta']}, changed pixels "
+            f"{out['changed'] * 100:.2f}%; {took:.1f} s; card {card}")
+        if not (all(0 < v < float("inf") for v in eps.values())
+                and out["images"][0].shape == (1, 512, 512, 3)):
+            fail(f"[quant-eval] {qname}: eps errors {eps} or images not of (1, 512, 512, 3)")
+        del out
+        torch.cuda.empty_cache()
+
+    stamp("5qe (quant_eval)")
 
     # 5f. training: the UNet's gradients through the kernels, the two
     # fine-tune CLIs' jobs, a train-state file ------------------------------
@@ -2295,7 +2687,8 @@ def main() -> None:
             f"{[round(v, 4) for v in losses]}; gradient norms {[round(v, 3) for v in gnorms]}; "
             f"one profiled step: host {prof['host_s']:.3f} s, device {prof['device_ms']:.1f} ms "
             f"in {prof['device_kernels']} kernels, busy share {prof['device_busy_share']:.3f}, "
-            f"by group {json.dumps(prof['groups_ms'])}, host's top ops "
+            f"by group {json.dumps(prof['groups_ms'])} (the raw kineto events and "
+            f"prof.events() agree on all {prof['events_agree']} kernels), host's top ops "
             f"{json.dumps(prof['host_top_ops'])}; card {card}")
         extra_paths[tag.replace("-", "_")] = (counts, counted)
         return job
@@ -2407,29 +2800,44 @@ def main() -> None:
              for kn in ("flash_packed", "geglu")}
     paths["flash_bhsd"] = (
         {"sd15": launches["flash_bhsd"], "sd21v": sd21_launches["flash_bhsd"],
-         "sd3": sd3_launches["flash_bhsd"], "sd3_t5": t5_launches["flash_bhsd"]},
+         "sd3": sd3_launches["flash_bhsd"], "sd3_t5": t5_launches["flash_bhsd"],
+         "sd3_file": file_launches["flash_bhsd"]},
         summed(shapes["flash_bhsd"], sd21_shapes["flash_bhsd"], sd3_shapes["flash_bhsd"],
-               t5_shapes["flash_bhsd"]),
-        "one dense SD1.5 image's, one SD2.1-v image's, one SD3 image's and one SD3 + T5 "
-        "image's launches at bf16", "attn")
+               t5_shapes["flash_bhsd"], file_shapes["flash_bhsd"]),
+        "one dense SD1.5 image's, one SD2.1-v image's, one SD3 image's, one SD3 + T5 "
+        "image's and one SD3 image's from its file launches at bf16", "attn")
     paths["flash_packed_multik"] = (
-        {"sd3": sd3_launches["flash_packed"], "sd3_t5": t5_launches["flash_packed"]},
-        {**sd3_shapes["flash_packed"], **t5_shapes["flash_packed"]},
-        "one SD3 image's and one SD3 + T5 image's flash_packed launches at bf16", "attn")
-    paths["quant_matmul"] = ({"sd15_int8": q_launches["int8"], "sd15_fp8": q_launches["fp8"]},
-                             {**q_shapes["int8"], **q_shapes["fp8"]},
-                             "the int8 image's and the fp8 image's launches at bf16", "quant")
-    paths["quant_matmul_int4"] = ({"sd15_int4": q_launches["int4"]}, q_shapes["int4"],
-                                  "the int4 image's launches at bf16", "quant")
+        {"sd3": sd3_launches["flash_packed"], "sd3_t5": t5_launches["flash_packed"],
+         "sd3_file": file_launches["flash_packed"]},
+        summed(sd3_shapes["flash_packed"], t5_shapes["flash_packed"],
+               file_shapes["flash_packed"]),
+        "one SD3 image's, one SD3 + T5 image's and one SD3 image's from its file "
+        "flash_packed launches at bf16", "attn")
+    xl_q = {q: extra_paths[f"sdxl_{q}"][1][qformats[q][1]] for q in ("int8", "fp8", "int4")}
+    paths["quant_matmul"] = (
+        {"sd15_int8": q_launches["int8"], "sd15_fp8": q_launches["fp8"],
+         "sd3_int8": sum(sd3_quant["int8"].values()),
+         "sdxl_int8": sum(xl_q["int8"].values()), "sdxl_fp8": sum(xl_q["fp8"].values())},
+        summed(q_shapes["int8"], q_shapes["fp8"], sd3_quant["int8"], xl_q["int8"], xl_q["fp8"]),
+        "the SD1.5 int8 and fp8 images', the SD3 int8 image's (its MMDiT quantized) and the "
+        "SDXL-base int8 and fp8 images' launches at bf16", "quant")
+    paths["quant_matmul_int4"] = (
+        {"sd15_int4": q_launches["int4"], "sd3_int4": sum(sd3_quant["int4"].values()),
+         "sdxl_int4": sum(xl_q["int4"].values())},
+        summed(q_shapes["int4"], sd3_quant["int4"], xl_q["int4"]),
+        "the SD1.5, SD3 (its MMDiT quantized) and SDXL-base int4 images' launches at bf16",
+        "quant")
     for kn in ("flash_packed", "flash_bhsd", "geglu"):  # and phases 5n-5i's and 5x's images
         by_path, counted, per_what, family = paths[kn]
         by_path.update({name: c[kn] for name, (c, _) in extra_paths.items()})
         paths[kn] = (by_path, summed(counted, *(sh[kn] for _, sh in extra_paths.values())),
                      per_what + ", one image of each SD1.5 path of phases 5n-5i (ControlNet, "
                      "DeepCache, DeepCache with cached CFG, FreeU, hires fix, img2img, "
-                     "inpainting), one SDXL-base image, phase 5e's serving run (12 "
-                     "requests over 4 slots) and phase 5f's ten timed steps of each fine-tune "
-                     "(train: full, remat; train_lora: LoRA)", family)
+                     "inpainting), one SDXL-base image and one of each quantized one, phase "
+                     "5e's serving run (12 requests over 4 slots), phase 5f's ten timed steps "
+                     "of each fine-tune (train: full, remat; train_lora: LoRA) and one bf16 "
+                     "DiT-XL/2 CFG forward at 256x256 and at 512x512 (dit_256, dit_512)",
+                     family)
     kernels = []
     for kname, by_key in report.items():
         by_path, counted, per_what, family = paths[kname]
@@ -2453,6 +2861,7 @@ def main() -> None:
             entry["dense_ms"] = per("dense_ms")
         kernels.append(dict(entry, shapes=rows))
     say(json.dumps({"kernels": kernels}))
+    say(f"[time] the whole run {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -95,6 +95,7 @@ QFORMAT_NAMES = {torch.int8: "int8", torch.float8_e4m3fn: "fp8", torch.float8_e5
     (2, 4352, 4352, 24, 64, 4250),  # the same with T5's 77 tokens
     (2, 9216, 9216, 5, 64, None), (2, 9216, 77, 5, 64, None),  # SD2.1-v at 768x768
     (2, 2304, 2304, 10, 64, None), (2, 2304, 77, 10, 64, None),
+    (2, 1024, 1024, 16, 72, None),  # DiT-XL/2 at 512x512: 16 heads of 72 (144-byte rows)
 ])
 def test_cuda_packed_matches_plain(cuda, dtype, b, sq, sk, heads, d, kv_len):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -155,7 +156,7 @@ def test_cuda_bhsd_vae_1024_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 72, 80])
 def test_cuda_packed_reads_no_other_batch_or_head(cuda, d):
     """77 keys, B = 2: a 64-key tile past key 77 and a 64-column box past d
     must read zeros, never batch 1's keys or the next head's columns. So
@@ -485,6 +486,13 @@ QUANT_SHAPES = [  # (M, K, N, bias): SD1.5 calls, then ragged edges
     (37, 96, 40, True),   # K % 16 != 0: element-wise weight loads
     (5, 72, 33, True),    # K % 16 != 0, odd N
 ]
+# The quantized MMDiT's and DiT's calls: M = 2 (the CFG batch's conditioning
+# MLPs), M = 154 (the context embedding), N = 64 (SD3's final projection),
+# N = 16 (DiT-XL/2's, at 256x256).
+TRANSFORMER_QUANT_SHAPES = [(2, 256, 1536, True), (2, 1536, 3072, True),
+                            (154, 4096, 1536, True), (8192, 1536, 64, True),
+                            (512, 1152, 16, True)]
+QUANT_SHAPES = QUANT_SHAPES + TRANSFORMER_QUANT_SHAPES
 
 
 @pytest.mark.cuda
@@ -1185,3 +1193,31 @@ def test_cuda_tiny_unet_train_step_through_the_kernels(cuda):
     for name, gr in got.items():
         assert gr is not None and torch.isfinite(gr).all(), name
         assert _rel(gr, want[name]) <= 1e-4, (name, _rel(gr, want[name]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qname", ["int8", "fp8", "int4"])
+@pytest.mark.parametrize("m,k,n,bias", TRANSFORMER_QUANT_SHAPES)
+def test_cuda_transformer_quant_shapes_run_on_wgmma(cuda, qname, m, k, n, bias):
+    """bf16 at the quantized MMDiT's and DiT's shapes: the wgmma variant
+    (K % 64 == 0, N % 8 == 0, g = 64) at _plan's tile and split, within the
+    quant tolerances of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    dense = torch.randn(n, k, generator=g, device=cuda).t() * k ** -0.5
+    b = torch.randn(n, generator=g, device=cuda).to(torch.bfloat16)
+    if qname == "int4":
+        w, fn, plain = quantize_int4(dense, axis=0), quant_matmul_int4, quant_matmul_int4_plain
+        plan = _plan(torch.bfloat16, m, k, n, w.group_size)
+    else:
+        wdtype = torch.int8 if qname == "int8" else torch.float8_e4m3fn
+        w, fn, plain = quantize(dense, wdtype), quant_matmul, quant_matmul_plain
+        plan = _plan(torch.bfloat16, m, k, n)
+    assert plan[0] == "wgmma"
+    v0 = fn.variants["wgmma"]
+    got = fn(x, w, b)
+    torch.cuda.synchronize()
+    assert fn.variants["wgmma"] == v0 + 1
+    want = plain(x, w, b)
+    assert _rel(got, want) <= QUANT_REL[torch.bfloat16]
+    assert _row_rel(got, want) <= QUANT_ROW_REL[torch.bfloat16]

@@ -483,3 +483,104 @@ def test_generate_with_int4_unet_matches_jax():
                        torch.from_numpy(lat), 7.5, num_steps=3).numpy()
     assert got.dtype == np.uint8 and got.shape == want.shape == (1, 32, 32, 3)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+# -- quantize_params on the stacked transformers ---------------------------------
+
+def _tiny_transformers():
+    """name -> (JAX init of a tiny model, the port's module of it): the
+    MMDiT (also with SD3's 16 latent channels, so that its 2x2 patch_embed
+    is quantized: int4 packs along its 16 input channels, its group of 64
+    clipped to 16), the DiT and a CLIP tower with a text_projection."""
+    import dataclasses
+
+    from tinyfusers_tpu.models import clip as jclip
+    from tinyfusers_tpu.models import dit as jdit
+    from tinyfusers_tpu.models import mmdit as jmmdit
+    from tinyfusers_tpu_torch.models import clip as tclip
+    from tinyfusers_tpu_torch.models import dit as tdit
+    from tinyfusers_tpu_torch.models import mmdit as tmmdit
+
+    wide = dict(in_channels=16, out_channels=16)
+    clip_kw = dict(vocab_size=128, max_length=8, dim=64, num_layers=2, num_heads=4,
+                   mlp_dim=128, projection_dim=64)
+    return {
+        "mmdit": (lambda k: jmmdit.init(k, jmmdit.TINY_MMDIT),
+                  lambda: tmmdit.MMDiT(tmmdit.TINY_MMDIT, device="cpu")),
+        "mmdit16": (lambda k: jmmdit.init(k, dataclasses.replace(jmmdit.TINY_MMDIT, **wide)),
+                    lambda: tmmdit.MMDiT(dataclasses.replace(tmmdit.TINY_MMDIT, **wide),
+                                         device="cpu")),
+        "dit": (lambda k: jdit.init(k, jdit.TINY_DIT),
+                lambda: tdit.DiT(tdit.TINY_DIT, device="cpu", seed=None)),
+        "clip": (lambda k: jclip.init(k, jclip.CLIPConfig(**clip_kw)),
+                 lambda: tclip.CLIPTextModel(tclip.CLIPConfig(**clip_kw), device="cpu")),
+    }
+
+
+@pytest.mark.parametrize("name", ["int8", "int4"])
+@pytest.mark.parametrize("model", ["mmdit", "mmdit16", "dit", "clip"])
+def test_quantize_params_leaves_the_stacked_layers_dense_as_jax_does(model, name):
+    """The JAX rule quantizes only 2-D / 4-D "weight" leaves, so the
+    blocks it stacks for lax.scan (3-D leaves) stay dense: the port's
+    quantized leaves are the JAX package's, and each is its bit for bit.
+    The JAX rule also quantizes an embedding table of 4096 or more values
+    (a CLIP's token_embedding), which its own gather cannot then read; the
+    port leaves embeddings dense, as both packages' docstrings say."""
+    jinit, make = _tiny_transformers()[model]
+    params = random_tree(jinit, 40)
+    jq = jquantize_params(params, QDTYPES[name][0])
+    port = make()
+    load_params(port, params)
+    quantize_params(port, QDTYPES[name][1])
+    ours = {n for n, m in port.named_modules() if tops.is_quantized(getattr(m, "w", None))}
+    theirs = _jax_quantized(jq)
+    embeddings = {n for n in theirs if n.endswith("_embedding")}
+    assert embeddings == ({"token_embedding"} if model == "clip" else set())
+    assert ours == theirs - embeddings
+    stacked = "layers" if model == "clip" else "blocks"
+    assert ours and not any(n.startswith(stacked + ".") for n in ours)
+    if model == "mmdit16":
+        assert "patch_embed" in ours
+    mods = dict(port.named_modules())
+    for n in ours:
+        leaf = jq
+        for part in n.split("."):
+            leaf = leaf[part]
+        got, want = mods[n].w, leaf["weight"]
+        first = (got.packed, want.packed) if name == "int4" else (got.values, want.values)
+        assert same_bits(*first) and same_bits(got.scales, want.scales), n
+
+
+@pytest.mark.parametrize("name", ["int8", "int4"])
+@pytest.mark.parametrize("model", ["mmdit16", "dit"])
+def test_quantized_transformer_matches_jax(model, name):
+    """fp32: the port's quantize_params of the module against the JAX
+    package's of its tree, through both models' apply."""
+    from tinyfusers_tpu.models import dit as jdit
+    from tinyfusers_tpu.models import mmdit as jmmdit
+    from tinyfusers_tpu_torch.models import dit as tdit
+    from tinyfusers_tpu_torch.models import mmdit as tmmdit
+
+    jinit, make = _tiny_transformers()[model]
+    params = random_tree(jinit, 41)
+    port = make()
+    load_params(port, params)
+    quantize_params(port, QDTYPES[name][1])
+    jq = jquantize_params(params, QDTYPES[name][0])
+    cfg = port.cfg
+    x = rand(42, 2, cfg.input_size, cfg.input_size, cfg.in_channels)
+    if model == "dit":
+        t = np.array([981.0, 5.0], np.float32)
+        want = jdit.apply(jq, jnp.asarray(x), jnp.asarray(t), jdit.DiTConfig(
+            **{f: getattr(cfg, f) for f in cfg.__dataclass_fields__}))
+        with torch.no_grad():
+            got = tdit.apply(port, to_t(x), to_t(t))
+    else:
+        jcfg = jmmdit.MMDiTConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+        t = np.array([0.9, 0.2], np.float32)
+        ctx, pooled = rand(43, 2, cfg.context_len, cfg.context_dim), rand(44, 2, cfg.pooled_dim)
+        want = jmmdit.apply(jq, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
+                            jnp.asarray(pooled), jcfg)
+        with torch.no_grad():
+            got = tmmdit.apply(port, to_t(x), to_t(t), to_t(ctx), to_t(pooled))
+    close(got, want, UNET)

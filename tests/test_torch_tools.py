@@ -1,0 +1,192 @@
+"""The port's tools against the JAX package's on the CPU:
+tools/sd3_bench_torch.py (benchmarks/sd3_bench.py's counterpart) and
+tools/quant_eval_torch.py (benchmarks/quant_eval.py's), at TINY_SD3 /
+sd.TINY with ``--cpu``.
+
+- sd3_bench: the port's fill gives every parameter the JAX tool's
+  ``tree_random`` value bit for bit (its stacked blocks included); the
+  tool runs dense, int8 and int4 and prints the JAX tool's final line.
+- quant_eval: on the same weights, latent, context and ids (loaded from
+  one JAX tree and numpy arrays), the harness's eps errors equal the JAX
+  tool's computation within rtol 1e-3 (each side's eps differ by ~1e-5
+  relative; the metric is a ratio of their means), its dense and quantized
+  images are the JAX pipeline's within 1 (a value on a truncation
+  boundary), and its PSNR is the JAX tool's function's; the tool runs for
+  every format and prints the JAX tool's report.
+
+The JAX tools are loaded from their files, the persistent-cache settings
+their imports make restored at once.
+"""
+import importlib.util
+import re
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tinyfusers_tpu.io.quantize_tree import quantize_params as jquantize_params
+from tinyfusers_tpu.models import unet as junet
+from tinyfusers_tpu.pipeline import sd as jsd
+from tinyfusers_tpu.pipeline import sd3 as jsd3
+from tinyfusers_tpu_torch.io.from_jax import load_sd, load_sd3
+from tinyfusers_tpu_torch.pipeline import sd as tsd
+from tinyfusers_tpu_torch.pipeline import sd3 as tsd3
+
+from torch_parity import few_torch_threads, random_tree  # noqa: F401
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def load_file(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module  # a dataclass's annotations resolve through it
+    spec.loader.exec_module(module)
+    return module
+
+
+def jax_tool(name: str):
+    """benchmarks/<name>.py, with the jax config its import sets put back."""
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    before = {k: getattr(jax.config, k) for k in keys}
+    try:
+        return load_file(ROOT / "benchmarks" / f"{name}.py", f"jax_{name}")
+    finally:
+        for k, v in before.items():
+            jax.config.update(k, v)
+
+
+sd3_bench = load_file(ROOT / "tools" / "sd3_bench_torch.py", "sd3_bench_torch")
+quant_eval = load_file(ROOT / "tools" / "quant_eval_torch.py", "quant_eval_torch")
+
+
+# -- sd3_bench -----------------------------------------------------------------
+
+def test_sd3_bench_fill_is_the_jax_tools_fill():
+    jtool = jax_tool("sd3_bench")
+    shapes = jax.eval_shape(lambda: jsd3.init(jax.random.key(0), jsd3.TINY_SD3,
+                                              dtype=jnp.bfloat16))
+    want = tsd3.StableDiffusion3(tsd3.TINY_SD3, device="cpu", dtype=torch.bfloat16, seed=None)
+    load_sd3(want, jax.tree.map(lambda a: np.asarray(a, np.float32), jtool.tree_random(shapes)))
+    job = sd3_bench.build("tiny", device="cpu")
+    got, ref = dict(job.model.named_parameters()), dict(want.named_parameters())
+    assert got.keys() == ref.keys()
+    for k in got:
+        assert got[k].dtype == torch.bfloat16 and torch.equal(got[k], ref[k]), k
+    # the stacked blocks read successive slices of the tiled pool
+    assert not torch.equal(job.model.mmdit.blocks[0].img.qkv.weight,
+                           job.model.mmdit.blocks[1].img.qkv.weight)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+def test_sd3_bench_runs_on_the_cpu(quant, capsys):
+    best = sd3_bench.main(["--preset", "tiny", "--cpu", "--steps", "2", "--quant", quant])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert best > 0
+    assert (f"mmdit weights quantized: {quant}" in out) == (quant != "none")
+    assert re.fullmatch(rf"TINY_SD3 32x32 2-step flow-CFG b=1 quant={quant}: [0-9.]+s "
+                        r"\([0-9.]+ img/s/chip, [0-9.]+ ms/step\)", out[-1]), out[-1]
+
+
+def test_sd3_bench_quantizes_only_the_mmdit_leaves_outside_its_blocks():
+    job = sd3_bench.build("tiny", "int8", device="cpu")
+    dense = sd3_bench.build("tiny", device="cpu")
+    assert job.n_params == dense.n_params == sum(p.numel() for p in dense.model.parameters())
+    quantized = {n for n, m in job.model.named_modules()
+                 if "weight_values" in dict(m.named_buffers(recurse=False))}
+    assert quantized and all(n.startswith("mmdit.") and not n.startswith("mmdit.blocks.")
+                             for n in quantized)
+
+
+# -- quant_eval ----------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_sd():
+    params = random_tree(lambda k: jsd.init(k, jsd.TINY), 50)
+    model = tsd.StableDiffusion(tsd.TINY, device="cpu", seed=None)
+    load_sd(model, params)
+    rng = np.random.default_rng(51)
+    lat = rng.standard_normal((1, *tsd.TINY.latent_shape)).astype(np.float32)
+    ctx = rng.standard_normal((1, tsd.TINY.clip.max_length, tsd.TINY.unet.context_dim)
+                              ).astype(np.float32)
+    ids = np.full((1, tsd.TINY.clip.max_length), 49407 % tsd.TINY.clip.vocab_size, np.int32)
+    return params, model, lat, ctx, ids
+
+
+@pytest.mark.parametrize("quant,jq", [("int8", jnp.int8), ("int4", "int4")])
+def test_quant_eval_matches_the_jax_tool(tiny_sd, quant, jq):
+    params, model, lat, ctx, ids = tiny_sd
+    steps = 3
+    got = quant_eval.evaluate(model, quant_eval.quantized_copy(model, quant),
+                              torch.from_numpy(lat), torch.from_numpy(ctx),
+                              torch.from_numpy(ids).long(), steps)
+    qparams = {**params, "unet": jquantize_params(params["unet"], jq)}
+    apply = jax.jit(lambda p, x, t, c: junet.apply(p, x, t, c, jsd.TINY.unet))
+    for t in quant_eval.TIMESTEPS:
+        tt = jnp.full((1,), float(t))
+        e_d = np.asarray(apply(params["unet"], lat, tt, ctx), np.float32)
+        e_q = np.asarray(apply(qparams["unet"], lat, tt, ctx), np.float32)
+        want = np.abs(e_q - e_d).mean() / max(np.abs(e_d).mean(), 1e-9)
+        np.testing.assert_allclose(got["eps_rel"][t], want, rtol=1e-3)
+    g = jnp.float32(quant_eval.GUIDANCE)
+    images = [np.asarray(jsd.generate(p, jnp.asarray(ids), jnp.asarray(ids), jnp.asarray(lat), g,
+                                      num_steps=steps, cfg=jsd.TINY)) for p in (params, qparams)]
+    for mine, theirs in zip(got["images"], images):
+        assert mine.dtype == np.uint8 and mine.shape == theirs.shape
+        assert np.abs(mine.astype(int) - theirs.astype(int)).max() <= 1
+    jtool = jax_tool("quant_eval")
+    assert got["psnr"] == jtool.psnr(*got["images"], 255.0)
+    assert got["max_pixel_delta"] == int(np.abs(got["images"][0].astype(int)
+                                                - got["images"][1].astype(int)).max())
+
+
+def test_quant_eval_copy_shares_all_but_the_unet(tiny_sd):
+    """quantized_copy quantizes a copy of the UNet and shares the CLIP and
+    VAE modules; the model it was given keeps its dense UNet."""
+    model = tiny_sd[1]
+    dense = {n: p.clone() for n, p in model.unet.named_parameters()}
+    q = quant_eval.quantized_copy(model, "int8")
+    assert q.clip is model.clip and q.vae is model.vae and q.unet is not model.unet
+    assert dict(model.unet.named_parameters()).keys() == dense.keys()
+    for n, p in model.unet.named_parameters():
+        assert torch.equal(p, dense[n]), n
+    assert any("weight_values" in dict(m.named_buffers(recurse=False)) for m in q.unet.modules())
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8", "int4"])
+def test_quant_eval_runs_on_the_cpu(quant, capsys):
+    out = quant_eval.main(["--preset", "tiny", "--cpu", "--steps", "2", "--quant", quant])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == f"== eps-prediction error ({quant}, per-channel weight-only)"
+    assert [ln.split(":")[0].strip() for ln in lines[1:4]] == ["t= 981", "t= 501", "t=  21"]
+    assert lines[4] == "== end-to-end (2 steps)"
+    assert lines[5].startswith("  image PSNR: ") and lines[7].startswith("  changed pixels: ")
+    assert all(0 < v < 1 for v in out["eps_rel"].values())
+    assert out["images"][0].shape == (1, 32, 32, 3)
+
+
+def test_the_tools_import_no_jax():
+    """Both tools, imported and their arguments parsed in a fresh process
+    without jax or the JAX package loaded by them."""
+    import subprocess
+
+    code = (
+        "import importlib.util, sys\n"
+        "for name in ('sd3_bench_torch', 'quant_eval_torch'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'tools/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    sys.modules[name] = mod\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    mod.parse_args([])\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'tinyfusers_tpu' or m.startswith('tinyfusers_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr

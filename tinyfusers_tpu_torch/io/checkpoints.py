@@ -7,10 +7,13 @@ requested dtype. save_sd_checkpoint(model, path, cfg): the model as an
 SD-format .safetensors file. load_controlnet_params(path, cfg) and
 save_controlnet_checkpoint(model, path): the same for a ControlNet in
 lllyasviel's ``control_model.*`` layout; load_sdxl_params(path, cfg) and
-save_sdxl_checkpoint(model, path) for SDXL-base's layout.
+save_sdxl_checkpoint(model, path) for SDXL-base's layout;
+load_sd3_params(path, cfg) and save_sd3_checkpoint(model, path) for SD3's
+single-file layout.
 """
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Dict, Optional, Union
 
@@ -103,6 +106,34 @@ def save_sdxl_checkpoint(model, path, *, dtype: Optional[torch.dtype] = None) ->
     """Write a StableDiffusionXL as an SDXL-layout .safetensors file;
     ``dtype`` casts the floating tensors on the way out."""
     state = state_map.sdxl_state_from_params(model)
+    if dtype is not None:
+        state = {k: v.to(dtype) if v.is_floating_point() else v for k, v in state.items()}
+    safetensors_io.save_state_dict(state, path)
+
+
+def load_sd3_params(path, cfg=None, *, device: Union[str, torch.device] = "cuda",
+                    dtype: torch.dtype = torch.bfloat16):
+    """An SD3 single-file checkpoint (.safetensors or torch-zip) -> a
+    pipeline.sd3.StableDiffusion3 on ``device`` (the GPU unless the caller
+    asks for the CPU) in ``dtype``; its MMDiT holds a learned pos_embed
+    exactly when the file has one (cropped to ``cfg``'s grid)."""
+    from ..pipeline import sd3 as sd3_pipeline
+
+    cfg = cfg or sd3_pipeline.SD3_MEDIUM_CFG
+    state = load_state_dict(path)
+    if cfg.t5 is not None and not any(k.startswith(state_map.T5_PREFIX + ".") for k in state):
+        cfg = dataclasses.replace(cfg, t5=None)  # the file has no T5 tower: build none
+    model = sd3_pipeline.StableDiffusion3(
+        cfg, device=device, dtype=dtype, seed=None,
+        learned_pos_embed=f"{state_map.MMDIT_PREFIX}.pos_embed" in state)
+    state_map.sd3_params_from_state(state, model)
+    return model
+
+
+def save_sd3_checkpoint(model, path, *, dtype: Optional[torch.dtype] = None) -> None:
+    """Write a StableDiffusion3 as an SD3 single-file .safetensors
+    checkpoint; ``dtype`` casts the floating tensors on the way out."""
+    state = state_map.sd3_state_from_params(model)
     if dtype is not None:
         state = {k: v.to(dtype) if v.is_floating_point() else v for k, v in state.items()}
     safetensors_io.save_state_dict(state, path)

@@ -23,8 +23,21 @@ Checkpoint prefixes:
   conditioner.embedders.0.transformer.text_model.*   SDXL's CLIP-L, HF layout
   conditioner.embedders.1.model.*               SDXL's bigG, OpenCLIP layout
   control_model.*                               ControlNet (a file of its own)
+  model.diffusion_model.*                       SD3's MMDiT (joint_blocks, ...)
+  text_encoders.clip_{l,g}.transformer.text_model.*  SD3's towers, HF layout
+  text_encoders.t5xxl.transformer.*             SD3's T5-XXL (HF T5EncoderModel)
 
-The SD3 / T5 and CLIP-vision maps are not ported yet.
+SD3's single-file layout differs from torch's own in two places: the
+fused ``attn.qkv`` stores its rows [q | k | v], while the port's are
+head-interleaved (models/dit.py ``split_fused_qkv``), so the rows and the
+bias are permuted on the way in and out; and the last ``context_block`` is
+``pre_only`` (a 2-chunk adaLN, no ``attn.proj`` or ``mlp``), which goes
+into the first 2·d rows of the port's 6·d ``mod`` with the rest, ``proj``
+and ``mlp`` zero (gated by zero and never read). A learned ``pos_embed``
+grid (192² in SD3-medium's file) is centre-cropped to the model's grid,
+and written back cropped, as the JAX package does.
+
+The CLIP-vision map is not ported yet.
 """
 from __future__ import annotations
 
@@ -38,7 +51,10 @@ from ..models import controlnet as cn_model
 from ..models import unet as unet_model
 
 # (port parameter name, checkpoint key, what to take from the key's tensor)
-Entry = Tuple[str, str, Optional[Callable[[torch.Tensor], torch.Tensor]]]
+# and, where the checkpoint's tensor is not the parameter, a fourth item:
+# what to give the checkpoint from the parameter. A key of None marks a
+# parameter the checkpoint does not hold; it is written as zeros.
+Entry = Tuple  # (str, Optional[str], Optional[Callable]) or with a fourth Callable
 
 UNET_PREFIX = "model.diffusion_model"
 VAE_PREFIX = "first_stage_model"
@@ -62,7 +78,12 @@ def _tensor(value) -> torch.Tensor:
 def _write(module: nn.Module, state: Mapping, entries: List[Entry], what: str) -> None:
     params = dict(module.named_parameters())
     written = set()
-    for name, key, take in entries:
+    for name, key, take, *_ in entries:
+        if key is None:  # no tensor in the checkpoint: zeros
+            with torch.no_grad():
+                params[name].zero_()
+            written.add(name)
+            continue
         if key not in state:
             raise KeyError(f"{what}: the checkpoint has no {key!r} (for {name})")
         if name not in params:
@@ -86,7 +107,12 @@ def _write(module: nn.Module, state: Mapping, entries: List[Entry], what: str) -
 
 def _read(module: nn.Module, entries: List[Entry]) -> Dict[str, torch.Tensor]:
     params = dict(module.named_parameters())
-    return {key: params[name].detach() for name, key, take in entries}
+    out = {}
+    for name, key, _, *give in entries:
+        if key is not None:
+            t = params[name].detach()
+            out[key] = give[0](t) if give else t
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -372,4 +398,166 @@ def sdxl_state_from_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     out.update(openclip_to_state(model.clip_g, SDXL_CLIP_G_PREFIX))
     out.update(unet_to_state(model.unet))
     out.update(vae_to_state(model.vae))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SD3 (sd3_medium*.safetensors, the single-file layout)
+# ---------------------------------------------------------------------------
+
+MMDIT_PREFIX = "model.diffusion_model"
+SD3_CLIP_L_PREFIX = "text_encoders.clip_l.transformer.text_model"
+SD3_CLIP_G_PREFIX = "text_encoders.clip_g.transformer.text_model"
+T5_PREFIX = "text_encoders.t5xxl.transformer"
+
+
+def _fused_qkv_from_torch(num_heads: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """torch's fused qkv rows [q | k | v] (a weight's (3d, in) or a bias's
+    (3d,)) -> the head-interleaved rows [h0: q k v | h1: q k v | ...]."""
+    def take(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(3, num_heads, -1, *t.shape[1:]).transpose(0, 1).reshape(t.shape)
+    return take
+
+
+def _fused_qkv_to_torch(num_heads: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The inverse of _fused_qkv_from_torch."""
+    def give(t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(num_heads, 3, -1, *t.shape[1:]).transpose(0, 1).reshape(t.shape)
+    return give
+
+
+def _crop_pos_embed(pe: torch.Tensor, grid: int) -> torch.Tensor:
+    """Centre crop of the stored (1, G*G, dim) learned pos-embed grid to
+    (1, grid*grid, dim): SD3's cropped_pos_embed."""
+    g2, dim = pe.shape[-2], pe.shape[-1]
+    g = int(round(g2 ** 0.5))
+    if g * g != g2:
+        raise ValueError(f"pos_embed token count {g2} is not square")
+    if grid > g:
+        raise ValueError(f"target grid {grid} exceeds stored grid {g}")
+    top = (g - grid) // 2
+    crop = pe.reshape(g, g, dim)[top:top + grid, top:top + grid]
+    return crop.reshape(1, grid * grid, dim)
+
+
+def _mmdit_stream_entries(out: List[Entry], port: str, key: str, cfg, pre_only: bool) -> None:
+    d, heads = cfg.dim, cfg.num_heads
+    if pre_only:
+        # (shift, scale) of the pre-attention LN only: the first 2d rows of
+        # the 6d mod; the rest gate the stream's unread output and are zero
+        pad = lambda t: torch.cat([t, t.new_zeros((4 * d, *t.shape[1:]))])  # noqa: E731
+        first = lambda t: t[:2 * d]  # noqa: E731
+        for n in ("weight", "bias"):
+            out.append((f"{port}.mod.{n}", f"{key}.adaLN_modulation.1.{n}", pad, first))
+    else:
+        _leaf(out, f"{port}.mod", f"{key}.adaLN_modulation.1")
+    for n in ("weight", "bias"):
+        out.append((f"{port}.qkv.{n}", f"{key}.attn.qkv.{n}", _fused_qkv_from_torch(heads),
+                    _fused_qkv_to_torch(heads)))
+    if cfg.qk_norm:  # SD3.5: per-head RMS gains, shared across heads
+        _leaf(out, f"{port}.ln_q", f"{key}.attn.ln_q", bias=False)
+        _leaf(out, f"{port}.ln_k", f"{key}.attn.ln_k", bias=False)
+    for p, k in (("proj", "attn.proj"), ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2")):
+        if pre_only:
+            out.extend((f"{port}.{p}.{n}", None, None) for n in ("weight", "bias"))
+        else:
+            _leaf(out, f"{port}.{p}", f"{key}.{k}")
+
+
+def _mmdit_entries(mmdit: nn.Module) -> List[Entry]:
+    cfg, pre = mmdit.cfg, MMDIT_PREFIX
+    out: List[Entry] = []
+    _leaf(out, "patch_embed", f"{pre}.x_embedder.proj")
+    _leaf(out, "context_embed", f"{pre}.context_embedder")
+    _leaf(out, "time_mlp.fc1", f"{pre}.t_embedder.mlp.0")
+    _leaf(out, "time_mlp.fc2", f"{pre}.t_embedder.mlp.2")
+    _leaf(out, "pooled_mlp.fc1", f"{pre}.y_embedder.mlp.0")
+    _leaf(out, "pooled_mlp.fc2", f"{pre}.y_embedder.mlp.2")
+    for i in range(cfg.depth):
+        k = f"{pre}.joint_blocks.{i}"
+        _mmdit_stream_entries(out, f"blocks.{i}.img", f"{k}.x_block", cfg, False)
+        _mmdit_stream_entries(out, f"blocks.{i}.txt", f"{k}.context_block", cfg,
+                              i == cfg.depth - 1)
+    _leaf(out, "final.mod", f"{pre}.final_layer.adaLN_modulation.1")
+    _leaf(out, "final.proj", f"{pre}.final_layer.linear")
+    if mmdit.pos_embed is not None:
+        grid = cfg.input_size // cfg.patch_size
+        out.append(("pos_embed", f"{pre}.pos_embed", lambda t: _crop_pos_embed(t, grid)))
+    return out
+
+
+def mmdit_from_state(state: Mapping, mmdit: nn.Module) -> None:
+    """Write the MMDiT of an SD3 checkpoint into ``mmdit`` (a
+    models.mmdit.MMDiT). The file's learned ``pos_embed``, when it has one,
+    is centre-cropped to the model's grid, so the module must hold one
+    (``MMDiT(learned_pos_embed=True)``); without the key the module must
+    not, and computes the fixed sin-cos table."""
+    if f"{MMDIT_PREFIX}.pos_embed" in state and mmdit.pos_embed is None:
+        raise ValueError("mmdit: the checkpoint has a learned pos_embed, the module none "
+                         "(make it with MMDiT(learned_pos_embed=True))")
+    _write(mmdit, state, _mmdit_entries(mmdit), "mmdit")
+
+
+def mmdit_to_state(mmdit: nn.Module) -> Dict[str, torch.Tensor]:
+    """The MMDiT in SD3's layout: the pre-only last context_block without
+    its proj, mlp and upper 4 mod chunks; a learned pos_embed as the model
+    holds it (cropped), as the JAX package writes it."""
+    return _read(mmdit, _mmdit_entries(mmdit))
+
+
+def _t5_entries(cfg, prefix: str, embedding_key: str) -> List[Entry]:
+    out: List[Entry] = [("token_embedding.weight", f"{prefix}.{embedding_key}", None)]
+    # one relative-bias table for every layer, stored in block 0's attention
+    out.append(("rel_bias.weight",
+                f"{prefix}.encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+                None))
+    for i in range(cfg.num_layers):
+        p, k = f"layers.{i}", f"{prefix}.encoder.block.{i}.layer"
+        _leaf(out, f"{p}.attn_norm", f"{k}.0.layer_norm", bias=False)
+        for n in ("q", "k", "v", "o"):
+            _leaf(out, f"{p}.attn.{n}", f"{k}.0.SelfAttention.{n}", bias=False)
+        _leaf(out, f"{p}.ff_norm", f"{k}.1.layer_norm", bias=False)
+        for n in ("wi_0", "wi_1", "wo"):
+            _leaf(out, f"{p}.ff.{n}", f"{k}.1.DenseReluDense.{n}", bias=False)
+    _leaf(out, "final_norm", f"{prefix}.encoder.final_layer_norm", bias=False)
+    return out
+
+
+def t5_from_state(state: Mapping, t5: nn.Module, prefix: str = T5_PREFIX) -> None:
+    """Write an HF T5EncoderModel (SD3's t5xxl) into ``t5`` (a
+    models.t5.T5Encoder). The embedding is ``shared.weight``, or
+    ``encoder.embed_tokens.weight`` where an export stores only that."""
+    emb = "shared.weight"
+    if f"{prefix}.{emb}" not in state:
+        emb = "encoder.embed_tokens.weight"
+    _write(t5, state, _t5_entries(t5.cfg, prefix, emb), "t5")
+
+
+def t5_to_state(t5: nn.Module, prefix: str = T5_PREFIX) -> Dict[str, torch.Tensor]:
+    return _read(t5, _t5_entries(t5.cfg, prefix, "shared.weight"))
+
+
+def sd3_params_from_state(state: Mapping, model: nn.Module) -> None:
+    """Write an SD3 single-file checkpoint into ``model`` (a
+    pipeline.sd3.StableDiffusion3): both CLIP towers in HF's layout with
+    their text_projection, the MMDiT, the VAE and, where the model has a
+    T5 tower and the file carries it, T5-XXL (a model whose file lacks it
+    keeps its T5 as it was)."""
+    clip_from_state(state, model.clip_l, SD3_CLIP_L_PREFIX)
+    clip_from_state(state, model.clip_g, SD3_CLIP_G_PREFIX)
+    mmdit_from_state(state, model.mmdit)
+    vae_from_state(state, model.vae)
+    if getattr(model, "t5", None) is not None and any(
+            k.startswith(T5_PREFIX + ".") for k in state):
+        t5_from_state(state, model.t5)
+
+
+def sd3_state_from_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model as an SD3 single-file checkpoint's flat dict."""
+    out = clip_to_state(model.clip_l, SD3_CLIP_L_PREFIX)
+    out.update(clip_to_state(model.clip_g, SD3_CLIP_G_PREFIX))
+    out.update(mmdit_to_state(model.mmdit))
+    out.update(vae_to_state(model.vae))
+    if getattr(model, "t5", None) is not None:
+        out.update(t5_to_state(model.t5))
     return out

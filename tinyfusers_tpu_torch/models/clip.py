@@ -67,6 +67,8 @@ class _Layer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
+    STACKED = ("layers",)  # one stacked leaf per name in the JAX tree
+
     def __init__(self, cfg: CLIPConfig = CLIPConfig(), *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)

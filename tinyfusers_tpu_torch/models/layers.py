@@ -119,7 +119,8 @@ class Linear(_WeightLeaf):
 
 class ZeroLinear(Linear):
     """A Linear whose JAX init is all zeros: the adaLN-Zero modulation and
-    the final projection of the transformer denoisers (models/mmdit.py)."""
+    the final projection of the transformer denoisers (models/mmdit.py,
+    models/dit.py)."""
 
 
 class Conv(_WeightLeaf):
@@ -179,6 +180,19 @@ class Embedding(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(vocab, dim, device=device, dtype=dtype),
                                    requires_grad=False)
+
+
+def stacked_index(model: nn.Module) -> dict:
+    """id of each module inside a container that the JAX package stacks on
+    a leading axis for ``lax.scan`` (named in a model's ``STACKED``: the
+    MMDiT's and the DiT's ``blocks``, CLIP's and T5's ``layers``) -> the
+    index of its block."""
+    out = {}
+    for mod in model.modules():
+        for name in getattr(mod, "STACKED", ()):
+            for i, block in enumerate(getattr(mod, name)):
+                out.update((id(m), i) for m in block.modules())
+    return out
 
 
 def set_trainable(module: nn.Module, trainable: bool = True) -> nn.Module:

@@ -114,6 +114,8 @@ class MMDiT(nn.Module):
     table until a loader writes it); without one the fixed table is
     computed on each forward, as in the JAX package."""
 
+    STACKED = ("blocks",)  # one stacked leaf per name in the JAX tree
+
     def __init__(self, cfg: MMDiTConfig = SD3_MEDIUM, *, learned_pos_embed: bool = False,
                  device=None, dtype=None):
         super().__init__()

@@ -81,6 +81,8 @@ class _Layer(nn.Module):
 
 
 class T5Encoder(nn.Module):
+    STACKED = ("layers",)  # one stacked leaf per name in the JAX tree
+
     def __init__(self, cfg: T5Config = T5_XXL, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)

@@ -84,19 +84,22 @@ class StableDiffusion3(nn.Module):
     device defaults to "cuda" and raises without a GPU. seed fills the
     weights with the JAX package's init distributions (adaLN-Zero: every
     modulation and the final projection are zeros), drawn on the device;
-    seed=None leaves them empty for a loader (io/from_jax.py).
+    seed=None leaves them empty for a loader (io/from_jax.py,
+    io/checkpoints.load_sd3_params). learned_pos_embed: the MMDiT holds a
+    learned pos_embed, as SD3's single-file checkpoints do.
     """
 
     def __init__(self, cfg: SD3Config = SD3_MEDIUM_CFG, *,
                  device: Union[str, torch.device] = "cuda",
-                 dtype: torch.dtype = torch.float32, seed: Optional[int] = 0):
+                 dtype: torch.dtype = torch.float32, seed: Optional[int] = 0,
+                 learned_pos_embed: bool = False):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
         self.cfg = cfg
         self.clip_l = clip.CLIPTextModel(cfg.clip_l, **kw)
         self.clip_g = clip.CLIPTextModel(cfg.clip_g, **kw)
-        self.mmdit = mmdit.MMDiT(cfg.mmdit, **kw)
+        self.mmdit = mmdit.MMDiT(cfg.mmdit, learned_pos_embed=learned_pos_embed, **kw)
         self.vae = vae.AutoencoderKL(cfg.vae, **kw)
         if cfg.t5 is not None:
             self.t5 = t5_model.T5Encoder(cfg.t5, **kw)
