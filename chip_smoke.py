@@ -11,10 +11,13 @@ through the port's CLI, SD1.5 with a ControlNet from a checkpoint
 file, DeepCache, FreeU, the hires fix, img2img and inpainting,
 SDXL-base from a checkpoint file through the CLI (dense and quantized),
 the quantization harness, SD1.5 served by the
-continuous-batching engine over 4 slots, and SD1.5 fine-tuned through the
-two training CLIs' jobs (all of the UNet, and rank-8 LoRA), and holds every
-hand-written CUDA kernel of those paths against its plain PyTorch
-version. Imports neither jax nor
+continuous-batching engine over 4 slots (dense, and through the quantized
+serving tool over an int8 and an int4 UNet), the accuracy harness (CLIP
+score and CLIP-FID by a seeded ViT-L/14 scorer of each approximation
+against bf16), the engine step's memory by UNet format, and SD1.5
+fine-tuned through the two training CLIs' jobs (all of the UNet, and
+rank-8 LoRA), and holds every hand-written CUDA kernel of those paths
+against its plain PyTorch version. Imports neither jax nor
 tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
 and the ``final`` layer) are zeros under the JAX init, which would keep
 the joint attention's output out of the latents, so a wrong kernel would
@@ -35,7 +38,8 @@ Phases, one or more lines each:
    mid attention, geglu also at the SD2.1-v UNet's four; flash_packed also
    at DiT-XL/2's 512x512 shape, 16 heads of 72; the quant matmuls in bf16
    also at SDXL-base's 13 UNet linear shapes and the quantized SD3 MMDiT's
-   6, from ``unet_quant_launches`` and MMDIT_QUANT_SHAPES), bf16 and
+   6, and at the serving engine's 19 batch-8 shapes (M = 4x the batch-2
+   rows), from ``unet_quant_launches`` and MMDIT_QUANT_SHAPES), bf16 and
    fp32, with its error and tolerance, its time, the plain version's time,
    the library call's time where one computes the same function (with its
    error against the plain version), for the quant matmuls the dense bf16
@@ -67,7 +71,8 @@ Phases, one or more lines each:
    the library call's and dense cuBLAS's, then each format per image
    (launches x ms) against its library call, dense and its bound over all
    19 shapes and over the M <= 154 ones, over SDXL-base's and over the
-   MMDiT's; every attention and quant row is
+   MMDiT's, and per serving tick over the engine's batch-8 shapes; every
+   attention and quant row is
    also held to a per-row limit (the worst row's relative error);
 4. unet: one full-width SD1.5 UNet forward at 256x256 (32x32 latents, so
    the 1024-token level takes the packed kernel) in fp32 on the card,
@@ -88,6 +93,11 @@ Phases, one or more lines each:
    (batch 2) with its launches checked exactly (28
    flash_packed on wgmma at 512x512, 0 at 256x256), ms a forward over
    DIT_FORWARDS forwards, and 3 forwards under ``torch.profiler``;
+4e. vit: the CLIP scorer's ViT-L/14 (``models/clip_vision.py``, seeded,
+   fp32) on 4 uint8 512x512 images through ``preprocess`` (the antialiased
+   resize to 224x224), card against CPU: the embeddings and the pixels, no
+   kernel launched (257 tokens take the math route); then one 16-image
+   batch of preprocess + tower timed by events over 5;
 5. main path: ``generate`` at SD1.5 512x512, 20-step DDIM, CFG 7.5, bf16,
    batch 1: one warm-up through the pipeline's stages (finite latents),
    then one image with the launch counts set to 0 just before it and read
@@ -222,6 +232,26 @@ Phases, one or more lines each:
 5qe. quant-eval: ``tools/quant_eval_torch.py --preset sd15 --quant
    int8|fp8|int4`` (seeded bf16 weights): the eps errors at t = 981, 501,
    21, the image PSNR, the largest pixel change, the changed share;
+5ae. accuracy: ``tools/accuracy_eval_torch.py --preset sd15 --prompts 4
+   --variants int8,fp8,int4,cached_cfg,deepcache`` (seeded SD1.5 bf16,
+   seeded ViT-L/14 scorer, TF32 off): each variant's 4 images with their
+   launches counted exactly (bf16: 400 flash_packed, 320 geglu, 1
+   flash_bhsd an image; int8 / fp8 / int4: 3,680 quant launches at the 19
+   shapes, no geglu; cached CFG: 27 batch-1 UNet calls; DeepCache: 7 full
+   and 13 shallow passes), every per-image CLIP score in [-100, 100], every
+   FID >= 0, PSNR against the bf16 images > 5 dB; the report's rows;
+5eq. quantized serving: ``tools/serve_quant_bench_torch.py``'s job over a
+   fresh dense, int8 and int4 SD1.5 model, 4 slots, a 4-step warm-up, then
+   12 requests of 20 steps submitted together (60 ticks): the launches
+   checked exactly (20 flash_packed a tick; 184 quant launches a tick at
+   the 19 batch-8 shapes of phase 3, on wgmma; 16 geglu a tick dense; 1
+   flash_bhsd a request), images/s, wall, p50 / p95, held memory;
+   [serve-join] over the int4 engine: a request that joins two busy slots
+   (slot 2) against itself alone (slot 0), bit for bit;
+5mf. memory: ``tools/memory_footprint_torch.py --preset sd15 --slots 4``:
+   the engine step's argument (UNet, slot buffers, control block), output
+   and temporary (allocator peak over one tick) MB by format, argument
+   strictly fp16 > int8 > int4;
 3g. [train-grad] (in phase 3): flash_packed at the training step's four
    batch-4 shapes and flash_bhsd at the 512x512 VAE's, geglu at the
    training step's four (M, K, N), bf16 and fp32: the gradients through
@@ -256,7 +286,9 @@ Phases, one or more lines each:
    entry; the SDXL image's under the path "sdxl", the serving run's under
    "serve", the fine-tunes' steps under "train" and "train_lora", one DiT
    forward's under "dit_256" / "dit_512", the quantized SD3 and SDXL
-   images' under "sd3_int8", "sdxl_fp8" and so on), and per
+   images' under "sd3_int8", "sdxl_fp8" and so on, the accuracy harness's
+   under "accuracy_fp16", "accuracy_int4" and so on, the quantized serving
+   tool's under "serve_fp16", "serve_int8", "serve_int4"), and per
    shape the launches counted there beside the per-call
    times of phase 3; the per-image times are those counts times those
    per-call times. Then the whole run's seconds, nvidia-smi's line again,
@@ -272,10 +304,12 @@ cuDNN convolutions (torch.backends.*.allow_tf32 = False) for the whole run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -365,6 +399,13 @@ SERVE_SLOTS = 4
 # serve_demo.py's sd15 step mix, one request a tick, seeds 0-11
 SERVE_MIX = [20, 30, 25]
 SERVE_REQUESTS = 12
+# tools/accuracy_eval_torch.py at SD1.5: prompts, and its variants after bf16
+ACC_PROMPTS = 4
+ACC_VARIANTS = ["int8", "fp8", "int4", "cached_cfg", "deepcache"]
+# tools/serve_quant_bench_torch.py's formats (dense first: the same schedule)
+SERVE_QUANT = ["fp16", "int8", "int4"]
+# the CLIP scorer's ViT-L/14 (fp32): images card vs CPU, and a timed batch
+VIT_CHECK_IMAGES, VIT_BATCH = 4, 16
 # The plain attention's fp32 logits of one call: above this many elements
 # (4 GiB) it runs over query-row chunks of half as many, all keys each
 # (rows are independent: the same function, all rows held).
@@ -822,7 +863,11 @@ def main() -> None:
         fail(f"SD1.5 quantized linears from build_plan {sd15_quant} are not QUANT_SHAPES")
     sdxl_quant = {k: STEPS * n
                   for k, n in unet_quant_launches(sdxl.SDXL_BASE.unet, 128, 2).items()}
-    quant_bf16 = list(dict.fromkeys([*QUANT_SHAPES, *sdxl_quant, *MMDIT_QUANT_SHAPES]))
+    # ... and the serving engine's: one slot step runs SD1.5's UNet at the 2S
+    # rows of S = 4 slots, M = 4x the batch-2 rows (launches per tick)
+    serve_quant = unet_quant_launches(sd.SD15.unet, 64, 2 * SERVE_SLOTS)
+    quant_bf16 = list(dict.fromkeys([*QUANT_SHAPES, *sdxl_quant, *MMDIT_QUANT_SHAPES,
+                                     *serve_quant]))
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1161,21 +1206,23 @@ def main() -> None:
     # each format per image (launches x ms) against its library call, dense
     # cuBLAS and its bound: SD1.5's over all 19 shapes and over the M <= 154
     # ones (where the weight's bytes, not x's, dominate), SDXL-base's and the
-    # quantized SD3 MMDiT's over theirs
+    # quantized SD3 MMDiT's over theirs; the serving engine's per tick
     for qname, (_, kname, _, row_key) in qformats.items():
-        for label, image, keep in (
-                ("all 19 shapes", QUANT_SHAPES, lambda m: True),
-                (f"the {sum(m <= SMALL_M for m, _, _ in QUANT_SHAPES)} M <= {SMALL_M} shapes",
-                 QUANT_SHAPES, lambda m: m <= SMALL_M),
-                (f"SDXL-base's {len(sdxl_quant)} shapes", sdxl_quant, lambda m: True),
-                (f"the SD3 MMDiT's {len(MMDIT_QUANT_SHAPES)} shapes", MMDIT_QUANT_SHAPES,
-                 lambda m: True)):
+        for unit, label, image, keep in (
+                ("image", "all 19 shapes", QUANT_SHAPES, lambda m: True),
+                ("image", f"the {sum(m <= SMALL_M for m, _, _ in QUANT_SHAPES)} M <= {SMALL_M} "
+                 f"shapes", QUANT_SHAPES, lambda m: m <= SMALL_M),
+                ("image", f"SDXL-base's {len(sdxl_quant)} shapes", sdxl_quant, lambda m: True),
+                ("image", f"the SD3 MMDiT's {len(MMDIT_QUANT_SHAPES)} shapes",
+                 MMDIT_QUANT_SHAPES, lambda m: True),
+                ("serving tick", f"the engine's {len(serve_quant)} batch-{2 * SERVE_SLOTS} "
+                 f"shapes", serve_quant, lambda m: True)):
             rows = [(n, report[kname][row_key(m, k, nn)])
                     for (m, k, nn), n in image.items() if keep(m)]
             per = {f: sum(n * r[f] for n, r in rows) if all(r[f] is not None for _, r in rows)
                    else None for f in ("ms", "library_ms", "dense_ms", "bound_ms")}
             lib = "n/a" if per["library_ms"] is None else f"{per['library_ms']:.3f}"
-            say(f"[kernel] {kname} {qname} per image over {label}: kernel {per['ms']:.3f} ms, "
+            say(f"[kernel] {kname} {qname} per {unit} over {label}: kernel {per['ms']:.3f} ms, "
                 f"library {lib}, dense {per['dense_ms']:.3f}, bound {per['bound_ms']:.3f} "
                 f"({sum(n for n, _ in rows)} launches)")
 
@@ -1450,6 +1497,67 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     stamp("4d (DiT-XL/2)")
+
+    # 4e. the CLIP scorer's ViT-L/14: fp32 (TF32 off), card vs CPU on 512x512
+    # uint8 images through preprocess (antialiased resize to 224x224); then
+    # the scorer's image path timed on a batch ------------------------------
+    from tinyfusers_tpu_torch.eval import clip_score as cs_mod
+    from tinyfusers_tpu_torch.models import clip_vision as cv_mod
+
+    vit_gpu = cv_mod.CLIPVisionModel(cv_mod.VIT_L_14, device=dev, seed=61)
+    vit_cpu = cv_mod.CLIPVisionModel(cv_mod.VIT_L_14, device="cpu", seed=None)
+    vit_cpu.load_state_dict(vit_gpu.state_dict())
+    g_cpu = torch.Generator().manual_seed(62)
+    vit_imgs = torch.randint(0, 256, (VIT_CHECK_IMAGES, 512, 512, 3), generator=g_cpu,
+                             dtype=torch.uint8)
+    reset_counts()
+    with torch.inference_mode():
+        px_gpu = cv_mod.preprocess(vit_imgs.to(dev))
+        got = cv_mod.apply(vit_gpu, px_gpu)
+        torch.cuda.synchronize()
+        counts = {kn: w.launches for kn, w in wrappers.items()}
+        t0 = time.perf_counter()
+        px_cpu = cv_mod.preprocess(vit_imgs)
+        want = cv_mod.apply(vit_cpu, px_cpu)
+        cpu_s = time.perf_counter() - t0
+    err = rel_err(got.cpu(), want)
+    px_err = (px_gpu.cpu() - px_cpu).abs().max().item()
+    # fp32, TF32 off: summation order only, over 24 layers. The antialiased
+    # resize: CUDA's kernel forms its filter weights otherwise than the
+    # CPU's (1.6e-5 apart on the normalized pixels on an H100, ~1e-6 on the
+    # CPU against jax.image.resize), while a resize without the antialias
+    # filter moves them by ~2
+    vit_tol, px_tol = 1e-4, 1e-4
+    batch = torch.randint(0, 256, (VIT_BATCH, 512, 512, 3), generator=g_cpu,
+                          dtype=torch.uint8).to(dev)
+
+    def scorer_images():  # the scorer's image path: preprocess, then the tower
+        with torch.inference_mode():
+            return cv_mod.apply(vit_gpu, cv_mod.preprocess(batch))
+
+    scorer_images()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        scorer_images()
+    end.record()
+    end.synchronize()
+    vit_ms = start.elapsed_time(end) / 5
+    vit_flops = 2.0 * VIT_BATCH * (cv_mod.VIT_L_14.num_patches + 1) * sum(
+        p.numel() for p in vit_gpu.layers.parameters())
+    say(f"[vit] CLIP ViT-L/14 fp32 (TF32 off), {VIT_CHECK_IMAGES} uint8 512x512 images "
+        f"preprocessed to 224x224: card vs CPU max_abs={err[0]:.3e} rel={err[1]:.3e} (tol "
+        f"{vit_tol:.0e}), pixels max_abs={px_err:.3e} (tol {px_tol:.0e}); kernel launches on "
+        f"the card: {counts} (257 tokens: the math route); CPU forward {cpu_s:.1f} s; one "
+        f"{VIT_BATCH}-image batch (preprocess + tower) {vit_ms:.3f} ms by events over 5, "
+        f"{vit_flops / vit_ms / 1e9:.1f} TFLOP/s in its layers' weight matmuls; card {card}")
+    if not (err[1] <= vit_tol and px_err <= px_tol and not any(counts.values())
+            and got.shape == (VIT_CHECK_IMAGES, 768)):
+        fail("the ViT-L/14 scorer on the card disagrees with the CPU, or launched a kernel")
+    del vit_gpu, vit_cpu, got, want, px_gpu, px_cpu, batch
+    torch.cuda.empty_cache()
+
+    stamp("4e (the CLIP scorer's ViT-L/14)")
 
     # 5. the main path ----------------------------------------------------
     dtype = torch.bfloat16
@@ -2423,7 +2531,8 @@ def main() -> None:
             or eng.latents.data_ptr() != ptr):
         fail("serve-router: a request was lost, the failure was not counted or the engine "
              "was replaced")
-    del serve_model, eng, eng1, router, warm, served, solo
+    # the bound step and the wrapper around it hold the engine and its model
+    del serve_model, eng, eng1, router, warm, served, solo, real_step, flaky_step
     torch.cuda.empty_cache()
 
     stamp("5e (serving)")
@@ -2566,6 +2675,181 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     stamp("5qe (quant_eval)")
+
+    # 5ae. tools/accuracy_eval_torch.py at --preset sd15: bf16 and each
+    # approximation, scored by the seeded ViT-L/14 scorer; the launches of
+    # each variant's images counted -------------------------------------------
+    import accuracy_eval_torch
+
+    acc_args = accuracy_eval_torch.parse_args(
+        ["--preset", "sd15", "--prompts", str(ACC_PROMPTS), "--variants", ",".join(ACC_VARIANTS)])
+    acc_job = accuracy_eval_torch.build(acc_args)
+    runs = {}  # path -> (launches by wrapper, by wrapper and shape, by variant)
+
+    @contextlib.contextmanager
+    def counted_run(path):
+        """The launches of what runs inside, set to 0 just before it and
+        read just after, kept under ``path``."""
+        reset_counts()
+        yield
+        torch.cuda.synchronize()
+        runs[path] = ({kn: w.launches for kn, w in wrappers.items()},
+                      {kn: dict(w.shapes) for kn, w in wrappers.items()},
+                      {kn: dict(w.variants) for kn, w in wrappers.items()})
+
+    t0 = time.perf_counter()
+    acc_report, acc_images = accuracy_eval_torch.run(
+        acc_job, around=lambda name: counted_run(f"accuracy_{name}"))
+    acc_s = time.perf_counter() - t0
+    accuracy_eval_torch.print_report(acc_report)
+    b2_full, b1_full = unet_launches(sd15.unet, 64, 2), unet_launches(sd15.unet, 64, 1)
+    n_cached = sum(n % 3 == 0 for n in range(STEPS))  # uncond calls, interval 3; full passes
+    shallow3 = unet_launches(sd15.unet, 64, 2, "shallow", 3)
+    acc_want = {  # per image: (flash_packed, geglu) by shape, quant by shape
+        "fp16": (launches_of((STEPS, b2_full)), {}),
+        "cached_cfg": (launches_of((STEPS + n_cached, b1_full)), {}),
+        "deepcache": (launches_of((n_cached, b2_full), (STEPS - n_cached, shallow3)), {})}
+    for qname in ("int8", "fp8", "int4"):
+        acc_want[qname] = ((launches_of((STEPS, b2_full))[0], {}),
+                           {qformats[qname][1]: {qformats[qname][3](*mkn): n
+                                                 for mkn, n in QUANT_SHAPES.items()}})
+    for vname, imgs in acc_images.items():
+        (flash_w, geglu_w), quant_w = acc_want[vname]
+        want_shapes = {kn: {} for kn in wrappers}
+        want_shapes.update(flash_packed={k: ACC_PROMPTS * n for k, n in flash_w.items()},
+                           flash_bhsd={k: ACC_PROMPTS * n for k, n in vae_512.items()},
+                           geglu={k: ACC_PROMPTS * n for k, n in geglu_w.items()},
+                           **{kn: {k: ACC_PROMPTS * n for k, n in c.items()}
+                              for kn, c in quant_w.items()})
+        counts, counted, by_variant = runs[f"accuracy_{vname}"]
+        want_by_variant = want_variants_of(want_shapes["flash_packed"], want_shapes["flash_bhsd"],
+                                           want_shapes["geglu"])
+        want_by_variant.update(quant_matmul={}, quant_matmul_int4={})
+        want_by_variant.update((kn, {"wgmma": sum(want_shapes[kn].values())}) for kn in quant_w)
+        scores = cs_mod.clip_score(acc_job.scorer, imgs, acc_job.sids)
+        say(f"[accuracy-{vname}] launches over {ACC_PROMPTS} images: {counts}; by variant "
+            f"{by_variant}; CLIP scores {[round(float(x), 4) for x in scores]}")
+        if (counted != want_shapes or by_variant != want_by_variant
+                or imgs.shape != (ACC_PROMPTS, 512, 512, 3) or imgs.dtype.name != "uint8"
+                or not all(-100.0 <= float(x) <= 100.0 for x in scores)):
+            fail(f"[accuracy-{vname}] launches {counted} / {by_variant} against {want_shapes} / "
+                 f"{want_by_variant}, images {imgs.shape} {imgs.dtype} or scores {scores}")
+        for kn, by_shape in counted.items():
+            if set(by_shape) - measured(kn):
+                fail(f"[accuracy-{vname}] {kn}: shapes {by_shape} not all measured in phase 3")
+        extra_paths[f"accuracy_{vname}"] = (counts, counted)
+    for row in acc_report["rows"]:
+        ok = all(math.isfinite(row[k]) for k in ("clip_score_mean", "clip_score_std"))
+        if row["variant"] != "fp16":
+            ok = ok and row["fid_vs_fp16"] >= 0.0 and row["psnr_vs_fp16_db"] > 5.0
+        if not ok:
+            fail(f"[accuracy] row {row}")
+    say(f"[accuracy] tools/accuracy_eval_torch.py --preset sd15 --prompts {ACC_PROMPTS} "
+        f"--variants {','.join(ACC_VARIANTS)} (seeded SD1.5 bf16 and ViT-L/14 scorer, 512x512 "
+        f"{STEPS}-step DDIM CFG {GUIDANCE}): {json.dumps(acc_report['rows'])}; {acc_s:.1f} s "
+        f"in all; card {card}")
+    del acc_job, acc_images
+    torch.cuda.empty_cache()
+
+    stamp("5ae (accuracy harness)")
+
+    # 5eq. tools/serve_quant_bench_torch.py: the engine over a dense, int8 and
+    # int4 UNet, 12 requests of 20 steps over 4 slots; [serve-join] over int4
+    import serve_quant_bench_torch
+
+    sim = _PySchedulerCore(SERVE_SLOTS)  # the ticks that run the UNet
+    for i in range(SERVE_REQUESTS):
+        sim.submit(i, STEPS)
+    bench_ticks = 0
+    while sim.active() or sim.pending():
+        sim.assign()
+        bench_ticks += sim.active() > 0
+        sim.tick()
+    per_tick = unet_launches(sd15.unet, 64, 2 * SERVE_SLOTS)
+    for qname in SERVE_QUANT:
+        base = serve_quant_bench_torch.bytes_in_use(dev)
+        model_q = serve_quant_bench_torch.quantized_model("sd15", qname, dev)
+        eng = Engine(model_q, num_slots=SERVE_SLOTS)
+        out = serve_quant_bench_torch.bench(eng, SERVE_REQUESTS, STEPS, base,
+                                            around=lambda: counted_run(f"serve_{qname}"))
+        counts, counted, by_variant = runs[f"serve_{qname}"]
+        flash_w = launches_of((bench_ticks, per_tick))[0]
+        want_shapes = {kn: {} for kn in wrappers}
+        want_shapes.update(flash_packed=flash_w,
+                           flash_bhsd={k: SERVE_REQUESTS * n for k, n in vae_512.items()})
+        if qname == "fp16":
+            want_shapes["geglu"] = launches_of((bench_ticks, per_tick))[1]
+        else:
+            kname, row_key = qformats[qname][1], qformats[qname][3]
+            want_shapes[kname] = {row_key(*mkn): bench_ticks * n for mkn, n in serve_quant.items()}
+        want_by_variant = want_variants_of(want_shapes["flash_packed"], want_shapes["flash_bhsd"],
+                                           want_shapes["geglu"])
+        want_by_variant.update(quant_matmul={}, quant_matmul_int4={})
+        if qname != "fp16":
+            want_by_variant[kname] = {"wgmma": sum(want_shapes[kname].values())}
+        say(f"[serve-{qname}] launches over {SERVE_REQUESTS} requests, {bench_ticks} ticks: "
+            f"{counts}; by variant {by_variant}")
+        if counted != want_shapes or by_variant != want_by_variant:
+            fail(f"[serve-{qname}] launches {counted} / {by_variant} against {want_shapes} / "
+                 f"{want_by_variant}")
+        for kn, by_shape in counted.items():
+            if set(by_shape) - measured(kn):
+                fail(f"[serve-{qname}] {kn}: shapes {by_shape} not all measured in phase 3")
+        extra_paths[f"serve_{qname}"] = (counts, counted)
+        bad = [rid for rid, img in out["images"].items()
+               if img.shape != (512, 512, 3) or img.dtype != np.uint8]
+        if len(out["images"]) != SERVE_REQUESTS or bad:
+            fail(f"[serve-{qname}] {len(out['images'])} images, bad {bad}")
+        say(f"[serve-{qname}] tools/serve_quant_bench_torch.py: SD1.5 512x512 bf16, UNet "
+            f"{qname}, {SERVE_SLOTS} slots, {SERVE_REQUESTS} requests of {STEPS} DDIM steps "
+            f"submitted together after a {serve_quant_bench_torch.WARMUP_STEPS}-step warm-up: "
+            f"{out['images_per_s']:.4f} images/s, wall {out['wall_s']:.3f} s "
+            f"({out['wall_s'] / bench_ticks * 1e3:.1f} ms a tick), submit -> result p50 "
+            f"{out['p50_s']:.3f} s, p95 {out['p95_s']:.3f} s; the model and engine hold "
+            f"{out['hbm_gb']:.3f} GB after the warm-up (beyond the {base / 1e9:.3f} GB in use "
+            f"before the model was built); conv shapes run a row at a time "
+            f"{sum(eng._rows.apart.values())} of {len(eng._rows.apart)}; card {card}")
+        if qname == "int4":
+            # [serve-join] a request that joins two busy slots (slot 2) against
+            # itself alone in the idle engine (slot 0), bit for bit
+            join_ids = serve_quant_bench_torch.prompt_ids(sd15)
+            for i in range(2):
+                eng.submit(eng.make_request(join_ids, join_ids, num_steps=8, seed=70 + i))
+            eng.step()
+            eng.step()
+            late = eng.make_request(join_ids, join_ids, num_steps=6, seed=72)
+            eng.submit(late)
+            joined = {r.request_id: r.image for r in eng.run_until_idle()}[late.request_id]
+            eng.submit(eng.make_request(join_ids, join_ids, num_steps=6, seed=72))
+            alone = eng.run_until_idle()[0].image
+            diff = np.abs(joined.astype(np.int16) - alone.astype(np.int16))
+            say(f"[serve-join] int4 UNet: request seed 72 (6 steps), joined into slot 2 beside "
+                f"2 busy slots, against alone in the idle engine (slot 0): "
+                f"{int((diff > 0).sum())} of {diff.size} uint8 values differ, max "
+                f"{int(diff.max())}")
+            if diff.any():
+                fail("serve-join int4: a request's image depends on the other requests")
+        del eng, model_q, out
+        torch.cuda.empty_cache()
+
+    stamp("5eq (quantized serving)")
+
+    # 5mf. tools/memory_footprint_torch.py --preset sd15: the engine step's
+    # argument, output and temporary bytes by UNet format ----------------------
+    import memory_footprint_torch
+
+    mf_rows = {r["variant"]: r for r in memory_footprint_torch.main(
+        ["--preset", "sd15", "--slots", str(SERVE_SLOTS)])}
+    say(f"[memory] tools/memory_footprint_torch.py --preset sd15 --slots {SERVE_SLOTS}: "
+        f"{json.dumps(list(mf_rows.values()))}; card {card}")
+    if not (mf_rows["fp16"]["argument_mb"] > mf_rows["int8"]["argument_mb"]
+            > mf_rows["int4"]["argument_mb"] > 0
+            and all(r["temp_mb"] >= 0 and r["total_mb"] > 0 for r in mf_rows.values())):
+        fail(f"[memory] argument_mb not fp16 > int8 > int4 > 0, or temp / total missing: "
+             f"{mf_rows}")
+    torch.cuda.empty_cache()
+
+    stamp("5mf (memory footprint)")
 
     # 5f. training: the UNet's gradients through the kernels, the two
     # fine-tune CLIs' jobs, a train-state file ------------------------------
@@ -2814,19 +3098,30 @@ def main() -> None:
         "one SD3 image's, one SD3 + T5 image's and one SD3 image's from its file "
         "flash_packed launches at bf16", "attn")
     xl_q = {q: extra_paths[f"sdxl_{q}"][1][qformats[q][1]] for q in ("int8", "fp8", "int4")}
+    # the accuracy harness's quantized images and the quantized engines' runs
+    new_q = {kn: {path: extra_paths[path][1][kn] for path in paths_q}
+             for kn, paths_q in (("quant_matmul", ("accuracy_int8", "accuracy_fp8", "serve_int8")),
+                                 ("quant_matmul_int4", ("accuracy_int4", "serve_int4")))}
     paths["quant_matmul"] = (
         {"sd15_int8": q_launches["int8"], "sd15_fp8": q_launches["fp8"],
          "sd3_int8": sum(sd3_quant["int8"].values()),
-         "sdxl_int8": sum(xl_q["int8"].values()), "sdxl_fp8": sum(xl_q["fp8"].values())},
-        summed(q_shapes["int8"], q_shapes["fp8"], sd3_quant["int8"], xl_q["int8"], xl_q["fp8"]),
-        "the SD1.5 int8 and fp8 images', the SD3 int8 image's (its MMDiT quantized) and the "
-        "SDXL-base int8 and fp8 images' launches at bf16", "quant")
+         "sdxl_int8": sum(xl_q["int8"].values()), "sdxl_fp8": sum(xl_q["fp8"].values()),
+         **{path: sum(c.values()) for path, c in new_q["quant_matmul"].items()}},
+        summed(q_shapes["int8"], q_shapes["fp8"], sd3_quant["int8"], xl_q["int8"], xl_q["fp8"],
+               *new_q["quant_matmul"].values()),
+        "the SD1.5 int8 and fp8 images', the SD3 int8 image's (its MMDiT quantized), the "
+        f"SDXL-base int8 and fp8 images', the accuracy harness's {ACC_PROMPTS} int8 and "
+        f"{ACC_PROMPTS} fp8 images' (accuracy_*) and the int8 engine's {SERVE_REQUESTS} "
+        "requests' (serve_int8) launches at bf16", "quant")
     paths["quant_matmul_int4"] = (
         {"sd15_int4": q_launches["int4"], "sd3_int4": sum(sd3_quant["int4"].values()),
-         "sdxl_int4": sum(xl_q["int4"].values())},
-        summed(q_shapes["int4"], sd3_quant["int4"], xl_q["int4"]),
-        "the SD1.5, SD3 (its MMDiT quantized) and SDXL-base int4 images' launches at bf16",
-        "quant")
+         "sdxl_int4": sum(xl_q["int4"].values()),
+         **{path: sum(c.values()) for path, c in new_q["quant_matmul_int4"].items()}},
+        summed(q_shapes["int4"], sd3_quant["int4"], xl_q["int4"],
+               *new_q["quant_matmul_int4"].values()),
+        "the SD1.5, SD3 (its MMDiT quantized) and SDXL-base int4 images', the accuracy "
+        f"harness's {ACC_PROMPTS} int4 images' and the int4 engine's {SERVE_REQUESTS} "
+        "requests' launches at bf16", "quant")
     for kn in ("flash_packed", "flash_bhsd", "geglu"):  # and phases 5n-5i's and 5x's images
         by_path, counted, per_what, family = paths[kn]
         by_path.update({name: c[kn] for name, (c, _) in extra_paths.items()})
@@ -2835,8 +3130,11 @@ def main() -> None:
                      "DeepCache, DeepCache with cached CFG, FreeU, hires fix, img2img, "
                      "inpainting), one SDXL-base image and one of each quantized one, phase "
                      "5e's serving run (12 requests over 4 slots), phase 5f's ten timed steps "
-                     "of each fine-tune (train: full, remat; train_lora: LoRA) and one bf16 "
-                     "DiT-XL/2 CFG forward at 256x256 and at 512x512 (dit_256, dit_512)",
+                     "of each fine-tune (train: full, remat; train_lora: LoRA), one bf16 "
+                     "DiT-XL/2 CFG forward at 256x256 and at 512x512 (dit_256, dit_512), "
+                     f"phase 5ae's {ACC_PROMPTS} images of each accuracy-harness variant "
+                     "(accuracy_*) and phase 5eq's 12 requests over the dense, int8 and int4 "
+                     "engines (serve_fp16, serve_int8, serve_int4)",
                      family)
     kernels = []
     for kname, by_key in report.items():
@@ -2863,8 +3161,9 @@ def main() -> None:
     say(json.dumps({"kernels": kernels}))
     say(f"[time] the whole run {time.perf_counter() - t_start:.1f} s")
     say(card)
-    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                           "count": count}}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

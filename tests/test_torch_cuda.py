@@ -1014,6 +1014,62 @@ def test_cuda_serve_join_matches_solo(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_cuda_quantized_serve_join_matches_solo(cuda, quant):
+    """The same over a UNet quantized by quantize_params: its linears go
+    to the quant kernels at tiles picked from M, its convs dequantize."""
+    from tinyfusers_tpu_torch.io.quantize_tree import QDTYPES, quantize_params
+    from tinyfusers_tpu_torch.serve import Engine
+
+    model, _ = _serve_engine(cuda)
+    quantize_params(model.unet, QDTYPES[quant])
+    eng = Engine(model, num_slots=2)
+    eng.submit(_serve_request(eng, seed=1, steps=5, tok=3))
+    eng.step()
+    eng.step()
+    late = _serve_request(eng, seed=5, steps=3)
+    eng.submit(late)
+    launches = quant_matmul.launches + quant_matmul_int4.launches
+    joined = {r.request_id: r.image for r in eng.run_until_idle()}[late.request_id]
+    assert quant_matmul.launches + quant_matmul_int4.launches > launches
+    solo = Engine(model, num_slots=2)
+    solo.submit(_serve_request(solo, seed=5, steps=3))
+    alone = solo.run_until_idle()[0].image
+    assert joined.shape == (32, 32, 3) and (joined == alone).all()
+
+
+@pytest.mark.cuda
+def test_cuda_clip_scorer_matches_cpu(cuda):
+    """The CLIP scorer in fp32 (TF32 off) at ViT-L/14's 224² patch geometry
+    and a narrow width, on the card against the same weights on the CPU:
+    the unnormalized image features within 1e-4 relative (exact fp32 on
+    both, other summation orders; its 257-token attention takes the math
+    route, no kernel), the scores within 1e-4."""
+    import numpy as np
+
+    from tinyfusers_tpu_torch.eval import clip_score, fid
+    from tinyfusers_tpu_torch.models import clip, clip_vision
+
+    tcfg = clip.CLIPConfig(dim=256, num_layers=2, num_heads=4, mlp_dim=1024, projection_dim=128)
+    vcfg = clip_vision.CLIPVisionConfig(dim=256, num_layers=2, num_heads=4, mlp_dim=1024,
+                                        projection_dim=128)
+    gpu = clip_score.CLIPScorer(tcfg, vcfg, device=cuda, seed=3)
+    cpu = clip_score.CLIPScorer(tcfg, vcfg, device="cpu", seed=None)
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(4)
+    images = rng.integers(0, 256, (3, 512, 512, 3), dtype=np.uint8)
+    ids = np.full((3, 77), 49407, np.int64)
+    ids[:, 0] = 49406
+    ids[:, 1:6] = rng.integers(1, 49406, (3, 5))
+    flash0 = flash_packed.launches + flash_bhsd.launches
+    got, want = fid.clip_features(gpu, images), fid.clip_features(cpu, images)
+    assert flash_packed.launches + flash_bhsd.launches == flash0
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-4
+    np.testing.assert_allclose(clip_score.clip_score(gpu, images, ids),
+                               clip_score.clip_score(cpu, images, ids), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
 def test_cuda_serve_ticks_do_not_synchronize(cuda):
     """Every tick, the one admitting requests (and staging encodes past the
     stage window) included, runs under torch.cuda.set_sync_debug_mode

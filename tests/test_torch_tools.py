@@ -13,11 +13,22 @@ sd.TINY with ``--cpu``.
   images are the JAX pipeline's within 1 (a value on a truncation
   boundary), and its PSNR is the JAX tool's function's; the tool runs for
   every format and prints the JAX tool's report.
+- serve_quant_bench (benchmarks/serve_quant_bench.py's): the engine over
+  an int8 or int4 UNet gives the JAX engine's images over the same
+  quantized tree within 1, and a request that joins it mid-flight its own
+  image bit for bit; the tool runs every variant at ``--preset tiny``.
+- memory_footprint (benchmarks/memory_footprint.py's): its argument bytes
+  are the JAX step's argument shapes' bytes (the quantized UNet tree, the
+  slot latents and contexts) but for the control vectors, fp16 > int8 >
+  int4 > 0; temp and total are null on the CPU.
+(tools/accuracy_eval_torch.py is held to the JAX harness in
+tests/test_torch_eval.py.)
 
 The JAX tools are loaded from their files, the persistent-cache settings
 their imports make restored at once.
 """
 import importlib.util
+import json
 import re
 import sys
 from pathlib import Path
@@ -33,9 +44,11 @@ from tinyfusers_tpu.io.quantize_tree import quantize_params as jquantize_params
 from tinyfusers_tpu.models import unet as junet
 from tinyfusers_tpu.pipeline import sd as jsd
 from tinyfusers_tpu.pipeline import sd3 as jsd3
+from tinyfusers_tpu.serve import engine as jengine
 from tinyfusers_tpu_torch.io.from_jax import load_sd, load_sd3
 from tinyfusers_tpu_torch.pipeline import sd as tsd
 from tinyfusers_tpu_torch.pipeline import sd3 as tsd3
+from tinyfusers_tpu_torch.serve import Engine
 
 from torch_parity import few_torch_threads, random_tree  # noqa: F401
 
@@ -63,6 +76,8 @@ def jax_tool(name: str):
 
 sd3_bench = load_file(ROOT / "tools" / "sd3_bench_torch.py", "sd3_bench_torch")
 quant_eval = load_file(ROOT / "tools" / "quant_eval_torch.py", "quant_eval_torch")
+serve_quant = load_file(ROOT / "tools" / "serve_quant_bench_torch.py", "serve_quant_bench_torch")
+footprint = load_file(ROOT / "tools" / "memory_footprint_torch.py", "memory_footprint_torch")
 
 
 # -- sd3_bench -----------------------------------------------------------------
@@ -170,14 +185,117 @@ def test_quant_eval_runs_on_the_cpu(quant, capsys):
     assert out["images"][0].shape == (1, 32, 32, 3)
 
 
+# -- serve_quant_bench -----------------------------------------------------------
+
+JQ = {"int8": jnp.int8, "int4": "int4"}
+
+
+def _engine_images(eng, ids, uids):
+    """Request 0 alone for two ticks, then request 1 joins mid-flight:
+    {request id: image}."""
+    reqs = [eng.make_request(ids[i], uids[0], num_steps=(4, 3)[i], seed=20 + i)
+            for i in range(2)]
+    eng.submit(reqs[0])
+    out = list(eng.step()) + list(eng.step())
+    eng.submit(reqs[1])
+    out += eng.run_until_idle()
+    return {r.request_id: r.image for r in out}
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_engine_matches_the_jax_engine(tiny_sd, quant, monkeypatch):
+    params, model, *_ = tiny_sd
+    rng = np.random.default_rng(52)
+    ids = rng.integers(0, tsd.TINY.clip.vocab_size - 1, (2, tsd.TINY.clip.max_length)
+                       ).astype(np.int32)
+    uids = np.full((1, tsd.TINY.clip.max_length), tsd.TINY.clip.vocab_size - 1, np.int32)
+    qparams = {**params, "unet": jquantize_params(params["unet"], JQ[quant])}
+    want = _engine_images(jengine.Engine(qparams, jsd.TINY, num_slots=2), ids, uids)
+    qmodel = quant_eval.quantized_copy(model, quant)
+    monkeypatch.setattr(tsd, "initial_latent", lambda seed, batch, cfg, device, dtype:
+                        torch.from_numpy(np.array(jax.random.normal(
+                            jax.random.key(seed), cfg.latent_shape, jnp.float32)))[None]
+                        .to(device, dtype))
+    got = _engine_images(Engine(qmodel, num_slots=2), ids, uids)
+    assert got.keys() == want.keys() == {0, 1}
+    for rid in want:
+        assert got[rid].shape == (32, 32, 3) and got[rid].dtype == np.uint8
+        assert np.abs(got[rid].astype(int) - want[rid].astype(int)).max() <= 1, rid
+    # request 1 joined a busy engine in slot 1: alone in slot 0, the same bits
+    solo = Engine(qmodel, num_slots=2)
+    solo.submit(solo.make_request(ids[1], uids[0], num_steps=3, seed=21))
+    np.testing.assert_array_equal(solo.run_until_idle()[0].image, got[1])
+
+
+def test_serve_quant_bench_runs_on_the_cpu(capsys):
+    rows = serve_quant.main(["--preset", "tiny", "--cpu", "--requests", "3", "--slots", "2",
+                             "--steps", "2"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(ln) for ln in lines] == rows
+    assert [r["variant"] for r in rows] == ["fp16", "int8", "int4", "int4_kernel"]
+    for r in rows:
+        assert r["images_per_s"] > 0 and r["p50_s"] <= r["p95_s"] <= r["wall_s"] + 0.01
+        assert r["hbm_gb"] is None and (r["slots"], r["steps"]) == (2, 2)
+
+
+def test_serve_quant_bench_quantizes_the_unet_alone():
+    dense = serve_quant.quantized_model("tiny", "fp16", "cpu")
+    for variant, buffer in (("int8", "weight_values"), ("int4", "weight_packed"),
+                            ("int4_kernel", "weight_packed")):
+        model = serve_quant.quantized_model("tiny", variant, "cpu")
+        held = {n for n, m in model.named_modules() if buffer in dict(m.named_buffers(
+            recurse=False))}
+        assert held and all(n.startswith("unet.") for n in held), variant
+        for n, p in dense.named_parameters():  # the same seeded weights elsewhere
+            if not n.startswith("unet."):
+                assert torch.equal(p, dict(model.named_parameters())[n]), n
+
+
+# -- memory_footprint ---------------------------------------------------------------
+
+def test_memory_footprint_runs_on_the_cpu(tmp_path, capsys):
+    out = tmp_path / "mem.json"
+    rows = footprint.main(["--preset", "tiny", "--cpu", "--json", str(out)])
+    assert json.loads(out.read_text()) == rows
+    assert "== engine-step device memory (tiny, 4 slots" in capsys.readouterr().out
+    got = {r["variant"]: r for r in rows}
+    assert got["fp16"]["argument_mb"] > got["int8"]["argument_mb"] > \
+        got["int4"]["argument_mb"] > 0
+    for r in rows:
+        assert r["output_mb"] > 0 and r["temp_mb"] is None and r["total_mb"] is None
+
+
+@pytest.mark.parametrize("variant", ["fp16", "int8", "fp8", "int4"])
+def test_memory_footprint_arguments_are_the_jax_steps(variant):
+    """The port's argument bytes against the shapes the JAX tool lowers the
+    engine step with: the UNet tree quantized by the JAX rule, latents
+    (S, h, w, c) and contexts (2S, T, D) in bf16, then the port's control
+    block (5 x S fp32) where JAX passes four fp32 vectors and a bool one."""
+    slots = 3
+    eng = Engine(serve_quant.quantized_model("tiny", variant, "cpu"), num_slots=slots)
+    got = footprint.footprint(eng)
+    shapes = jax.eval_shape(lambda: jsd.init(jax.random.key(0), jsd.TINY, dtype=jnp.bfloat16))
+    unet = shapes["unet"]
+    if variant != "fp16":
+        q = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn, "int4": "int4"}[variant]
+        unet = jax.eval_shape(lambda t: jquantize_params(t, q), unet)
+    h, w, c = jsd.TINY.latent_shape
+    want = (sum(x.size * x.dtype.itemsize for x in jax.tree.leaves(unet))
+            + 2 * slots * h * w * c + 2 * 2 * slots * jsd.TINY.clip.max_length
+            * jsd.TINY.clip.dim)
+    assert got["argument_mb"] * 2 ** 20 == want + 5 * slots * 4
+    assert got["output_mb"] * 2 ** 20 == 2 * slots * h * w * c
+
+
 def test_the_tools_import_no_jax():
-    """Both tools, imported and their arguments parsed in a fresh process
+    """The tools, imported and their arguments parsed in a fresh process
     without jax or the JAX package loaded by them."""
     import subprocess
 
     code = (
         "import importlib.util, sys\n"
-        "for name in ('sd3_bench_torch', 'quant_eval_torch'):\n"
+        "for name in ('sd3_bench_torch', 'quant_eval_torch', 'accuracy_eval_torch',\n"
+        "             'serve_quant_bench_torch', 'memory_footprint_torch'):\n"
         "    spec = importlib.util.spec_from_file_location(name, f'tools/{name}.py')\n"
         "    mod = importlib.util.module_from_spec(spec)\n"
         "    sys.modules[name] = mod\n"

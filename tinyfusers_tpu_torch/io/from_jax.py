@@ -6,8 +6,8 @@ jax. The port's modules are named after the tree's keys, so the walk is
 mechanical: a dict key is an attribute, a list index a ModuleList index.
 Leaves change layout on the way: linear weights (in, out) -> (out, in),
 conv weights HWIO -> OIHW, and the per-layer leaves stacked on a leading
-axis for ``lax.scan`` (CLIP's and T5's layers, the MMDiT's and the DiT's
-blocks) are split across the ModuleList.
+axis for ``lax.scan`` (the CLIP towers' and T5's layers, the MMDiT's and
+the DiT's blocks) are split across the ModuleList.
 Every parameter must be written exactly once and every shape must match.
 The same walk (``load_params``) loads a UNet of any config (the
 9-channel inpainting one and SDXL's too) and a ControlNet (``controlnet.init``'s
@@ -146,4 +146,10 @@ def load_dit(model: nn.Module, params) -> None:
     """Load a JAX ``dit.init`` tree (its stacked ``blocks`` split across the
     ModuleList; ``label_embed`` / ``cond_proj`` where the config has them)
     into a ``models.dit.DiT``."""
+    load_params(model, params)
+
+
+def load_clip_vision(model: nn.Module, params) -> None:
+    """Load a JAX ``clip_vision.init`` tree (its stacked ``layers`` split
+    across the ModuleList) into a ``models.clip_vision.CLIPVisionModel``."""
     load_params(model, params)

@@ -19,6 +19,7 @@ the JAX package's does.
 """
 from __future__ import annotations
 
+import copy
 from typing import Union
 
 import torch
@@ -28,6 +29,9 @@ from ..models.layers import Conv, Linear, stacked_index
 from ..ops.quant import is_quantized, quantize, quantize_int4
 
 _MIN_QUANT_SIZE = 4096  # don't bother quantizing tiny tensors
+
+# the tools' format names -> quantize_params's qdtype
+QDTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "int4": "int4"}
 
 
 def quantize_params(module: nn.Module, qdtype: Union[torch.dtype, str] = torch.int8, *,
@@ -47,3 +51,14 @@ def quantize_params(module: nn.Module, qdtype: Union[torch.dtype, str] = torch.i
             q = quantize(w, qdtype, axis=-1)
         leaf.set_weight(q)
     return module
+
+
+def quantized_copy(model: nn.Module, qdtype: Union[torch.dtype, str]) -> nn.Module:
+    """A shallow copy of ``model`` (a pipeline model with a ``unet``) whose
+    UNet is a quantized deep copy, every other module shared: the JAX
+    tools' ``{**params, "unet": quantize_params(params["unet"], q)}``. The
+    model given keeps its dense UNet."""
+    q = copy.copy(model)
+    q._modules = dict(model._modules)  # rebinding q.unet leaves the model's
+    q.unet = quantize_params(copy.deepcopy(model.unet), qdtype)
+    return q

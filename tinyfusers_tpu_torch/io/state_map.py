@@ -26,6 +26,7 @@ Checkpoint prefixes:
   model.diffusion_model.*                       SD3's MMDiT (joint_blocks, ...)
   text_encoders.clip_{l,g}.transformer.text_model.*  SD3's towers, HF layout
   text_encoders.t5xxl.transformer.*             SD3's T5-XXL (HF T5EncoderModel)
+  vision_model.*, visual_projection.weight      the CLIP scorer's ViT (HF CLIPModel)
 
 SD3's single-file layout differs from torch's own in two places: the
 fused ``attn.qkv`` stores its rows [q | k | v], while the port's are
@@ -36,8 +37,6 @@ into the first 2·d rows of the port's 6·d ``mod`` with the rest, ``proj``
 and ``mlp`` zero (gated by zero and never read). A learned ``pos_embed``
 grid (192² in SD3-medium's file) is centre-cropped to the model's grid,
 and written back cropped, as the JAX package does.
-
-The CLIP-vision map is not ported yet.
 """
 from __future__ import annotations
 
@@ -276,12 +275,9 @@ def vae_to_state(vae: nn.Module) -> Dict[str, torch.Tensor]:
 # CLIP text encoder: HF layout (SD1.x) and OpenCLIP layout (SD2.x)
 # ---------------------------------------------------------------------------
 
-def _clip_entries(cfg, prefix: str = CLIP_PREFIX) -> List[Entry]:
-    out: List[Entry] = []
-    out.append(("token_embedding.weight", f"{prefix}.embeddings.token_embedding.weight", None))
-    out.append(("position_embedding.weight",
-                f"{prefix}.embeddings.position_embedding.weight", None))
-    for i in range(cfg.num_layers):
+def _encoder_entries(out: List[Entry], num_layers: int, prefix: str) -> None:
+    """HF CLIP's encoder layers (the text and the vision tower alike)."""
+    for i in range(num_layers):
         p, k = f"layers.{i}", f"{prefix}.encoder.layers.{i}"
         _leaf(out, f"{p}.layer_norm1", f"{k}.layer_norm1")
         for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
@@ -289,6 +285,14 @@ def _clip_entries(cfg, prefix: str = CLIP_PREFIX) -> List[Entry]:
         _leaf(out, f"{p}.layer_norm2", f"{k}.layer_norm2")
         _leaf(out, f"{p}.mlp.fc1", f"{k}.mlp.fc1")
         _leaf(out, f"{p}.mlp.fc2", f"{k}.mlp.fc2")
+
+
+def _clip_entries(cfg, prefix: str = CLIP_PREFIX) -> List[Entry]:
+    out: List[Entry] = []
+    out.append(("token_embedding.weight", f"{prefix}.embeddings.token_embedding.weight", None))
+    out.append(("position_embedding.weight",
+                f"{prefix}.embeddings.position_embedding.weight", None))
+    _encoder_entries(out, cfg.num_layers, prefix)
     _leaf(out, "final_layer_norm", f"{prefix}.final_layer_norm")
     if cfg.projection_dim:
         # a sibling of text_model (CLIPTextModelWithProjection), (proj, dim)
@@ -304,6 +308,44 @@ def clip_from_state(state: Mapping, clip: nn.Module, prefix: str = CLIP_PREFIX) 
 
 def clip_to_state(clip: nn.Module, prefix: str = CLIP_PREFIX) -> Dict[str, torch.Tensor]:
     return _read(clip, _clip_entries(clip.cfg, prefix))
+
+
+# ---------------------------------------------------------------------------
+# CLIP vision tower: HF CLIPModel / CLIPVisionModelWithProjection layout
+# ---------------------------------------------------------------------------
+
+CLIP_VISION_PREFIX = "vision_model"
+
+
+def _clip_vision_entries(cfg, prefix: str = CLIP_VISION_PREFIX) -> List[Entry]:
+    """{prefix}.embeddings.{class_embedding, patch_embedding.weight (dim, 3,
+    P, P: the port's OIHW), position_embedding.weight}, {prefix}.pre_layrnorm
+    (HF's spelling) and post_layernorm, the encoder layers, and
+    visual_projection.weight (proj, dim), a sibling of the tower."""
+    out: List[Entry] = [("class_embedding", f"{prefix}.embeddings.class_embedding", None)]
+    _leaf(out, "patch_embedding", f"{prefix}.embeddings.patch_embedding", bias=False)
+    out.append(("position_embedding.weight",
+                f"{prefix}.embeddings.position_embedding.weight", None))
+    _leaf(out, "pre_layernorm", f"{prefix}.pre_layrnorm")
+    _encoder_entries(out, cfg.num_layers, prefix)
+    _leaf(out, "post_layernorm", f"{prefix}.post_layernorm")
+    # "vision_model" -> "visual_projection", "x.vision_model" -> "x.visual_projection"
+    parent = prefix[:-len("vision_model")] if prefix.endswith("vision_model") else ""
+    _leaf(out, "visual_projection", f"{parent}visual_projection", bias=False)
+    return out
+
+
+def clip_vision_from_state(state: Mapping, vision: nn.Module,
+                           prefix: str = CLIP_VISION_PREFIX) -> None:
+    """Write the vision tower of an HF CLIPModel or
+    CLIPVisionModelWithProjection state into ``vision`` (a
+    models.clip_vision.CLIPVisionModel)."""
+    _write(vision, state, _clip_vision_entries(vision.cfg, prefix), "clip_vision")
+
+
+def clip_vision_to_state(vision: nn.Module,
+                         prefix: str = CLIP_VISION_PREFIX) -> Dict[str, torch.Tensor]:
+    return _read(vision, _clip_vision_entries(vision.cfg, prefix))
 
 
 def _rows(i: int, d: int) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -126,11 +126,13 @@ class ZeroLinear(Linear):
 class Conv(_WeightLeaf):
     INT4_AXIS = 2  # HWIO input channels
 
-    def __init__(self, in_ch: int, out_ch: int, k: int, *, device=None, dtype=None):
+    def __init__(self, in_ch: int, out_ch: int, k: int, bias: bool = True, *, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k, **kw), requires_grad=False)
-        self.bias = nn.Parameter(torch.empty(out_ch, **kw), requires_grad=False)
+        self.bias = (nn.Parameter(torch.empty(out_ch, **kw), requires_grad=False)
+                     if bias else None)
 
     @staticmethod
     def to_jax(t: torch.Tensor) -> torch.Tensor:
@@ -206,11 +208,12 @@ def set_trainable(module: nn.Module, trainable: bool = True) -> nn.Module:
     return module
 
 
-def init_weights(model: nn.Module, seed: int) -> None:
+def init_weights(model: nn.Module, seed: int) -> torch.Generator:
     """Fill every leaf of ``model`` with the JAX package's distributions,
-    drawn by one torch.Generator on the model's device. A learned leaf
-    outside these classes (the MMDiT's optional ``pos_embed``) has no JAX
-    init and is left as it is."""
+    drawn by one torch.Generator on the model's device, and return that
+    generator. A learned leaf outside these classes (the MMDiT's optional
+    ``pos_embed``, the ViT's ``class_embedding``) is left as it is; a model
+    whose JAX init draws one goes on drawing from the returned generator."""
     dev = next(model.parameters()).device
     generator = torch.Generator(device=dev).manual_seed(seed)
     for mod in model.modules():
@@ -228,3 +231,4 @@ def init_weights(model: nn.Module, seed: int) -> None:
             pinit.ones_(mod.weight)
         elif isinstance(mod, Embedding):
             pinit.embedding_(mod.weight, generator)
+    return generator

@@ -26,7 +26,6 @@ the GPU unless ``--cpu`` is given.
 from __future__ import annotations
 
 import argparse
-import copy
 import math
 import sys
 from pathlib import Path
@@ -37,11 +36,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from tinyfusers_tpu_torch.io.quantize_tree import quantize_params  # noqa: E402
+from tinyfusers_tpu_torch.io import quantize_tree  # noqa: E402
+from tinyfusers_tpu_torch.io.quantize_tree import QDTYPES  # noqa: E402
 from tinyfusers_tpu_torch.models import unet as unet_model  # noqa: E402
 from tinyfusers_tpu_torch.pipeline import sd  # noqa: E402
 
-QDTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "int4": "int4"}
 TIMESTEPS = (981, 501, 21)
 GUIDANCE = 7.5
 
@@ -56,10 +55,7 @@ def psnr(a: np.ndarray, b: np.ndarray, peak: float) -> float:
 def quantized_copy(model: sd.StableDiffusion, quant: str) -> sd.StableDiffusion:
     """The model with a quantized copy of its UNet, sharing the CLIP and
     VAE modules (the JAX tool's {**params, "unet": quantize_params(...)})."""
-    q = copy.copy(model)
-    q._modules = dict(model._modules)  # rebinding q.unet leaves the model's
-    q.unet = quantize_params(copy.deepcopy(model.unet), QDTYPES[quant])
-    return q
+    return quantize_tree.quantized_copy(model, QDTYPES[quant])
 
 
 @torch.inference_mode()
