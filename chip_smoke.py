@@ -16,7 +16,9 @@ serving tool over an int8 and an int4 UNet), the accuracy harness (CLIP
 score and CLIP-FID by a seeded ViT-L/14 scorer of each approximation
 against bf16), the engine step's memory by UNet format, and SD1.5
 fine-tuned through the two training CLIs' jobs (all of the UNet, and
-rank-8 LoRA), and holds every hand-written CUDA kernel of those paths
+rank-8 LoRA), SD1.5 on a (data, model) mesh (one NCCL rank, then two
+ranks on the one card: tensor-parallel and FSDP), and holds every
+hand-written CUDA kernel of those paths
 against its plain PyTorch version. Imports neither jax nor
 tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
 and the ``final`` layer) are zeros under the JAX init, which would keep
@@ -36,7 +38,9 @@ Phases, one or more lines each:
    also at SD3's two joint-attention shapes with their kv_len and at the
    SD2.1-v UNet's four, flash_bhsd also at the 1024x1024 and 768x768 VAEs'
    mid attention, geglu also at the SD2.1-v UNet's four; flash_packed also
-   at DiT-XL/2's 512x512 shape, 16 heads of 72; the quant matmuls in bf16
+   at DiT-XL/2's 512x512 shape, 16 heads of 72; flash_packed and geglu
+   also at the SD1.5 UNet's tensor-parallel shapes at model = 2 (TP2:
+   4 heads a rank, half the FF's inner width); the quant matmuls in bf16
    also at SDXL-base's 13 UNet linear shapes and the quantized SD3 MMDiT's
    6, and at the serving engine's 19 batch-8 shapes (M = 4x the batch-2
    rows), from ``unet_quant_launches`` and MMDIT_QUANT_SHAPES), bf16 and
@@ -105,6 +109,21 @@ Phases, one or more lines each:
    on wgmma_wide, 320 geglu, each at a shape that phase 3 measured), then
    two more images; seconds per
    image by the host clock after synchronize, and peak device memory;
+5p. parallel: [parallel-1] the same image through ``generate(mesh=)`` on
+   a one-rank NCCL (data 1, model 1) mesh, equal to phase 5's bit for bit
+   with the same launches by shape; [parallel-tp2] two ranks on the one
+   card (``parallel_rank``; gloo over CUDA tensors, since NCCL takes one
+   rank per device): the full-width SD1.5 UNet at model = 2 in fp32
+   (allclose atol 2e-4, rtol 2e-3) and bf16 (relative error within twice
+   the unsharded bf16 UNet's own against fp32), one tensor-parallel train
+   step (data 1 x model 2) and one FSDP step (data 2 x model 1) at full
+   width in fp32 against the unsharded step (loss and grad norm within
+   rtol 2e-4, every parameter within rtol 2e-3, atol 2e-5; rank 1's
+   replicated leaves, loss and grad norm held to rank 0's alike), each rank's
+   launches counted exactly per part (20 flash_packed and 16 geglu a
+   forward, twice a step with remat) at shapes phase 3 measured (its TP2
+   rows: 4 heads and half the FF columns of each rank); wall seconds of
+   each part and of the phase;
 6. profile: one more image of the same model and inputs under
    ``torch.profiler``: its host seconds, the summed device time, the
    device's busy share, the number of device kernels, the device time
@@ -465,6 +484,20 @@ TRAIN_GEGLU_SHAPES = [("train 64x64", (16384, 1280, 320), None),
                       ("train 32x32", (4096, 2560, 640), None),
                       ("train 16x16", (1024, 5120, 1280), None),
                       ("train 8x8 mid", (256, 5120, 1280), None)]  # B=1 16x16's too
+# ... and the SD1.5 UNet's at model = 2 ([parallel-tp2]: each of two ranks
+# holds 4 of the 8 heads and half of each FF's inner columns), CFG batch 2 at
+# 64x64 latents, as its forward and its tensor-parallel train step give them.
+TP2_PACKED_SHAPES = [("TP2 64x64 self", (2, 4096, 4096, 160, 4, 4096)),
+                     ("TP2 64x64 cross", (2, 4096, 77, 160, 4, 77)),
+                     ("TP2 32x32 self", (2, 1024, 1024, 320, 4, 1024)),
+                     ("TP2 32x32 cross", (2, 1024, 77, 320, 4, 77))]
+TP2_GEGLU_SHAPES = [("TP2 64x64", (8192, 640, 320), None),
+                    ("TP2 32x32", (2048, 1280, 640), None),
+                    ("TP2 16x16", (512, 2560, 1280), None),
+                    ("TP2 8x8 mid", (128, 2560, 1280), None)]
+# [parallel-tp2]'s train steps: fp32, SGD (momentum 0.9 for FSDP, whose
+# trace the data ranks split) after global-norm clipping at 1.0
+TP2_LR = 1e-2
 TRAIN_STEPS = 10      # timed steps of each training job, after one warm-up step
 OVERFIT_STEPS = 20    # steps on one repeated batch, t and noise fixed
 # Gradients through the autograd Functions (the kernel forward, the exact-math
@@ -750,6 +783,207 @@ def profile(run, host_ops: bool = False) -> dict:
     return out
 
 
+def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
+    """One of [parallel-tp2]'s two ranks, on the one card, in a gloo group
+    over CUDA tensors. Writes <outdir>/rank<rank>.json: for each part its
+    launches by wrapper and by call shape and its check: each rank's
+    forward against the unsharded one; after a train step each rank's
+    replicated leaves, loss and grad_norm against rank 0's, and (rank 0,
+    which also runs the dense reference step) the step against the
+    unsharded one.
+
+    Parts: the full-width SD1.5 UNet forward at model = 2, fp32 (TF32 off)
+    and bf16, against the unsharded UNet on the card; one tensor-parallel
+    train step (data 1 x model 2, the UNet's column- and row-parallel
+    Linears split) and one FSDP step (data 2 x model 1, the state split over
+    the data ranks, one row each) at full width, fp32, against the
+    unsharded step on the global batch."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    from tinyfusers_tpu_torch import parallel, train
+    from tinyfusers_tpu_torch.kernels.flash_attention import flash_bhsd, flash_packed
+    from tinyfusers_tpu_torch.kernels.geglu_ff import geglu_matmul
+    from tinyfusers_tpu_torch.models import unet as unet_mod
+    from tinyfusers_tpu_torch.models.layers import init_weights, set_trainable
+    from tinyfusers_tpu_torch.pipeline import sd
+    from tinyfusers_tpu_torch.train import optim
+
+    dev = torch.device("cuda:0")
+    cfg = sd.SD15.unet
+    counted = {"flash_packed": flash_packed, "flash_bhsd": flash_bhsd, "geglu": geglu_matmul}
+    out = {}
+
+    def unet(dtype=torch.float32):
+        model = unet_mod.UNet(cfg, device=dev, dtype=torch.float32)
+        init_weights(model, seed=11)
+        return model.to(dtype)
+
+    def start():  # both ranks start a timed part together
+        torch.cuda.synchronize()
+        dist.barrier()
+        for w in counted.values():
+            w.launches = 0
+            w.shapes.clear()
+        return time.perf_counter()
+
+    def seconds_since(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def part(name, what, seconds, want, ok, check):
+        out[name] = {"what": what, "seconds": seconds, "want": want,
+                     "ok": bool(ok), "check": check,
+                     "launches": {kn: w.launches for kn, w in counted.items()},
+                     "shapes": {kn: {json.dumps(list(k)): n for k, n in w.shapes.items()}
+                                for kn, w in counted.items()}}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((2, 64, 64, 4), generator=g, device=dev)
+    ctx = torch.randn((2, 77, 768), generator=g, device=dev)
+    t = torch.full((2,), 981.0, device=dev)
+    per_forward = {"flash_packed": 20, "flash_bhsd": 0, "geglu": 16}
+
+    def timed(fn):  # (result, seconds) of a warm call
+        fn()
+        t0 = start()
+        got = fn()
+        return got, seconds_since(t0)
+
+    # the forward at model = 2, fp32 and bf16, against the unsharded UNet
+    mesh = parallel.make_mesh(data=1, model=2)
+    x16, ctx16 = x.bfloat16(), ctx.bfloat16()
+    with torch.inference_mode():
+        model = unet()
+        want32, dense32 = timed(lambda: unet_mod.apply(model, x, t, ctx))
+        m16 = unet(torch.bfloat16)
+        want16, dense16 = timed(lambda: unet_mod.apply(m16, x16, t, ctx16))
+        parallel.shard_params(model, mesh)
+        parallel.shard_params(m16, mesh)
+        got32, secs = timed(lambda: unet_mod.apply(model, x, t, ctx))
+        ok = torch.allclose(got32, want32, atol=2e-4, rtol=2e-3)
+        part("forward_fp32", "SD1.5 UNet fp32 (2,64,64,4) at model = 2 against the unsharded "
+             "UNet on the card", secs, per_forward, ok,
+             f"max_abs={(got32 - want32).abs().max().item():.3e} rel={rel(got32, want32):.3e} "
+             f"(allclose atol 2e-4 rtol 2e-3: {ok}); a warm forward {secs:.4f} s sharded, "
+             f"{dense32:.4f} s unsharded")
+        got16, secs = timed(lambda: unet_mod.apply(m16, x16, t, ctx16))
+        err16, floor16 = rel(got16, want16), rel(want16, want32)
+        # two bf16 evaluations, each about floor16 from the fp32 result, lie
+        # up to about sqrt(2) floor16 apart: the limit is 2 floor16
+        part("forward_bf16", "SD1.5 UNet bf16 (2,64,64,4) at model = 2 against the unsharded "
+             "bf16 UNet on the card", secs, per_forward, err16 <= 2 * floor16,
+             f"rel={err16:.3e} (tol 2x the unsharded bf16 UNet's rel against fp32, "
+             f"2 x {floor16:.3e}; sharded bf16 against fp32 rel={rel(got16, want32):.3e}); a "
+             f"warm forward {secs:.4f} s sharded, {dense16:.4f} s unsharded")
+    del model, m16, want32, want16, got32, got16
+    torch.cuda.empty_cache()
+
+    x0 = torch.randn((2, 64, 64, 4), generator=g, device=dev)
+    c0 = torch.randn((2, 77, 768), generator=g, device=dev)
+
+    def leaves_close(got, want):
+        bad = [k for k in want if not torch.allclose(got[k], want[k], rtol=2e-3, atol=2e-5)]
+        worst = max(((got[k] - want[k]).abs().max().item() for k in want), default=0.0)
+        return not bad, (f"{len(want) - len(bad)}/{len(want)} leaves within rtol 2e-3 atol "
+                         f"2e-5 (max |d| {worst:.3e}{', first off: ' + bad[0] if bad else ''})")
+
+    def replicas_close(state, m):
+        """This rank's copies of the leaves whole over the mesh, and its loss
+        and grad_norm, against rank 0's (broadcast): a replica that drifts
+        from rank to rank fails here."""
+        bad, worst, n = [], 0.0, 0
+        for k, v in state.params.items():  # one leaf at a time: the same order on each rank
+            if state.placements[k].sharded:
+                continue
+            ref = v.clone()
+            dist.broadcast(ref, src=0)
+            n += 1
+            worst = max(worst, (v - ref).abs().max().item())
+            if not torch.allclose(v, ref, rtol=2e-3, atol=2e-5):
+                bad.append(k)
+        mets = torch.tensor([float(m["loss"]), float(m["grad_norm"])], dtype=torch.float64,
+                            device=dev)
+        ref = mets.clone()
+        dist.broadcast(ref, src=0)
+        same = torch.allclose(mets, ref, rtol=2e-4, atol=0.0)
+        return not bad and same, (
+            f"{n - len(bad)}/{n} replicated leaves within rtol 2e-3 atol 2e-5 of rank 0's "
+            f"(max |d| {worst:.3e}{', first off: ' + bad[0] if bad else ''}); loss and "
+            f"grad_norm {mets.tolist()} against rank 0's {ref.tolist()} within rtol 2e-4: {same}")
+
+    def train_part(name, what, mesh, tx, fsdp):
+        def state_of(model, placements=None):
+            return train.TrainState.create(train.params_of(model, trainable_only=True), tx,
+                                           placements=placements)
+
+        want = None
+        if rank == 0:  # the unsharded step on the global batch, then a second one timed
+            dense = set_trainable(unet())
+            step = train.make_train_step(train.module_apply(dense), tx, remat=True)
+            new, m = step(state_of(dense), (x0, c0), torch.Generator(device=dev).manual_seed(13))
+            want = (new.params, float(m["loss"]), float(m["grad_norm"]))
+            del new
+            t0 = time.perf_counter()
+            step(state_of(dense), (x0, c0), torch.Generator(device=dev).manual_seed(13))
+            dense_s = seconds_since(t0)
+            del dense, step
+            torch.cuda.empty_cache()
+        model = set_trainable(parallel.shard_params(unet(), mesh))
+        state = state_of(model, parallel.sharding_tree(model, mesh))
+        if fsdp:
+            state = parallel.shard_fsdp(state, mesh)
+        held = sum(v.numel() for v in state.params.values())
+        step = train.make_train_step(train.module_apply(model), tx, remat=True)
+        batch = train.shard_batch((x0, c0), mesh)
+        t0 = start()
+        new, m = step(state, batch, torch.Generator(device=dev).manual_seed(13))
+        first_s = seconds_since(t0)
+        launched = {kn: w.launches for kn, w in counted.items()}
+        whole = parallel.unshard(new.params, new.placements)
+        ok, check = replicas_close(new, m)
+        if want is not None:
+            close, check = leaves_close(whole, want[0])
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            ok = (ok and close and abs(loss - want[1]) <= 2e-4 * abs(want[1])
+                  and abs(norm - want[2]) <= 2e-4 * abs(want[2]))
+            check = (f"loss {loss:.6f} (unsharded {want[1]:.6f}), grad_norm {norm:.4f} "
+                     f"(unsharded {want[2]:.4f}), within rtol 2e-4; params: {check}; this "
+                     f"rank holds {held / sum(v.numel() for v in want[0].values()):.3f} of "
+                     f"the state's params")
+        if launched != {kn: w.launches for kn, w in counted.items()}:
+            ok, check = False, f"launches after the step: {launched}, then more"
+        del new, whole
+        t0 = start()  # the same step again, warm
+        step(state, batch, torch.Generator(device=dev).manual_seed(13))
+        secs = seconds_since(t0)
+        if want is not None:
+            check += (f"; a warm step {secs:.3f} s sharded (the first {first_s:.3f} s), "
+                      f"{dense_s:.3f} s unsharded")
+        part(name, what, secs, {kn: 2 * n for kn, n in per_forward.items()}, ok, check)
+        del model, state, want
+        torch.cuda.empty_cache()
+
+    train_part("train_tp", "one train step fp32, data 1 x model 2 (tensor parallel), batch 2, "
+               "remat, SGD after clipping, against the unsharded step",
+               mesh, optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(TP2_LR)), False)
+    train_part("train_fsdp", "one train step fp32, data 2 x model 1 (FSDP: params and "
+               "momentum split over the data ranks), one row a rank, remat, SGD with "
+               "momentum after clipping, against the unsharded step on both rows",
+               parallel.make_mesh(data=2, model=1),
+               optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(TP2_LR, momentum=0.9)),
+               True)
+    Path(outdir, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1007,7 +1241,8 @@ def main() -> None:
     for dt in (torch.bfloat16, torch.float32):
         isz = torch.tensor([], dtype=dt).element_size()
         packed_rows = ([("flash_packed", *row)
-                        for row in PACKED_SHAPES + SD21_PACKED_SHAPES + DIT_PACKED_SHAPES]
+                        for row in PACKED_SHAPES + SD21_PACKED_SHAPES + DIT_PACKED_SHAPES
+                        + TP2_PACKED_SHAPES]
                        + [("flash_packed_multik", *row) for row in MULTIK_SHAPES])
         if dt == torch.bfloat16:  # the hires fix's, the batch-1 branches', SDXL's, serving's
             packed_rows += [("flash_packed", *row)
@@ -1059,7 +1294,7 @@ def main() -> None:
                    tol[("attn", dt)], row_tol[("attn", dt)], variant=variant,
                    tflops=flops / t_k / 1e9)
         torch.cuda.empty_cache()
-        geglu_rows = GEGLU_SHAPES + SD21_GEGLU_SHAPES
+        geglu_rows = GEGLU_SHAPES + SD21_GEGLU_SHAPES + TP2_GEGLU_SHAPES
         if dt == torch.bfloat16:
             geglu_rows = geglu_rows + HIRES_GEGLU_SHAPES + B1_GEGLU_SHAPES
             geglu_rows += [row for row in TRAIN_GEGLU_SHAPES
@@ -1622,6 +1857,78 @@ def main() -> None:
         f"s/image {[round(s, 4) for s in secs]} mean {sum(secs) / 3:.4f}; peak device "
         f"memory {peak_gb:.2f} GB ({held_gb:.2f} GB held before the images); image max diff vs warm-up {diff}; card {card}")
 
+    # [parallel-1] the same image through generate on a one-rank NCCL mesh:
+    # shard_params changes nothing at model = 1 and the data axis keeps
+    # every row, so the image and the launches must be phase 5's bit for bit
+    import torch.distributed as dist
+
+    from tinyfusers_tpu_torch import parallel
+
+    t_par = time.perf_counter()
+    store = Path(tempfile.mkdtemp(prefix="tf_parallel_"))
+    dist.init_process_group("nccl", init_method=f"file://{store / 'store'}", rank=0,
+                            world_size=1)
+    mesh1 = parallel.make_mesh(model=1)
+    parallel.shard_params(model, mesh1)
+    reset_counts()
+    p_img = sd.generate(model, ids, uncond, latent, GUIDANCE, num_steps=STEPS, mesh=mesh1)
+    torch.cuda.synchronize()
+    p_counts = {kname: w.launches for kname, w in wrappers.items()}
+    p_shapes = {kname: dict(w.shapes) for kname, w in wrappers.items()}
+    dist.destroy_process_group()
+    same = torch.equal(p_img, first)
+    say(f"[parallel-1] SD1.5 512x512 {STEPS}-step DDIM CFG {GUIDANCE} bf16 through "
+        f"generate(mesh=) on a (data 1, model 1) NCCL mesh: image equal to phase 5's bit "
+        f"for bit: {same}; launches {p_counts} (phase 5: {launches}); launches by shape "
+        f"equal phase 5's: {p_shapes == shapes}; "
+        f"{time.perf_counter() - t_par:.1f} s wall")
+    if not same or p_counts != launches or p_shapes != shapes:
+        fail("[parallel-1] the one-rank mesh's image or launches differ from phase 5's")
+    extra_paths["parallel_1"] = (p_counts, p_shapes)
+
+    # [parallel-tp2] two ranks on the one card (parallel_rank): NCCL takes
+    # one rank per device, so the ranks' group is gloo over CUDA tensors (its
+    # all_reduce, all_gather and broadcast take them; the compute stays on
+    # the card, the transfers go through the host)
+    t_par = time.perf_counter()
+    torch.cuda.empty_cache()
+    import torch.multiprocessing as tmp_mp
+
+    try:
+        tmp_mp.start_processes(parallel_rank, args=(2, str(store / "store2"), str(store)),
+                               nprocs=2, join=True, start_method="spawn")
+    except Exception as e:  # noqa: BLE001  (a rank's traceback)
+        fail(f"[parallel-tp2] a rank failed: {e}")
+    tp2 = [json.loads((store / f"rank{r}.json").read_text()) for r in range(2)]
+    shutil.rmtree(store, ignore_errors=True)
+    for part in ("forward_fp32", "forward_bf16", "train_tp", "train_fsdp"):
+        res = tp2[0][part]
+        by_rank = [r[part]["launches"] for r in tp2]
+        say(f"[parallel-tp2] {res['what']}: rank 0: {res['check']}; rank 1: "
+            f"{tp2[1][part]['check']}; launches per rank {by_rank} (want {res['want']} each); "
+            f"{res['seconds']:.2f} s")
+        for i, r in enumerate(tp2):
+            if not r[part]["ok"]:
+                fail(f"[parallel-tp2] {part} rank {i}: {r[part]['check']}")
+        for r in tp2:
+            got = r[part]["launches"]
+            if {kn: got.get(kn, 0) for kn in res["want"]} != res["want"]:
+                fail(f"[parallel-tp2] {part}: launches {got}, want {res['want']}")
+            for kn, by_shape in r[part]["shapes"].items():
+                if {tuple(json.loads(k)) for k in by_shape} - measured(kn):
+                    fail(f"[parallel-tp2] {part} {kn}: shapes {by_shape} not all measured in "
+                         f"phase 3")
+    # the bf16 forward's launches join the kernels line (both ranks')
+    extra_paths["parallel_tp2"] = (
+        {kn: sum(r["forward_bf16"]["launches"].get(kn, 0) for r in tp2) for kn in wrappers},
+        {kn: {tuple(json.loads(k)): sum(r["forward_bf16"]["shapes"].get(kn, {}).get(k, 0)
+                                        for r in tp2)
+              for k in {k for r in tp2 for k in r["forward_bf16"]["shapes"].get(kn, {})}}
+         for kn in wrappers})
+    say(f"[parallel-tp2] two gloo ranks on the card, transport through host memory: "
+        f"{time.perf_counter() - t_par:.1f} s wall; card {card}")
+    stamp("5, 5p (SD1.5 dense, parallel)")
+
     # 6. profile: one more image, same model and inputs -------------------
     prof = profile(lambda: sd.generate(model, ids, uncond, latent, GUIDANCE,
                                        num_steps=STEPS), host_ops=True)
@@ -1716,7 +2023,7 @@ def main() -> None:
     del model, c, uc, lat, qlat, warm_img, first, img, dense_state, dense_lat
     torch.cuda.empty_cache()
 
-    stamp("5, 6, 5q, 6q (SD1.5 dense and quantized)")
+    stamp("6, 5q, 6q (SD1.5 profile and quantized)")
 
     # 5s / 6s / 5t. the SD3 main paths ---------------------------------------
     g_ids = torch.Generator().manual_seed(7)

@@ -1277,3 +1277,64 @@ def test_cuda_transformer_quant_shapes_run_on_wgmma(cuda, qname, m, k, n, bias):
     want = plain(x, w, b)
     assert _rel(got, want) <= QUANT_REL[torch.bfloat16]
     assert _row_rel(got, want) <= QUANT_ROW_REL[torch.bfloat16]
+
+
+@pytest.fixture
+def nccl_world1(cuda, tmp_path):
+    """A one-rank NCCL process group and its (data 1, model 1) mesh."""
+    import torch.distributed as dist
+
+    from tinyfusers_tpu_torch import parallel
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        yield parallel.make_mesh(model=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_world1_mesh_unet_bit_equal(cuda, nccl_world1):
+    """shard_params on a one-rank mesh changes nothing: the TINY UNet's
+    bf16 output (through the flash and GEGLU kernels) is the unsharded one
+    bit for bit."""
+    from tinyfusers_tpu_torch import parallel
+    from tinyfusers_tpu_torch.models import unet
+
+    cfg = dataclasses.replace(unet.TINY_CONFIG, num_heads=2)
+    model = unet.UNet(cfg, device=cuda, dtype=torch.bfloat16)
+    init_weights(model, 0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 64, 64, 4, generator=g, device=cuda).bfloat16()
+    ctx = torch.randn(2, 77, cfg.context_dim, generator=g, device=cuda).bfloat16()
+    t = torch.full((2,), 500.0, device=cuda)
+    with torch.inference_mode():
+        want = unet.apply(model, x, t, ctx)
+        parallel.shard_params(model, nccl_world1)
+        n0 = flash_packed.launches
+        got = unet.apply(model, x, t, ctx)
+    assert flash_packed.launches > n0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["column", "row"])
+def test_cuda_tp_linear_world1_is_dense(cuda, nccl_world1, role):
+    """A Linear with a tensor-parallel role over a one-rank model group
+    gives the dense product: the column one bit for bit, the row one (its
+    bias added after the sum, where cuBLAS fuses it into the dense call)
+    within fp32 rounding: measured 3.1e-6 at most on an H100."""
+    from tinyfusers_tpu_torch.models.layers import Linear
+    from tinyfusers_tpu_torch.parallel import mesh as pmesh
+
+    leaf = Linear(320, 640, device=cuda)
+    init_weights(leaf, 0)
+    x = torch.randn(4, 77, 320, device=cuda)
+    want = leaf(x)
+    leaf.tp_role, leaf.tp_group = role, pmesh.axis(nccl_world1, "model")[2]
+    got = leaf(x)
+    if role == "column":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -210,7 +210,7 @@ def test_transformer_block_bf16_against_jax_jit():
     want = jax.jit(lambda p, a, c: junet._transformer_block_apply(p, a, c, 2))(
         pb, jnp.asarray(x, jnp.bfloat16), jnp.asarray(ctx, jnp.bfloat16))
     with torch.no_grad():
-        got = tunet._transformer_block_apply(block, t(x).bfloat16(), t(ctx).bfloat16(), 2)
+        got = tunet._transformer_block_apply(block, t(x).bfloat16(), t(ctx).bfloat16())
     w = np.asarray(want, np.float32)
     diff = np.abs(got.float().numpy() - w)
     print(f"bf16 SDXL transformer block vs jax.jit: worst |diff| {diff.max():.4g} at "

@@ -42,8 +42,9 @@ OPENCLIP_H_CONFIG = CLIPConfig(
 
 
 class _Attn(nn.Module):
-    def __init__(self, dim, **kw):
+    def __init__(self, dim, heads, **kw):
         super().__init__()
+        self.heads = heads
         self.q_proj = Linear(dim, dim, **kw)
         self.k_proj = Linear(dim, dim, **kw)
         self.v_proj = Linear(dim, dim, **kw)
@@ -61,7 +62,7 @@ class _Layer(nn.Module):
     def __init__(self, cfg: CLIPConfig, **kw):
         super().__init__()
         self.layer_norm1 = Norm(cfg.dim, **kw)
-        self.self_attn = _Attn(cfg.dim, **kw)
+        self.self_attn = _Attn(cfg.dim, cfg.num_heads, **kw)
         self.layer_norm2 = Norm(cfg.dim, **kw)
         self.mlp = _MLP(cfg.dim, cfg.mlp_dim, **kw)
 
@@ -87,10 +88,11 @@ class CLIPTextModel(nn.Module):
 def _attn(p: _Attn, x, mask, num_heads: int):
     b, t, d = x.shape
     hd = d // num_heads
-    q, k, v = (m(x).reshape(b, t, num_heads, hd).transpose(1, 2)
+    heads = p.heads  # this rank's, under tensor parallelism
+    q, k, v = (m(x).reshape(b, t, heads, hd).transpose(1, 2)
                for m in (p.q_proj, p.k_proj, p.v_proj))
     o = ops.sdpa(q, k, v, mask)
-    return p.out_proj(o.transpose(1, 2).reshape(b, t, d))
+    return p.out_proj(o.transpose(1, 2).reshape(b, t, heads * hd))
 
 
 def _layer(p: _Layer, x, mask, cfg: CLIPConfig):

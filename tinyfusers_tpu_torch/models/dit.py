@@ -92,8 +92,9 @@ def split_fused_qkv(qkv: torch.Tensor, num_heads: int):
 
 
 class _Attn(nn.Module):
-    def __init__(self, d: int, **kw):
+    def __init__(self, d: int, heads: int, **kw):
         super().__init__()
+        self.heads = heads
         self.qkv = Linear(d, 3 * d, **kw)
         self.proj = Linear(d, d, **kw)
 
@@ -110,7 +111,7 @@ class _Block(nn.Module):
         super().__init__()
         d = cfg.dim
         self.mod = ZeroLinear(d, 6 * d, **kw)  # shift / scale / gate x 2
-        self.attn = _Attn(d, **kw)
+        self.attn = _Attn(d, cfg.num_heads, **kw)
         self.mlp = _MLP(d, cfg.mlp_ratio * d, d, **kw)
 
 
@@ -156,13 +157,16 @@ class DiT(nn.Module):
 
 def _block(p: _Block, x: torch.Tensor, c: torch.Tensor, cfg: DiTConfig) -> torch.Tensor:
     """x (B, T, D); c (B, D) conditioning."""
-    b, t, d = x.shape
+    b, t, _ = x.shape
     sh1, sc1, g1, sh2, sc2, g2 = p.mod(ops.silu(c)).chunk(6, dim=-1)
     h = _modulate(ops.layer_norm(x), sh1, sc1)  # adaLN: no learned affine
-    q, k, v = split_fused_qkv(p.attn.qkv(h), cfg.num_heads)
-    if ops.packed_beneficial(t, t, d, cfg.num_heads, x.element_size(), device=x.device):
+    # under tensor parallelism this rank's heads and their width
+    heads = p.attn.heads
+    d = heads * (cfg.dim // cfg.num_heads)
+    q, k, v = split_fused_qkv(p.attn.qkv(h), heads)
+    if ops.packed_beneficial(t, t, d, heads, x.element_size(), device=x.device):
         a = ops.sdpa_packed(q.reshape(b, t, d), k.reshape(b, t, d), v.reshape(b, t, d),
-                            heads=cfg.num_heads)
+                            heads=heads)
     else:
         a = ops.sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         a = a.transpose(1, 2).reshape(b, t, d)

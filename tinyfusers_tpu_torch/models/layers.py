@@ -16,6 +16,13 @@ int8 / fp8 (scales (out, 1) or (O, 1, 1, 1)), or ``weight_packed`` and
 ``weight_scales`` for int4, packed along the input axis ((out, in/2) and
 (out, in/g), or (O, I/2, H, W) and (O, I/g, H, W)). ``w`` gives the
 ops.quant container of those buffers in the JAX layout, as views.
+
+Under tensor parallelism (parallel/sharding.py ``shard_params``) a Linear
+holds this rank's slice and learns its role: a column-parallel one
+(``tp_role == "column"``) passes its input through Megatron's *f*; a
+row-parallel one computes its partial product, sums it over the model
+group (*g*), then adds its whole bias once. Without a role ``forward`` is
+what it was.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..parallel import tp
 from ..ops.quant import Int4Tensor, QuantizedTensor
 from ..utils import init as pinit
 
@@ -99,6 +107,10 @@ class _WeightLeaf(nn.Module):
 
 
 class Linear(_WeightLeaf):
+    tp_role = None   # None | "column" | "row" (parallel/sharding.py)
+    tp_group = None  # the model axis's process group
+    tp_halves = False  # the column slice taken from each half ([gx | gate])
+
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True, *,
                  device=None, dtype=None):
         super().__init__()
@@ -114,7 +126,23 @@ class Linear(_WeightLeaf):
     from_jax = to_jax
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ops.linear(x, self.w, self.bias)
+        if self.tp_role is None:
+            return ops.linear(x, self.w, self.bias)
+        if self.tp_role == "column":
+            return ops.linear(tp.copy_to(x, self.tp_group), self.w, self.bias)
+        return self._row_sum(ops.linear(x, self.w))
+
+    def geglu(self, gx: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+        """(gx * gelu_erf(gate)) @ w + b: the UNet FF's tail through the
+        GEGLU kernel (ops.geglu_linear), gx and gate this rank's columns
+        when the layer is row-parallel."""
+        if self.tp_role is None:
+            return ops.geglu_linear(gx, gate, self.w, self.bias)
+        return self._row_sum(ops.geglu_linear(gx, gate, self.w))
+
+    def _row_sum(self, partial: torch.Tensor) -> torch.Tensor:
+        y = tp.reduce_from(partial, self.tp_group)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class ZeroLinear(Linear):

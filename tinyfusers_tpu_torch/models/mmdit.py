@@ -19,8 +19,11 @@ the unpatchify transpose is (0, 1, 3, 2, 4, 5).
 On CUDA the joint attention goes to the heads-packed flash kernel
 (``ops.packed_beneficial`` is true at >= 1024 joint tokens); on the CPU
 it takes the bhsd math route, as the JAX package does off the TPU.
-The parallel options of the JAX config (``attn_impl``: ring attention;
-``pipeline_microbatches``: GPipe) are a later part of the port and raise.
+Under tensor parallelism (parallel.shard_params) each stream's fused qkv,
+output projection and MLP hold this rank's slices and the joint attention
+runs this rank's heads. The parallel options of the JAX config
+(``attn_impl``: ring attention; ``pipeline_microbatches``: GPipe) are a
+later part of the port and raise.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from ..parallel import tp
 from .dit import _modulate, _pos_embed_2d, split_fused_qkv
 from .layers import Conv, Gain, Linear, ZeroLinear
 from .unet import timestep_embedding
@@ -84,6 +88,7 @@ class _Stream(nn.Module):
     def __init__(self, cfg: MMDiTConfig, **kw):
         super().__init__()
         d = cfg.dim
+        self.heads = cfg.num_heads
         self.mod = ZeroLinear(d, 6 * d, **kw)
         self.qkv = Linear(d, 3 * d, **kw)
         self.proj = Linear(d, d, **kw)
@@ -151,10 +156,12 @@ def _stream_pre(p: _Stream, x, c, cfg: MMDiTConfig):
     """Modulated LN + fused qkv -> (q, k, v each (B, T, H, hd), gates)."""
     sh1, sc1, g1, sh2, sc2, g2 = p.mod(ops.silu(c)).chunk(6, dim=-1)
     h = _modulate(ops.layer_norm(x), sh1, sc1)
-    q, k, v = split_fused_qkv(p.qkv(h), cfg.num_heads)
+    q, k, v = split_fused_qkv(p.qkv(h), p.heads)
     if cfg.qk_norm == "rms":
-        q = _rms_qk(q, p.ln_q.weight)
-        k = _rms_qk(k, p.ln_k.weight)
+        # the gains act on this rank's heads only under tensor parallelism:
+        # Megatron's f sums their gradients over the model group
+        q = _rms_qk(q, tp.copy_to(p.ln_q.weight, p.qkv.tp_group))
+        k = _rms_qk(k, tp.copy_to(p.ln_k.weight, p.qkv.tp_group))
     elif cfg.qk_norm is not None:
         raise ValueError(f"unsupported qk_norm {cfg.qk_norm!r}")
     return q, k, v, (g1, sh2, sc2, g2)
@@ -175,16 +182,19 @@ def _block(p: _Block, img, txt, c, cfg: MMDiTConfig, kv_len: Optional[int] = Non
     qt, kt, vt, gt = _stream_pre(p.txt, txt, c, cfg)
     b, ti = img.shape[:2]
     t_all = ti + txt.shape[1]
+    # under tensor parallelism this rank's heads and their width
+    heads = p.img.heads
+    dim = heads * (cfg.dim // cfg.num_heads)
     joint = lambda a, z: torch.cat([a, z], dim=1)  # noqa: E731  (B, T, H, hd)
-    if ops.packed_beneficial(t_all, t_all, cfg.dim, cfg.num_heads,
+    if ops.packed_beneficial(t_all, t_all, dim, heads,
                              img.element_size(), device=img.device):
-        packed = lambda a, z: joint(a, z).reshape(b, t_all, cfg.dim)  # noqa: E731
+        packed = lambda a, z: joint(a, z).reshape(b, t_all, dim)  # noqa: E731
         o = ops.sdpa_packed(packed(qi, qt), packed(ki, kt), packed(vi, vt),
-                            heads=cfg.num_heads, kv_len=kv_len)
+                            heads=heads, kv_len=kv_len)
     else:
         bhsd = lambda a, z: joint(a, z).transpose(1, 2)  # noqa: E731
         o = ops.sdpa(bhsd(qi, qt), bhsd(ki, kt), bhsd(vi, vt), kv_len=kv_len)
-        o = o.transpose(1, 2).reshape(b, t_all, cfg.dim)
+        o = o.transpose(1, 2).reshape(b, t_all, dim)
     img = _stream_post(p.img, img, o[:, :ti], gi)
     txt = _stream_post(p.txt, txt, o[:, ti:], gt)
     return img, txt

@@ -57,6 +57,7 @@ class _Attn(nn.Module):
     def __init__(self, cfg: T5Config, **kw):
         super().__init__()
         d, inner = cfg.dim, cfg.inner_dim
+        self.heads = cfg.num_heads
         self.q = Linear(d, inner, bias=False, **kw)
         self.k = Linear(d, inner, bias=False, **kw)
         self.v = Linear(d, inner, bias=False, **kw)
@@ -82,6 +83,8 @@ class _Layer(nn.Module):
 
 class T5Encoder(nn.Module):
     STACKED = ("layers",)  # one stacked leaf per name in the JAX tree
+    # (buckets, heads): cut to this rank's heads under tensor parallelism
+    TP_HEAD_TABLES = ("rel_bias",)
 
     def __init__(self, cfg: T5Config = T5_XXL, *, device=None, dtype=None):
         super().__init__()
@@ -131,10 +134,11 @@ def _position_bias(model: T5Encoder, qlen: int, klen: int) -> torch.Tensor:
 def _layer(p: _Layer, x, bias, cfg: T5Config):
     b, t, _ = x.shape
     h = _rms_norm(x, p.attn_norm.weight, cfg.eps)
-    heads = lambda z: z.reshape(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)  # noqa: E731
+    n = p.attn.heads  # this rank's, under tensor parallelism
+    heads = lambda z: z.reshape(b, t, n, cfg.head_dim).transpose(1, 2)  # noqa: E731
     a = ops.sdpa(heads(p.attn.q(h)), heads(p.attn.k(h)), heads(p.attn.v(h)),
                  mask=bias, scale=1.0)
-    x = x + p.attn.o(a.transpose(1, 2).reshape(b, t, cfg.inner_dim))
+    x = x + p.attn.o(a.transpose(1, 2).reshape(b, t, n * cfg.head_dim))
     h = _rms_norm(x, p.ff_norm.weight, cfg.eps)
     h = ops.gelu_tanh(p.ff.wi_0(h)) * p.ff.wi_1(h)
     return x + p.ff.wo(h)

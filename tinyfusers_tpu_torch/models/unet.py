@@ -153,8 +153,9 @@ class ResBlock(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, query_dim: int, context_dim: int, inner_dim: int, **kw):
+    def __init__(self, query_dim: int, context_dim: int, inner_dim: int, heads: int, **kw):
         super().__init__()
+        self.heads = heads
         self.to_q = Linear(query_dim, inner_dim, bias=False, **kw)
         self.to_k = Linear(context_dim, inner_dim, bias=False, **kw)
         self.to_v = Linear(context_dim, inner_dim, bias=False, **kw)
@@ -171,10 +172,11 @@ class _FF(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, ch: int, cfg: UNetConfig, **kw):
         super().__init__()
+        heads, _ = cfg.heads_for(ch)
         self.norm1 = Norm(ch, **kw)
-        self.attn1 = CrossAttention(ch, ch, ch, **kw)
+        self.attn1 = CrossAttention(ch, ch, ch, heads, **kw)
         self.norm2 = Norm(ch, **kw)
-        self.attn2 = CrossAttention(ch, cfg.context_dim, ch, **kw)
+        self.attn2 = CrossAttention(ch, cfg.context_dim, ch, heads, **kw)
         self.norm3 = Norm(ch, **kw)
         self.ff = _FF(ch, **kw)
 
@@ -264,28 +266,29 @@ def _res_apply(p: ResBlock, x, emb, cfg: UNetConfig):
     return x + h
 
 
-def _xattn_apply(p: CrossAttention, x, context, num_heads: int):
-    o = ops.sdpa_packed(p.to_q(x), p.to_k(context), p.to_v(context), heads=num_heads)
+def _xattn_apply(p: CrossAttention, x, context):
+    # p.heads: this rank's under tensor parallelism (parallel/sharding.py)
+    o = ops.sdpa_packed(p.to_q(x), p.to_k(context), p.to_v(context), heads=p.heads)
     return p.to_out(o)
 
 
-def _transformer_block_apply(p: TransformerBlock, x, context, num_heads: int):
+def _transformer_block_apply(p: TransformerBlock, x, context):
     h = p.norm1.layer(x)
-    x = x + _xattn_apply(p.attn1, h, h, num_heads)
-    x = x + _xattn_apply(p.attn2, p.norm2.layer(x), context, num_heads)
+    x = x + _xattn_apply(p.attn1, h, h)
+    x = x + _xattn_apply(p.attn2, p.norm2.layer(x), context)
     h = p.ff.proj(p.norm3.layer(x))
+    # [gx | gate]: under TP this rank's columns of each half
     gx, gate = h.chunk(2, dim=-1)
-    return x + ops.geglu_linear(gx, gate, p.ff.out.w, p.ff.out.bias)
+    return x + p.ff.out.geglu(gx, gate)
 
 
 def _attn_apply(p: SpatialTransformer, x, context, cfg: UNetConfig):
     n, h, w, c = x.shape
-    num_heads, _ = cfg.heads_for(c)
     x_in = x
     # the SpatialTransformer's GroupNorm uses eps=1e-6, the ResBlocks' 1e-5
     x = p.proj_in(p.norm.group(x, cfg.num_groups, 1e-6)).reshape(n, h * w, c)
     for bp in p.blocks:
-        x = _transformer_block_apply(bp, x, context, num_heads)
+        x = _transformer_block_apply(bp, x, context)
     return p.proj_out(x.reshape(n, h, w, c)) + x_in
 
 

@@ -349,14 +349,30 @@ def generate(model: StableDiffusion, input_ids: torch.Tensor,
              generator: Optional[torch.Generator] = None, uncond_interval: int = 1,
              deepcache_interval: int = 1, deepcache_split: int = 3,
              cfg_rescale: float = 0.0, freeu=None,
-             prompt_weights: Optional[torch.Tensor] = None, control=None) -> torch.Tensor:
+             prompt_weights: Optional[torch.Tensor] = None, control=None,
+             mesh=None) -> torch.Tensor:
     """Tokens + initial noise -> uint8 images (B, H, W, 3).
 
     uncond_ids=None samples without guidance. prompt_weights (B, T) weighs
     the prompt's tokens (tokenizer/prompt_weights.py). The ancestral
     samplers draw their noise from ``generator``. deepcache_interval,
     deepcache_split, freeu and control (controlnet, hint, scale): see
-    sample_latents."""
+    sample_latents.
+
+    mesh (parallel.make_mesh): the global batch's ids and latents (and
+    prompt weights) split over the data axis, each rank sampling its rows
+    through its tensor-parallel text encoder and UNet
+    (``parallel.shard_params``); the images gathered back in row order on
+    every rank. A generator would draw other noise than the dense call's:
+    the ancestral samplers are not taken on a mesh."""
+    if mesh is not None:
+        return _generate_on(mesh, model, input_ids, uncond_ids, latent, guidance,
+                            generator=generator, prompt_weights=prompt_weights,
+                            control=control, num_steps=num_steps, method=method,
+                            schedule=schedule, uncond_interval=uncond_interval,
+                            deepcache_interval=deepcache_interval,
+                            deepcache_split=deepcache_split, cfg_rescale=cfg_rescale,
+                            freeu=freeu)
     ctx, uctx = _contexts(model, input_ids, uncond_ids, prompt_weights)
     lat = sample_latents(model.unet, latent, ctx, uctx, num_steps=num_steps,
                          guidance=guidance, cfg=model.cfg, method=method, schedule=schedule,
@@ -365,6 +381,25 @@ def generate(model: StableDiffusion, input_ids: torch.Tensor,
                          deepcache_split=deepcache_split, cfg_rescale=cfg_rescale,
                          control=control, freeu=freeu)
     return vae.to_image(vae.decode(model.vae, lat))
+
+
+def _generate_on(mesh, model, input_ids, uncond_ids, latent, guidance, *, generator,
+                 prompt_weights, control, **kw) -> torch.Tensor:
+    from ..parallel import tp
+    from ..parallel.mesh import DATA_AXIS, axis
+
+    if generator is not None:
+        raise NotImplementedError("generate on a mesh takes no generator: each rank "
+                                  "would draw its own noise, not the dense call's")
+    if control is not None:
+        raise NotImplementedError("generate on a mesh does not split a ControlNet hint")
+    n, r, group = axis(mesh, DATA_AXIS)
+    rows = lambda x: None if x is None else tp.rank_slice(x, 0, r, n)  # noqa: E731
+    if latent.shape[0] % n:
+        raise ValueError(f"batch {latent.shape[0]} does not split over {n} data ranks")
+    images = generate(model, rows(input_ids), rows(uncond_ids), rows(latent), guidance,
+                      prompt_weights=rows(prompt_weights), **kw)
+    return tp.all_gather(images, group, dim=0)
 
 
 def noise_to_rung(z0: torch.Tensor, noise: torch.Tensor, sigma) -> torch.Tensor:

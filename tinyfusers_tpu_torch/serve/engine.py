@@ -179,7 +179,7 @@ class Engine:
         if mesh is not None:
             raise NotImplementedError(
                 "Engine: the sharded, multi-host engine (mesh, sync_decision) waits "
-                "for the parallelism port (ROADMAP §1 item 9)")
+                "for the second part of the parallelism port (ROADMAP §1 item 2)")
         param = next(model.unet.parameters())
         self.model = model
         self.cfg = cfg

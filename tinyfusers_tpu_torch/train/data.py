@@ -6,18 +6,21 @@ feed is array-based: ``LatentDataset`` shuffles in-memory arrays with
 numpy's ``default_rng(seed).permutation``, so its batches are the JAX
 package's for the same seed; ``write_shard`` writes the TFLS shard format
 that ``NativeShardDataset`` serves through the C++ prefetching loader
-(``native/loader.cpp``, built by ``native/__init__.py``). The mesh
-helpers (``shard_batch``, ``make_global_batch``) wait for the port's
-parallel package.
+(``native/loader.cpp``, built by ``native/__init__.py``). On a mesh
+(parallel/), ``shard_batch`` gives each rank its rows of a global host
+batch and ``make_global_batch`` takes each rank's own rows as they are.
 """
 from __future__ import annotations
 
 import ctypes
 import struct
-from typing import Iterator, Tuple, Union
+from typing import Iterator, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..parallel import tp
+from ..parallel.mesh import DATA_AXIS, axis, mesh_device
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -51,6 +54,38 @@ class LatentDataset:
         for i in range(len(self)):
             idx = order[i * self.batch_size:(i + 1) * self.batch_size]
             yield tuple(a[idx] for a in self.arrays)
+
+
+def shard_batch(batch: Sequence[Array], mesh=None) -> Tuple[torch.Tensor, ...]:
+    """Each array of a global host batch as a tensor: without a mesh the
+    whole of it (on the CPU), on a mesh this rank's rows (part r of the
+    data axis's n equal parts, r its data index) on the mesh's device,
+    the same on every rank of a model group."""
+    out = tuple(torch.as_tensor(np.asarray(b) if not isinstance(b, torch.Tensor) else b)
+                for b in batch)
+    if mesh is None:
+        return out
+    n, r, _ = axis(mesh, DATA_AXIS)
+    for b in out:
+        if b.shape[0] % n:
+            raise ValueError(f"batch {b.shape[0]} does not split over {n} data ranks")
+    dev = mesh_device(mesh)
+    return tuple(tp.rank_slice(b, 0, r, n).to(dev) for b in out)
+
+
+def make_global_batch(local_batch: Sequence[Array], mesh) -> Tuple[torch.Tensor, ...]:
+    """Each rank's own rows of a global batch (the rows of data rank r,
+    the global batch their concatenation in data order; the ranks of a
+    model group hold the same rows) on the mesh's device, as they are.
+    Raises unless every rank holds as many rows."""
+    out = tuple(torch.as_tensor(np.asarray(b) if not isinstance(b, torch.Tensor) else b)
+                for b in local_batch)
+    dev = mesh_device(mesh)
+    rows = torch.tensor([b.shape[0] for b in out], dtype=torch.int64, device=dev)
+    every = tp.all_gather(rows[None], torch.distributed.group.WORLD, dim=0)
+    if bool((every != every[0]).any()):
+        raise ValueError(f"ranks hold unequal local batches: {every.tolist()}")
+    return tuple(b.to(dev) for b in out)
 
 
 # TFLS dtype codes (native/loader.cpp)

@@ -18,9 +18,20 @@ rounded to the tensor's dtype first (JAX's weak typing:
 in JAX. The elementwise work runs as ``torch._foreach_*`` ops over the
 leaves of one dtype (a few launches for hundreds of tensors), each of
 which rounds as the single op it stands for.
+
+Sharded train states (parallel/sharding.py): inside ``sharded(leaves)``
+the trees hold this rank's slices. Elementwise transformations (Adam,
+SGD, weight decay, schedules, the EMA) need nothing more; ``global_norm``
+(and so ``clip_by_global_norm``) sums the squares over the shards through
+``leaves.total``, each replicated leaf counted once. Adafactor's
+statistics are over whole leaves (its factored row and column means, the
+block RMS clip and the parameter scale): on a split leaf it raises
+``ShardedLeafError``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
@@ -60,6 +71,35 @@ class FactoredState(NamedTuple):
     v_row: Tree
     v_col: Tree
     v: Tree
+
+
+# -- sharded trees --------------------------------------------------------------
+
+class ShardedLeafError(NotImplementedError):
+    """A transformation that needs whole leaves met a split one."""
+
+
+_SHARDED: contextvars.ContextVar = contextvars.ContextVar("sharded_leaves", default=None)
+
+
+@contextlib.contextmanager
+def sharded(leaves):
+    """Run transformations on trees of shards. ``leaves`` has
+    ``total(sums)``: {name: this rank's 0-d sum of squares} -> the 0-d sum
+    over the whole leaves, and ``is_split(name)``."""
+    token = _SHARDED.set(leaves)
+    try:
+        yield
+    finally:
+        _SHARDED.reset(token)
+
+
+def _whole_leaves(tree: Tree, what: str) -> None:
+    leaves = _SHARDED.get()
+    if leaves is not None and any(leaves.is_split(k) for k in tree):
+        raise ShardedLeafError(
+            f"{what} takes statistics over whole leaves and is not ported to a "
+            "sharded train state (FSDP or tensor parallelism): use adamw or sgd")
 
 
 # -- helpers ------------------------------------------------------------------
@@ -142,6 +182,9 @@ def global_norm(tree: Tree) -> torch.Tensor:
         xs = [tree[k] for k in keys]
         sq = torch._foreach_mul(xs, xs)
         sums.update(zip(keys, torch.stack([s.sum() for s in sq]).cpu()))
+    leaves = _SHARDED.get()
+    if leaves is not None:
+        return _sqrt(leaves.total({k: sums[k] for k in tree}))
     total = None
     for k in tree:
         total = sums[k] if total is None else total + sums[k]
@@ -361,6 +404,7 @@ def scale_by_factored_rms(factored: bool = True, decay_rate: float = 0.8,
     def update(grads, state, params):
         if params is None:
             raise ValueError("scale_by_factored_rms needs params")
+        _whole_leaves(grads, "adafactor's factored second moment")
         t = np.float64(int(state.count) - step_offset + 1)
         d = np.float32(1) - np.float32(t ** np.float64(np.float32(-decay_rate)))
         keep, fresh = float(d), _f32(np.float32(1) - d)
@@ -394,6 +438,7 @@ def scale_by_factored_rms(factored: bool = True, decay_rate: float = 0.8,
 
 def clip_by_block_rms(threshold: float) -> GradientTransformation:
     def update(updates, state, params=None):
+        _whole_leaves(updates, "clip_by_block_rms")
         out = {}
         for k, u in updates.items():
             rms = _sqrt(_mean(u * u))
@@ -406,6 +451,7 @@ def clip_by_block_rms(threshold: float) -> GradientTransformation:
 
 def scale_by_param_block_rms(min_scale: float = 1e-3) -> GradientTransformation:
     def update(updates, state, params):
+        _whole_leaves(updates, "scale_by_param_block_rms")
         out = {}
         for k, u in updates.items():
             p = params[k]

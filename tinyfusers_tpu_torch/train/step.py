@@ -17,9 +17,23 @@ saved and everything else (the attention's batched products, convs,
 norms, the flash and GEGLU kernels) is recomputed in the backward, so each
 kernel launches twice a step. JAX's buffer donation has no counterpart:
 the old and the new state live together through a step.
+
+On a mesh (parallel/) the step computes what the dense step computes on
+the global batch, the sum of every rank's rows. Each data rank draws the
+global batch's t and noise and keeps its own rows; the loss and the
+gradients are means over the data group. A state sharded by
+``parallel.shard_fsdp`` carries its placements: the data-split leaves are
+gathered before the forward and each rank keeps its slice of the averaged
+gradients. Tensor-parallel leaves (``parallel.shard_params`` on the
+model) are this rank's slices throughout; the layers' collectives give
+every rank of a model group the same gradients for replicated leaves. The
+global norm sums over the shards (``optim.sharded``). The mesh is the one
+the state's placements carry (``parallel.sharding_tree``), and a model
+with tensor-parallel layers needs them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
@@ -28,6 +42,8 @@ import torch
 from torch import nn
 
 from ..models.layers import Conv, Linear
+from ..parallel import tp
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis, mesh_device
 from ..pipeline import samplers
 from . import losses, optim
 
@@ -65,6 +81,7 @@ def module_apply(module: nn.Module) -> Callable[..., torch.Tensor]:
     def apply_fn(params: Params, *args):
         return torch.func.functional_call(module, params, args, strict=False)
 
+    apply_fn.module = module  # make_train_step checks its tensor-parallel layers
     return apply_fn
 
 
@@ -74,13 +91,15 @@ class TrainState:
     params: Params
     opt_state: Any
     ema_params: Optional[Params] = None   # fp32 copies; None when EMA is off
+    # name -> parallel.Placement on a mesh (parallel.sharding_tree, shard_fsdp)
+    placements: Optional[Dict[str, Any]] = None
 
     @classmethod
     def create(cls, params: Params, optimizer: optim.GradientTransformation,
-               ema: bool = False) -> "TrainState":
+               ema: bool = False, placements: Optional[Dict[str, Any]] = None) -> "TrainState":
         return cls(step=0, params=dict(params), opt_state=optimizer.init(params),
                    ema_params={k: p.float().clone() for k, p in params.items()}
-                   if ema else None)
+                   if ema else None, placements=placements)
 
 
 def default_optimizer(learning_rate: float = 1e-4, *, weight_decay: float = 1e-2,
@@ -117,22 +136,32 @@ def rematerialized(apply_fn: Callable[..., torch.Tensor]) -> Callable[..., torch
 
 
 def diffusion_objective(apply_fn, loss_cfg: losses.LossConfig, params: Params,
-                        x0: torch.Tensor, cond, generator: torch.Generator) -> torch.Tensor:
+                        x0: torch.Tensor, cond, generator: torch.Generator,
+                        rows=(0, 1)) -> torch.Tensor:
     """The step's loss: t, then the noise, drawn from ``generator``; x_t in
-    x0's dtype into the model; the weighted fp32 MSE."""
-    t = losses.sample_timesteps(generator, x0.shape[0], loss_cfg, device=x0.device)
-    noise = samplers._normal(generator, x0)
+    x0's dtype into the model; the weighted fp32 MSE. rows (r, n): x0 is
+    part r of n equal parts of a global batch, whose t and noise are drawn
+    and part r of them kept."""
+    r, n = rows
+    b = x0.shape[0]
+    t = losses.sample_timesteps(generator, b * n, loss_cfg, device=x0.device)
+    noise = samplers._normal(generator, x0 if n == 1 else x0.new_empty((b * n, *x0.shape[1:])))
+    if n > 1:
+        t, noise = t[r * b:(r + 1) * b], noise[r * b:(r + 1) * b]
     x_t, target = losses.q_sample(x0, noise, t, loss_cfg)
     pred = apply_fn(params, x_t.to(x0.dtype), t, *cond)
     return losses.diffusion_loss(pred, target, losses.loss_weights(t, loss_cfg))
 
 
 def value_and_grad(fn, params: Params):
-    """(fn(leaves), {name: d fn / d leaf}) over detached copies of params."""
+    """(fn(leaves), {name: d fn / d leaf}) over detached copies of params; a
+    leaf fn does not reach (the last MMDiT block's text-stream tail) gets
+    zeros, as jax.grad gives it."""
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
     with torch.enable_grad():
         value = fn(leaves)
-        grads = torch.autograd.grad(value, list(leaves.values()))
+        grads = torch.autograd.grad(value, list(leaves.values()), allow_unused=True,
+                                    materialize_grads=True)
     return value.detach(), dict(zip(leaves, grads))
 
 
@@ -146,6 +175,50 @@ def ema_update(ema: Params, params: Params, decay: float) -> Params:
     return dict(zip(keys, new))
 
 
+class _Shards:
+    """A sharded state's leaves for ``optim.sharded``: each rank adds the
+    squares of the leaves whose copy it owns (rank 0 of every mesh axis a
+    leaf is whole over) and one all-reduce sums them."""
+
+    def __init__(self, placements: Dict[str, Any], mesh):
+        self.placements = placements
+        self.mesh = mesh
+
+    def is_split(self, name) -> bool:
+        pl = self.placements.get(name)
+        return pl is not None and pl.sharded
+
+    def total(self, sums: Dict[str, torch.Tensor]) -> torch.Tensor:
+        first_model = axis(self.mesh, MODEL_AXIS)[1] == 0
+        first_data = axis(self.mesh, DATA_AXIS)[1] == 0
+        total = torch.zeros((), dtype=next(iter(sums.values())).dtype)
+        for k, s in sums.items():
+            pl = self.placements.get(k)
+            if ((first_model or (pl is not None and pl.model_dim is not None))
+                    and (first_data or (pl is not None and pl.data_dim is not None))):
+                total = total + s
+        out = total.float().to(mesh_device(self.mesh))
+        torch.distributed.all_reduce(out)
+        return out.cpu().to(total.dtype)
+
+
+def _mean_over_data(grads: Params, group, n: int) -> Params:
+    """Every gradient averaged over the data group: one all-reduce of each
+    dtype's gradients flattened together."""
+    if n == 1:
+        return grads
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    out = dict(grads)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for k, g in grads.items():
+        by_dtype.setdefault(g.dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = tp.mean_over(_flatten_dense_tensors([grads[k] for k in keys]), group, n)
+        out.update(zip(keys, _unflatten_dense_tensors(flat, [grads[k] for k in keys])))
+    return out
+
+
 def make_train_step(apply_fn: Callable[..., torch.Tensor],
                     optimizer: optim.GradientTransformation,
                     loss_cfg: losses.LossConfig = losses.LossConfig(), *,
@@ -156,21 +229,45 @@ def make_train_step(apply_fn: Callable[..., torch.Tensor],
     batch leading. In the JAX step's order: the loss and its gradients, the
     optimizer's update on them, the new params, the fp32 EMA of the new
     params. loss is a 0-d tensor on the batch's device, grad_norm
-    (optax.global_norm of the raw gradients) a 0-d CPU tensor."""
+    (optax.global_norm of the raw gradients) a 0-d CPU tensor.
+
+    A state with placements (``parallel.sharding_tree`` / ``shard_fsdp``)
+    gives a sharded step on their mesh: batch is this rank's rows
+    (train.data.shard_batch), every rank's generator in the same state;
+    loss and grad_norm are the global batch's. A model that
+    ``parallel.shard_params`` split needs them: its step raises without."""
+    module = getattr(apply_fn, "module", None)
     if remat:
         apply_fn = rematerialized(apply_fn)
 
     def step(state: TrainState, batch, generator: torch.Generator):
+        pls = state.placements or {}
+        if not pls and module is not None and any(
+                getattr(m, "tp_role", None) for m in module.modules()):
+            raise ValueError("make_train_step: the model's layers are tensor-parallel but the "
+                             "state has no placements; create it with "
+                             "placements=parallel.sharding_tree(model, mesh)")
+        on = next(iter(pls.values())).mesh if pls else None
+        n, r, group = axis(on, DATA_AXIS)  # (1, 0, None) without a mesh
         x0, *cond = batch
+        split = {k: pls[k].data_dim for k in state.params
+                 if k in pls and pls[k].data_dim is not None}
+        whole = {k: tp.all_gather(p, group, dim=split[k]) if k in split else p
+                 for k, p in state.params.items()}
         loss, grads = value_and_grad(
-            lambda p: diffusion_objective(apply_fn, loss_cfg, p, x0, cond, generator),
-            state.params)
-        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            lambda p: diffusion_objective(apply_fn, loss_cfg, p, x0, cond, generator,
+                                          rows=(r, n)), whole)
+        grads = _mean_over_data(grads, group, n)
+        grads = {k: tp.rank_slice(g, split[k], r, n).contiguous() if k in split else g
+                 for k, g in grads.items()}
+        with optim.sharded(_Shards(pls, on)) if on is not None else contextlib.nullcontext():
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            grad_norm = optim.global_norm(grads)
         params = optim.apply_updates(state.params, updates)
         ema = state.ema_params
         if ema is not None:
             ema = ema_update(ema, params, ema_decay if ema_decay is not None else 0.9999)
-        metrics = {"loss": loss, "grad_norm": optim.global_norm(grads)}
-        return TrainState(state.step + 1, params, opt_state, ema), metrics
+        metrics = {"loss": tp.mean_over(loss, group, n), "grad_norm": grad_norm}
+        return TrainState(state.step + 1, params, opt_state, ema, state.placements), metrics
 
     return step
