@@ -17,7 +17,9 @@ score and CLIP-FID by a seeded ViT-L/14 scorer of each approximation
 against bf16), the engine step's memory by UNet format, and SD1.5
 fine-tuned through the two training CLIs' jobs (all of the UNet, and
 rank-8 LoRA), SD1.5 on a (data, model) mesh (one NCCL rank, then two
-ranks on the one card: tensor-parallel and FSDP), and holds every
+ranks on the one card: tensor-parallel and FSDP, ring attention in the
+UNet and the MMDiT, a GPipe MMDiT, the serving engine on a mesh and a
+Router over it), and holds every
 hand-written CUDA kernel of those paths
 against its plain PyTorch version. Imports neither jax nor
 tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
@@ -122,8 +124,26 @@ Phases, one or more lines each:
    replicated leaves, loss and grad norm held to rank 0's alike), each rank's
    launches counted exactly per part (20 flash_packed and 16 geglu a
    forward, twice a step with remat) at shapes phase 3 measured (its TP2
-   rows: 4 heads and half the FF columns of each rank); wall seconds of
-   each part and of the phase;
+   rows: 4 heads and half the FF columns of each rank); on the same two
+   ranks [parallel-ring] (an SD1.5 512x512 fp32 image through
+   ``generate(mesh=)`` with ``self_attn_impl="ring:model"`` on (data 1,
+   model 2), within 1 of 255 of the unsharded image; SD3-medium's MMDiT at
+   1024x1024 with ``attn_impl="ring:model"``, fp32 allclose atol 2e-4 rtol
+   2e-3 and bf16 within twice the plain bf16 forward's own error against
+   fp32; each rank projects its half of the tokens only), [parallel-pipe]
+   (the MMDiT placed over a two-stage pipe, each rank holding half of the
+   blocks, with ``pipeline_microbatches=2``: fp32 within 1e-5, bf16 as
+   above) and [serve-mesh] (the SD1.5 Engine over 4 slots on (data 2,
+   model 1) and (data 1, model 2), three requests of 2 / 3 / 2 steps, equal
+   on both ranks bit for bit: in fp32 within 1 level of the one-device
+   engine on under 2% of an image's pixels; in bf16, as served, its mean
+   level error against the one-device fp32 engine within twice the
+   one-device bf16 engine's, beside the witness of the one-device bf16
+   engine at 2 slots against 4; then a Router over the fp32 (data 2) one
+   and a local one-slot engine, 0 failures),
+   each rank's launches counted exactly per part at shapes phase 3
+   measured (the microbatch-1 joint row, the engine's TP2 rows); wall
+   seconds of each part, of each new group and of the phase;
 6. profile: one more image of the same model and inputs under
    ``torch.profiler``: its host seconds, the summed device time, the
    device's busy share, the number of device kernels, the device time
@@ -380,7 +400,9 @@ PACKED_SHAPES = [("64x64 self", (2, 4096, 4096, 320, 8, 4096)),
 # ... and SD3's joint attention (the TPU's multi-k kernel): 4096 image + 77
 # CLIP (+ 77 T5) tokens, padded to a multiple of 128.
 MULTIK_SHAPES = [("SD3 joint", (2, 4224, 4224, 1536, 24, 4173)),
-                 ("SD3+T5 joint", (2, 4352, 4352, 1536, 24, 4250))]
+                 ("SD3+T5 joint", (2, 4352, 4352, 1536, 24, 4250)),
+                 # [parallel-pipe]: the pipelined MMDiT's microbatches of 1
+                 ("SD3 joint microbatch 1", (1, 4224, 4224, 1536, 24, 4173))]
 # ... and the SD2.1-v UNet's at 768x768: 64-wide heads, 5 at the 96x96
 # level and 10 at 48x48 (its 24x24 level, 576 tokens, takes the math route).
 SD21_PACKED_SHAPES = [("SD2.1 96x96 self", (2, 9216, 9216, 320, 5, 9216)),
@@ -415,6 +437,10 @@ SERVE_PACKED_SHAPES = [("serve 64x64 self", (8, 4096, 4096, 320, 8, 4096)),
                        ("serve 32x32 self", (8, 1024, 1024, 640, 8, 1024)),
                        ("serve 32x32 cross", (8, 1024, 77, 640, 8, 77))]
 SERVE_SLOTS = 4
+# [serve-mesh]: tests/multihost_worker.py's three requests, over SERVE_SLOTS
+SERVE_MESH_STEPS = (2, 3, 2)
+# [parallel-ring]'s SD1.5 image: DDIM steps
+RING_STEPS = 4
 # serve_demo.py's sd15 step mix, one request a tick, seeds 0-11
 SERVE_MIX = [20, 30, 25]
 SERVE_REQUESTS = 12
@@ -495,6 +521,17 @@ TP2_GEGLU_SHAPES = [("TP2 64x64", (8192, 640, 320), None),
                     ("TP2 32x32", (2048, 1280, 640), None),
                     ("TP2 16x16", (512, 2560, 1280), None),
                     ("TP2 8x8 mid", (128, 2560, 1280), None)]
+# ... and the engine's at model = 2 ([serve-mesh] on (data 1, model 2): all
+# 2S = 8 rows on each rank, 4 heads and half the FF columns); on (data 2,
+# model 1) each rank runs 4 rows, the training step's shapes.
+SERVE_TP2_PACKED_SHAPES = [("serve TP2 64x64 self", (8, 4096, 4096, 160, 4, 4096)),
+                           ("serve TP2 64x64 cross", (8, 4096, 77, 160, 4, 77)),
+                           ("serve TP2 32x32 self", (8, 1024, 1024, 320, 4, 1024)),
+                           ("serve TP2 32x32 cross", (8, 1024, 77, 320, 4, 77))]
+SERVE_TP2_GEGLU_SHAPES = [("serve TP2 64x64", (32768, 640, 320), None),
+                          ("serve TP2 32x32", (8192, 1280, 640), None),
+                          ("serve TP2 16x16", (2048, 2560, 1280), None),
+                          ("serve TP2 8x8 mid", (512, 2560, 1280), None)]
 # [parallel-tp2]'s train steps: fp32, SGD (momentum 0.9 for FSDP, whose
 # trace the data ranks split) after global-norm clipping at 1.0
 TP2_LR = 1e-2
@@ -783,6 +820,67 @@ def profile(run, host_ops: bool = False) -> dict:
     return out
 
 
+def fill_zero_init(model, seed):
+    """Seeded non-zero values in every leaf the JAX init leaves at zero
+    (the MMDiT's adaLN-Zero linears, a ControlNet's zero convs and last
+    hint conv): weights normal / sqrt(fan_in), biases 0.1 normal, as
+    random_tree fills them."""
+    from tinyfusers_tpu_torch.models.layers import ZeroConv, ZeroLinear
+
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for leaf in model.modules():
+            if isinstance(leaf, (ZeroLinear, ZeroConv)):
+                w = torch.randn(leaf.weight.shape, generator=g, device=dev)
+                leaf.weight.copy_(w * leaf.weight[0].numel() ** -0.5)
+                leaf.bias.copy_(torch.randn(leaf.bias.shape, generator=g, device=dev) * 0.1)
+
+
+def sd15_prompt(dev) -> tuple:
+    """Phase 5's ids and negative ids, (1, 77) each on ``dev``: BOS, 8 seeded
+    tokens and EOS padding; BOS and EOS padding."""
+    g_ids = torch.Generator().manual_seed(3)
+    ids = torch.full((1, 77), 49407, dtype=torch.long)
+    ids[0, 0] = 49406
+    ids[0, 1:9] = torch.randint(0, 49406, (8,), generator=g_ids)
+    uncond = torch.full((1, 77), 49407, dtype=torch.long)
+    uncond[0, 0] = 49406
+    return ids.to(dev), uncond.to(dev)
+
+
+def tp_shapes(counts: tuple, m: int) -> tuple:
+    """unet_launches' (flash, geglu) call shapes on a rank of a model axis of
+    m: each attention's heads and each FF's inner columns split m ways."""
+    flash, geglu = counts
+    return ({(b, sq, sk, c // m, h // m, kv): n for (b, sq, sk, c, h, kv), n in flash.items()},
+            {(rows, k // m, nn): n for (rows, k, nn), n in geglu.items()})
+
+
+def engine_launches(ucfg, steps, slots: int, data: tuple, model: int) -> dict:
+    """Launches by wrapper on one rank of an Engine over ``slots`` slots
+    serving requests of ``steps`` (submitted at once), its slots split over
+    data = (n, this rank's index) and its UNet over ``model``: one UNet pass
+    at the rank's 2 S / n rows in each tick with a local slot active, one
+    VAE decode for each local slot that finishes (the scheduler core's
+    simulation, as serve/engine.py ticks it)."""
+    from tinyfusers_tpu_torch.serve.engine import _PySchedulerCore
+
+    core = _PySchedulerCore(slots)
+    for i, n in enumerate(steps):
+        core.submit(i, n)
+    local = slots // data[0]
+    mine = range(data[1] * local, (data[1] + 1) * local)
+    passes = decodes = 0
+    while core.active() or core.pending():
+        core.assign()
+        passes += any(core.remaining(s) > 0 for s in mine)
+        decodes += sum(slot in mine for _, slot in core.tick())
+    flash, geglu = launches_of((passes, tp_shapes(unet_launches(ucfg, 64, 2 * local), model)))
+    return {"flash_packed": sum(flash.values()), "flash_bhsd": decodes,
+            "geglu": sum(geglu.values())}
+
+
 def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
     """One of [parallel-tp2]'s two ranks, on the one card, in a gloo group
     over CUDA tensors. Writes <outdir>/rank<rank>.json: for each part its
@@ -792,12 +890,23 @@ def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
     which also runs the dense reference step) the step against the
     unsharded one.
 
-    Parts: the full-width SD1.5 UNet forward at model = 2, fp32 (TF32 off)
-    and bf16, against the unsharded UNet on the card; one tensor-parallel
-    train step (data 1 x model 2, the UNet's column- and row-parallel
-    Linears split) and one FSDP step (data 2 x model 1, the state split over
-    the data ranks, one row each) at full width, fp32, against the
-    unsharded step on the global batch."""
+    Parts ([parallel-tp2]): the full-width SD1.5 UNet forward at
+    model = 2, fp32 (TF32 off) and bf16, against the unsharded UNet on the
+    card; one tensor-parallel train step (data 1 x model 2, the UNet's
+    column- and row-parallel Linears split) and one FSDP step (data 2 x
+    model 1, the state split over the data ranks, one row each) at full
+    width, fp32, against the unsharded step on the global batch.
+
+    [parallel-ring]: an SD1.5 512x512 fp32 image through
+    ``generate(mesh=)`` with ``self_attn_impl="ring:model"`` on (data 1,
+    model 2) against the unsharded image; SD3-medium's MMDiT at 1024x1024
+    with ``attn_impl="ring:model"`` in fp32 and bf16 against the plain
+    forward. [parallel-pipe]: the MMDiT placed over a two-stage pipe
+    (each rank holds half of the blocks) with ``pipeline_microbatches=2``,
+    fp32 and bf16. [serve-mesh]: the SD1.5 Engine over 4 slots on (data 2,
+    model 1) and (data 1, model 2) against the one-device engine, in fp32
+    and in bf16 (beside the bf16 witness: the one-device engine at 2
+    slots), then a Router over the first and a local one-slot engine."""
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT))
@@ -814,9 +923,9 @@ def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
     from tinyfusers_tpu_torch.train import optim
 
     dev = torch.device("cuda:0")
-    cfg = sd.SD15.unet
     counted = {"flash_packed": flash_packed, "flash_bhsd": flash_bhsd, "geglu": geglu_matmul}
     out = {}
+    cfg = sd.SD15.unet
 
     def unet(dtype=torch.float32):
         model = unet_mod.UNet(cfg, device=dev, dtype=torch.float32)
@@ -856,6 +965,283 @@ def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
         t0 = start()
         got = fn()
         return got, seconds_since(t0)
+
+    def same_as_rank0(y):
+        """Whether this rank's tensor is rank 0's, bit for bit."""
+        ref = y.contiguous().clone()
+        dist.broadcast(ref, src=0)
+        return torch.equal(y, ref)
+
+    def wall(group, t0):  # a group's wall seconds, as rank 0 saw them
+        out.setdefault("wall", {})[group] = time.perf_counter() - t0
+
+    mm = {}  # the MMDiT parts' inputs and, on rank 0, the plain forward's outputs
+
+    def mmdit(c):
+        from tinyfusers_tpu_torch.models import mmdit as mmdit_mod
+
+        model = mmdit_mod.MMDiT(c, device=dev, dtype=torch.float32)
+        init_weights(model, seed=31)
+        fill_zero_init(model, seed=32)
+        return model
+
+    def mmdit_forward(model, dtype, mesh=None):
+        """(output, seconds) of one forward at SD3-medium's 1024x1024 CFG batch;
+        without a mesh (rank 0's plain forward) no barrier, no count reset."""
+        from tinyfusers_tpu_torch.models import mmdit as mmdit_mod
+
+        model.to(dtype)
+        args = (mm["x"].to(dtype), mm["t"], mm["ctx"].to(dtype), mm["pooled"].to(dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter() if mesh is None else start()
+        with torch.inference_mode(), parallel.use_mesh(mesh):
+            y = mmdit_mod.apply(model, *args)
+        return y, seconds_since(t0)
+
+    def mmdit_refs():
+        """The plain SD3-medium MMDiT forward on rank 0, fp32 and bf16."""
+        from tinyfusers_tpu_torch.pipeline import sd3
+
+        if mm:
+            return mm["cfg"]
+        gm = torch.Generator(device=dev).manual_seed(33)
+        mm.update(cfg=sd3.SD3_MEDIUM_CFG.mmdit,
+                  x=torch.randn((2, 128, 128, 16), generator=gm, device=dev),
+                  t=torch.rand((2,), generator=gm, device=dev),
+                  ctx=torch.randn((2, 77, 4096), generator=gm, device=dev),
+                  pooled=torch.randn((2, 2048), generator=gm, device=dev))
+        if rank == 0:
+            plain = mmdit(mm["cfg"])
+            for dtype in (torch.float32, torch.bfloat16):
+                mm[dtype], mm[f"{dtype}_s"] = mmdit_forward(plain, dtype)
+            del plain
+            torch.cuda.empty_cache()
+        return mm["cfg"]
+
+    def mmdit_check(name, what, y, dtype, secs, want, fp32_tol):
+        """Rank 0 holds y to the plain forward (fp32: allclose at fp32_tol;
+        bf16: relative error within twice the plain bf16 forward's own
+        against fp32); every rank holds y to rank 0's, bit for bit."""
+        same = same_as_rank0(y)
+        ok, check = same, f"equal to rank 0's bit for bit: {same}"
+        if rank == 0:
+            ref, ref32 = mm[dtype], mm[torch.float32]
+            err = rel(y, ref)
+            if dtype == torch.float32:
+                close = torch.allclose(y, ref, **fp32_tol)
+                check = (f"max_abs={(y - ref).abs().max().item():.3e} rel={err:.3e} (allclose "
+                         f"atol {fp32_tol['atol']:.0e} rtol {fp32_tol['rtol']:.0e}: {close})")
+            else:
+                floor = rel(ref, ref32)
+                close = err <= 2 * floor
+                check = (f"rel={err:.3e} (tol 2x the plain bf16 forward's rel against fp32, "
+                         f"2 x {floor:.3e})")
+            ok = ok and close
+            check += f"; {secs:.3f} s, the plain forward {mm[f'{dtype}_s']:.3f} s"
+        part(name, what, secs, want, ok, check)
+
+    def ring_parts():
+        t_group = time.perf_counter()
+        mesh = parallel.make_mesh(data=1, model=2)
+        # the SD1.5 image, fp32: the ring's exact-math blocks against the
+        # kernels' within 1 of 255 need fp32 (bf16 rounds the two otherwise)
+        rcfg = dataclasses.replace(sd.SD15, unet=dataclasses.replace(
+            sd.SD15.unet, self_attn_impl="ring:model"))
+        ids, uncond = sd15_prompt(dev)
+        latent = sd.initial_latent(4, 1, sd.SD15, device=dev)
+        want_img, dense_s = None, None
+        if rank == 0:
+            dense = sd.StableDiffusion(sd.SD15, device=dev, seed=21)
+            t0 = time.perf_counter()
+            want_img = sd.generate(dense, ids, uncond, latent, GUIDANCE, num_steps=RING_STEPS)
+            dense_s = seconds_since(t0)
+            del dense
+            torch.cuda.empty_cache()
+        model = parallel.shard_params(sd.StableDiffusion(rcfg, device=dev, seed=21), mesh)
+        t0 = start()
+        img = sd.generate(model, ids, uncond, latent, GUIDANCE, num_steps=RING_STEPS, mesh=mesh)
+        secs = seconds_since(t0)
+        flash, geglu = tp_shapes(unet_launches(cfg, 64, 2), 2)  # the ring takes every attn1
+        want = {"flash_packed": RING_STEPS * sum(n for k, n in flash.items() if k[2] == 77),
+                "flash_bhsd": 1, "geglu": RING_STEPS * sum(geglu.values())}
+        same = same_as_rank0(img)
+        ok, check = same, f"equal to rank 0's bit for bit: {same}"
+        if rank == 0:
+            diff = (img.int() - want_img.int()).abs()
+            ok = ok and diff.max().item() <= 1
+            check = (f"max |d pixel| {diff.max().item()} against the unsharded image (tol 1 of "
+                     f"255), {(diff > 0).float().mean().item():.4%} of pixels differ; "
+                     f"{secs:.2f} s, unsharded {dense_s:.2f} s")
+        part("ring_image", f"SD1.5 512x512 {RING_STEPS}-step DDIM CFG {GUIDANCE} fp32 image "
+             "through generate(mesh=) with self_attn_impl=\"ring:model\" on (data 1, model "
+             "2) against the unsharded image", secs, want, ok, check)
+        del model, img
+        torch.cuda.empty_cache()
+        # the MMDiT with its joint attention on the ring over the model axis
+        mcfg = mmdit_refs()
+        model = parallel.shard_params(mmdit(dataclasses.replace(mcfg, attn_impl="ring:model")),
+                                      mesh)
+        none = dict.fromkeys(counted, 0)
+        for dtype in (torch.float32, torch.bfloat16):
+            y, secs = mmdit_forward(model, dtype, mesh)
+            mmdit_check(f"ring_mmdit_{str(dtype)[6:]}", "SD3-medium MMDiT (2,128,128,16), 77 "
+                        f"text tokens, {str(dtype)[6:]}, attn_impl=\"ring:model\" on (data 1, "
+                        "model 2) against the plain forward", y, dtype, secs, none,
+                        dict(atol=2e-4, rtol=2e-3))
+        del model
+        torch.cuda.empty_cache()
+        wall("ring", t_group)
+
+    def pipe_parts():
+        t_group = time.perf_counter()
+        mcfg = mmdit_refs()
+        mesh = parallel.make_mesh(data=1, pipe=2)
+        model = mmdit(dataclasses.replace(mcfg, pipeline_microbatches=2))
+        # the pipe's placement: this stage's half of the blocks kept, the rest freed
+        whole = sum(p.numel() for p in model.blocks.parameters())
+        parallel.shard_params(model, mesh)
+        torch.cuda.empty_cache()
+        stage, per = mesh.get_local_rank("pipe"), mcfg.depth // 2
+        kept = [i for i, b in enumerate(model.blocks)
+                if not isinstance(b, parallel.pipeline.Elsewhere)]
+        held = sum(p.numel() for p in model.blocks.parameters())
+        placed = kept == list(range(stage * per, (stage + 1) * per)) and 2 * held == whole
+        placement = (f"stage {stage} holds blocks {kept[0]}-{kept[-1]} of {mcfg.depth}, "
+                     f"{held} of the {whole} block parameters ({held / whole:.3f}; tol 1/2), "
+                     f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated by this rank "
+                     "in fp32")
+        want = {"flash_packed": mcfg.depth, "flash_bhsd": 0, "geglu": 0}  # half the blocks, twice
+        for dtype in (torch.float32, torch.bfloat16):
+            y, secs = mmdit_forward(model, dtype, mesh)
+            name = f"pipe_{str(dtype)[6:]}"
+            mmdit_check(name, "SD3-medium MMDiT (2,128,128,16), 77 text "
+                        f"tokens, {str(dtype)[6:]}, pipeline_microbatches=2 over a two-stage "
+                        "pipe against the plain forward", y, dtype, secs, want,
+                        dict(atol=1e-5, rtol=1e-5))
+            out[name]["ok"] = out[name]["ok"] and placed
+            out[name]["check"] += f"; {placement}"
+        del model
+        mm.clear()
+        torch.cuda.empty_cache()
+        wall("pipe", t_group)
+
+    def serve_parts():
+        import numpy as np
+
+        from tinyfusers_tpu_torch.serve import Engine, Router
+
+        t_group = time.perf_counter()
+        ids, uids = np.full((77,), 3, np.int64), np.zeros((77,), np.int64)
+
+        def run(eng):
+            for i, n in enumerate(SERVE_MESH_STEPS):
+                eng.submit(eng.make_request(ids, uids, num_steps=n, guidance=5.0, seed=i))
+            return {r.request_id: r.image for r in eng.run_until_idle()}
+
+        def on_card(images):
+            return {k: torch.from_numpy(v).to(dev) for k, v in sorted(images.items())}
+
+        def model_of(dt):  # the same seeded weights, served in dt
+            return sd.StableDiffusion(sd.SD15, device=dev, seed=41).to(dt)
+
+        def level_err(images, ref):  # mean |d pixel| over all images
+            return torch.cat([(images[k].float() - ref[k].float()).abs().flatten()
+                              for k in sorted(ref)]).mean().item()
+
+        def off(images, ref):  # (max |d pixel|, the largest share of an image's pixels off)
+            diffs = [(images[k].int() - ref[k].int()).abs() for k in sorted(ref)]
+            return (max(d.max().item() for d in diffs),
+                    max((d > 0).float().mean().item() for d in diffs))
+
+        # the one-device engine's images in fp32 and bf16 (served as in phase
+        # 5e), on every rank; on rank 0 the bf16 witness: the one-device
+        # engine at SERVE_SLOTS / 2 slots, the rows a rank of the data axis runs
+        models = {torch.float32: model_of(torch.float32), torch.bfloat16: model_of(torch.bfloat16)}
+        refs, ref_s, witness = {}, {}, None
+        for dt, m in models.items():
+            ref = {i: torch.empty((512, 512, 3), dtype=torch.uint8, device=dev)
+                   for i in range(len(SERVE_MESH_STEPS))}
+            if rank == 0:
+                t0 = time.perf_counter()
+                ref = on_card(run(Engine(m, num_slots=SERVE_SLOTS)))
+                ref_s[dt] = seconds_since(t0)
+                if dt == torch.bfloat16:
+                    witness = on_card(run(Engine(m, num_slots=SERVE_SLOTS // 2)))
+            for img in ref.values():
+                dist.broadcast(img, src=0)
+            refs[dt] = ref
+        floor16 = level_err(refs[torch.bfloat16], refs[torch.float32])
+        engines = {}
+        for dt in (torch.float32, torch.bfloat16):
+            sfx = "" if dt == torch.float32 else "_bf16"
+            for data, model_n in ((2, 1), (1, 2)):
+                name = f"serve_{'data2' if data == 2 else 'model2'}{sfx}"
+                mesh = parallel.make_mesh(data=data, model=model_n)
+                model = models[dt] if data == 2 else model_of(dt)
+                eng = Engine(parallel.shard_params(model, mesh), num_slots=SERVE_SLOTS, mesh=mesh)
+                t0 = start()
+                got = run(eng)
+                secs = seconds_since(t0)
+                want = engine_launches(cfg, SERVE_MESH_STEPS, SERVE_SLOTS,
+                                       (data, mesh.get_local_rank("data")), model_n)
+                launched = {kn: w.launches for kn, w in counted.items()}
+                got = on_card(got)
+                ok = got.keys() == refs[dt].keys()
+                same = ok and all([same_as_rank0(got[k]) for k in sorted(got)])
+                worst, frac = off(got, refs[dt]) if ok else (-1, -1.0)
+                check = (f"{len(got)} images; equal to rank 0's bit for bit: {same}; against the "
+                         f"one-device {str(dt)[6:]} engine's: max |d pixel| {worst}, at most "
+                         f"{frac:.4%} of an image's pixels differ")
+                if dt == torch.float32:
+                    ok = ok and same and worst <= 1 and frac < 0.02
+                    check += " (tol 1 level on < 2%)"
+                else:
+                    # bf16: another batch of rows (data 2) or split of the sums (model 2)
+                    # rounds otherwise; held to twice the one-device bf16 engine's own
+                    # error against fp32
+                    err = level_err(got, refs[torch.float32]) if ok else -1.0
+                    ok = ok and same and err <= 2 * floor16
+                    check += (f"; mean |d pixel| against the one-device fp32 engine's {err:.4f} "
+                              f"(tol 2x the one-device bf16 engine's, 2 x {floor16:.4f})")
+                    if witness is not None:
+                        w_worst, w_frac = off(witness, refs[dt])
+                        check += (f"; witness: the one-device bf16 engine at {SERVE_SLOTS // 2} "
+                                  f"slots against {SERVE_SLOTS}: max |d pixel| {w_worst}, at "
+                                  f"most {w_frac:.4%} of pixels differ; this engine equal to "
+                                  f"the {SERVE_SLOTS // 2}-slot one bit for bit: "
+                                  f"{off(got, witness) == (0, 0.0)}")
+                check += f"; {secs:.2f} s" + (f", the one-device engine {ref_s[dt]:.2f} s"
+                                              if dt in ref_s else "")
+                if launched != {kn: w.launches for kn, w in counted.items()}:
+                    ok, check = False, f"launches after the run: {launched}, then more"
+                part(name, f"the {str(dt)[6:]} SD1.5 Engine, {SERVE_SLOTS} slots on (data "
+                     f"{data}, model {model_n}), requests of {list(SERVE_MESH_STEPS)} steps, "
+                     "against the one-device engine", secs, want, ok, check)
+                engines[name] = eng
+        dense = models[torch.float32]
+        # a Router over the (data 2, model 1) engine and a local one-slot engine
+        big = engines["serve_data2"]
+        big.reset()
+        router = Router({"big": big, "small": Engine(dense, num_slots=1)})
+        t0 = start()
+        rids = [router.submit("big" if i % 2 == 0 else "small", ids, uids, num_steps=2,
+                              seed=10 + i) for i in range(3)]
+        done = on_card({r.request_id: r.image for r in router.run_until_idle()})
+        secs = seconds_since(t0)
+        health = router.health()
+        same = all([same_as_rank0(img) for img in done.values()])
+        ok = (sorted(done) == sorted(rids) and same
+              and all(h["failures"] == 0 for h in health.values()))
+        big_w = engine_launches(cfg, (2, 2), SERVE_SLOTS, (2, big.mesh.get_local_rank("data")), 1)
+        small_w = engine_launches(cfg, (2,), 1, (1, 0), 1)
+        part("serve_router", "a Router over the (data 2, model 1) engine and a local one-slot "
+             "engine, 3 requests of 2 steps", secs,
+             {kn: big_w[kn] + small_w[kn] for kn in big_w}, ok,
+             f"{len(done)} of {len(rids)} requests done, health {health}; images equal to "
+             f"rank 0's bit for bit: {same}; {secs:.2f} s")
+        del engines, big, router, dense, models, refs, witness
+        torch.cuda.empty_cache()
+        wall("serve", t_group)
 
     # the forward at model = 2, fp32 and bf16, against the unsharded UNet
     mesh = parallel.make_mesh(data=1, model=2)
@@ -980,6 +1366,9 @@ def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
                parallel.make_mesh(data=2, model=1),
                optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(TP2_LR, momentum=0.9)),
                True)
+    ring_parts()
+    pipe_parts()
+    serve_parts()
     Path(outdir, f"rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
 
@@ -1052,19 +1441,6 @@ def main() -> None:
         return {"flash_packed": dict(flash_packed.variants),
                 "flash_bhsd": dict(flash_bhsd.variants),
                 "geglu": dict(geglu_matmul.variants)}
-
-    def fill_zero_init(model, seed):
-        """Seeded non-zero values in every leaf the JAX init leaves at zero
-        (the MMDiT's adaLN-Zero linears, a ControlNet's zero convs and last
-        hint conv): weights normal / sqrt(fan_in), biases 0.1 normal, as
-        random_tree fills them."""
-        g = torch.Generator(device=dev).manual_seed(seed)
-        with torch.no_grad():
-            for leaf in model.modules():
-                if isinstance(leaf, (ZeroLinear, ZeroConv)):
-                    w = torch.randn(leaf.weight.shape, generator=g, device=dev)
-                    leaf.weight.copy_(w * leaf.weight[0].numel() ** -0.5)
-                    leaf.bias.copy_(torch.randn(leaf.bias.shape, generator=g, device=dev) * 0.1)
 
     # 1. device ----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -1240,14 +1616,16 @@ def main() -> None:
 
     for dt in (torch.bfloat16, torch.float32):
         isz = torch.tensor([], dtype=dt).element_size()
+        # fp32 too: the shapes [serve-mesh]'s fp32 engines run (4 rows a rank
+        # on the data axis, the training step's; 8 at model = 2)
         packed_rows = ([("flash_packed", *row)
                         for row in PACKED_SHAPES + SD21_PACKED_SHAPES + DIT_PACKED_SHAPES
-                        + TP2_PACKED_SHAPES]
+                        + TP2_PACKED_SHAPES + TRAIN_PACKED_SHAPES + SERVE_TP2_PACKED_SHAPES]
                        + [("flash_packed_multik", *row) for row in MULTIK_SHAPES])
         if dt == torch.bfloat16:  # the hires fix's, the batch-1 branches', SDXL's, serving's
             packed_rows += [("flash_packed", *row)
                             for row in HIRES_PACKED_SHAPES + B1_PACKED_SHAPES
-                            + XL_PACKED_SHAPES + SERVE_PACKED_SHAPES + TRAIN_PACKED_SHAPES]
+                            + XL_PACKED_SHAPES + SERVE_PACKED_SHAPES]
         for entry, label, (b, sq, sk, c, h, kvl) in packed_rows:
             q, k, v = randn(b, sq, c, dtype=dt), randn(b, sk, c, dtype=dt), randn(b, sk, c, dtype=dt)
             reset_counts()
@@ -1294,11 +1672,12 @@ def main() -> None:
                    tol[("attn", dt)], row_tol[("attn", dt)], variant=variant,
                    tflops=flops / t_k / 1e9)
         torch.cuda.empty_cache()
-        geglu_rows = GEGLU_SHAPES + SD21_GEGLU_SHAPES + TP2_GEGLU_SHAPES
+        geglu_rows = (GEGLU_SHAPES + SD21_GEGLU_SHAPES + TP2_GEGLU_SHAPES + TRAIN_GEGLU_SHAPES
+                      + SERVE_TP2_GEGLU_SHAPES)
         if dt == torch.bfloat16:
             geglu_rows = geglu_rows + HIRES_GEGLU_SHAPES + B1_GEGLU_SHAPES
-            geglu_rows += [row for row in TRAIN_GEGLU_SHAPES
-                           if row[1] not in {r[1] for r in geglu_rows}]
+        geglu_rows = [row for i, row in enumerate(geglu_rows)  # each shape once
+                      if row[1] not in {r[1] for r in geglu_rows[:i]}]
         for label, (m, kd, nd), _ in geglu_rows:
             proj = randn(m, 2 * kd, dtype=dt)
             gx, gate = proj.chunk(2, dim=-1)  # strided halves, as in the UNet
@@ -1800,13 +2179,7 @@ def main() -> None:
     model = sd.StableDiffusion(cfg, device=dev, dtype=dtype, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    g_ids = torch.Generator().manual_seed(3)
-    ids = torch.full((1, 77), 49407, dtype=torch.long)
-    ids[0, 0] = 49406
-    ids[0, 1:9] = torch.randint(0, 49406, (8,), generator=g_ids)
-    uncond = torch.full((1, 77), 49407, dtype=torch.long)
-    uncond[0, 0] = 49406
-    ids, uncond = ids.to(dev), uncond.to(dev)
+    ids, uncond = sd15_prompt(dev)
     latent = sd.initial_latent(4, 1, cfg, device=dev, dtype=dtype)
 
     with torch.inference_mode():  # warm-up through the pipeline's stages
@@ -1901,32 +2274,51 @@ def main() -> None:
         fail(f"[parallel-tp2] a rank failed: {e}")
     tp2 = [json.loads((store / f"rank{r}.json").read_text()) for r in range(2)]
     shutil.rmtree(store, ignore_errors=True)
-    for part in ("forward_fp32", "forward_bf16", "train_tp", "train_fsdp"):
+    # each part's tag; the new paths' wants are each rank's own (the serving
+    # engine on the data axis runs other slots on each rank)
+    tags = {"forward_fp32": "parallel-tp2", "forward_bf16": "parallel-tp2",
+            "train_tp": "parallel-tp2", "train_fsdp": "parallel-tp2",
+            "ring_image": "parallel-ring", "ring_mmdit_float32": "parallel-ring",
+            "ring_mmdit_bfloat16": "parallel-ring", "pipe_float32": "parallel-pipe",
+            "pipe_bfloat16": "parallel-pipe", "serve_data2": "serve-mesh",
+            "serve_model2": "serve-mesh", "serve_data2_bf16": "serve-mesh",
+            "serve_model2_bf16": "serve-mesh", "serve_router": "serve-mesh"}
+    for part, tag in tags.items():
         res = tp2[0][part]
         by_rank = [r[part]["launches"] for r in tp2]
-        say(f"[parallel-tp2] {res['what']}: rank 0: {res['check']}; rank 1: "
-            f"{tp2[1][part]['check']}; launches per rank {by_rank} (want {res['want']} each); "
-            f"{res['seconds']:.2f} s")
+        say(f"[{tag}] {res['what']}: rank 0: {res['check']}; rank 1: "
+            f"{tp2[1][part]['check']}; launches per rank {by_rank} (want "
+            f"{[r[part]['want'] for r in tp2]}); {res['seconds']:.2f} s")
         for i, r in enumerate(tp2):
             if not r[part]["ok"]:
-                fail(f"[parallel-tp2] {part} rank {i}: {r[part]['check']}")
-        for r in tp2:
-            got = r[part]["launches"]
-            if {kn: got.get(kn, 0) for kn in res["want"]} != res["want"]:
-                fail(f"[parallel-tp2] {part}: launches {got}, want {res['want']}")
+                fail(f"[{tag}] {part} rank {i}: {r[part]['check']}")
+            got, want = r[part]["launches"], r[part]["want"]
+            if {kn: got.get(kn, 0) for kn in want} != want:
+                fail(f"[{tag}] {part} rank {i}: launches {got}, want {want}")
             for kn, by_shape in r[part]["shapes"].items():
                 if {tuple(json.loads(k)) for k in by_shape} - measured(kn):
-                    fail(f"[parallel-tp2] {part} {kn}: shapes {by_shape} not all measured in "
+                    fail(f"[{tag}] {part} {kn}: shapes {by_shape} not all measured in "
                          f"phase 3")
-    # the bf16 forward's launches join the kernels line (both ranks')
-    extra_paths["parallel_tp2"] = (
-        {kn: sum(r["forward_bf16"]["launches"].get(kn, 0) for r in tp2) for kn in wrappers},
-        {kn: {tuple(json.loads(k)): sum(r["forward_bf16"]["shapes"].get(kn, {}).get(k, 0)
-                                        for r in tp2)
-              for k in {k for r in tp2 for k in r["forward_bf16"]["shapes"].get(kn, {})}}
-         for kn in wrappers})
+    for group, tag in (("ring", "parallel-ring"), ("pipe", "parallel-pipe"),
+                       ("serve", "serve-mesh")):
+        say(f"[{tag}] wall {tp2[0]['wall'][group]:.1f} s on rank 0 (model builds included); "
+            f"transport between the two gloo ranks on the card through host memory; card "
+            f"{card}")
+
+    def both_ranks(part):  # (launches by wrapper, by wrapper and shape), both ranks'
+        return ({kn: sum(r[part]["launches"].get(kn, 0) for r in tp2) for kn in wrappers},
+                {kn: {tuple(json.loads(k)): sum(r[part]["shapes"].get(kn, {}).get(k, 0)
+                                                for r in tp2)
+                      for k in {k for r in tp2 for k in r[part]["shapes"].get(kn, {})}}
+                 for kn in wrappers})
+
+    # the bf16 parts' launches join the kernels line (both ranks'): the TP
+    # forward's and, under flash_packed_multik, the pipelined MMDiT's
+    extra_paths["parallel_tp2"] = both_ranks("forward_bf16")
+    pipe_multik = both_ranks("pipe_bfloat16")
     say(f"[parallel-tp2] two gloo ranks on the card, transport through host memory: "
-        f"{time.perf_counter() - t_par:.1f} s wall; card {card}")
+        f"{time.perf_counter() - t_par:.1f} s wall for all of its parts and [parallel-ring], "
+        f"[parallel-pipe] and [serve-mesh]; card {card}")
     stamp("5, 5p (SD1.5 dense, parallel)")
 
     # 6. profile: one more image, same model and inputs -------------------
@@ -3399,11 +3791,13 @@ def main() -> None:
         "image's and one SD3 image's from its file launches at bf16", "attn")
     paths["flash_packed_multik"] = (
         {"sd3": sd3_launches["flash_packed"], "sd3_t5": t5_launches["flash_packed"],
-         "sd3_file": file_launches["flash_packed"]},
+         "sd3_file": file_launches["flash_packed"],
+         "parallel_pipe": pipe_multik[0]["flash_packed"]},
         summed(sd3_shapes["flash_packed"], t5_shapes["flash_packed"],
-               file_shapes["flash_packed"]),
+               file_shapes["flash_packed"], pipe_multik[1]["flash_packed"]),
         "one SD3 image's, one SD3 + T5 image's and one SD3 image's from its file "
-        "flash_packed launches at bf16", "attn")
+        "flash_packed launches at bf16, and the pipelined MMDiT's bf16 forward "
+        "([parallel-pipe], both ranks)", "attn")
     xl_q = {q: extra_paths[f"sdxl_{q}"][1][qformats[q][1]] for q in ("int8", "fp8", "int4")}
     # the accuracy harness's quantized images and the quantized engines' runs
     new_q = {kn: {path: extra_paths[path][1][kn] for path in paths_q}
@@ -3441,7 +3835,8 @@ def main() -> None:
                      "DiT-XL/2 CFG forward at 256x256 and at 512x512 (dit_256, dit_512), "
                      f"phase 5ae's {ACC_PROMPTS} images of each accuracy-harness variant "
                      "(accuracy_*) and phase 5eq's 12 requests over the dense, int8 and int4 "
-                     "engines (serve_fp16, serve_int8, serve_int4)",
+                     "engines (serve_fp16, serve_int8, serve_int4) and [parallel-tp2]'s bf16 "
+                     "forward on both ranks (parallel_tp2)",
                      family)
     kernels = []
     for kname, by_key in report.items():

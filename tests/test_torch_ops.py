@@ -150,6 +150,26 @@ def test_sdpa_dispatch_on_cpu_is_math_with_kv_len():
     assert (flash_packed.launches, flash_bhsd.launches) == before
 
 
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_sdpa_impl_routes_on_cpu(impl):
+    """impl "xla" is the math route; "flash" takes the kernel wrappers, whose
+    plain versions run on CPU tensors (no launch; the JAX flash's q
+    prescale rounded in q's dtype), both within the tolerance of the JAX
+    sdpa(impl="xla")."""
+    from tinyfusers_tpu_torch.kernels.flash_attention import flash_packed
+
+    q, k, v = rand(3, 2, 1024, 16), rand(4, 2, 40, 16), rand(5, 2, 40, 16)
+    before = flash_packed.launches
+    got = tops.sdpa_packed(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                           heads=2, impl=impl, kv_len=33)
+    want = jops.sdpa_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=2,
+                            impl="xla", kv_len=33)
+    close(got, want)
+    assert flash_packed.launches == before
+    with pytest.raises(ValueError, match="unknown impl"):
+        tops.sdpa(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), impl="bogus")
+
+
 def _every_finite_bf16() -> torch.Tensor:
     """All 65,280 finite bf16 values (both zeros included)."""
     bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)

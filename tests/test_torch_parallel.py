@@ -12,7 +12,13 @@ Tolerances, the JAX tests' own: sharded forwards within atol 2e-4, rtol
 2e-3 (fp32; TP sums each row-parallel product in another order); images
 within 1 of 255 (as tests/test_torch_pipeline.py's generate); a train
 step's loss within rtol 2e-4 and every parameter leaf within rtol 2e-3,
-atol 2e-5.
+atol 2e-5; ring attention alone within atol 2e-5, rtol 2e-4 of the JAX
+``sdpa_xla``; the pipelined linear stack within 1e-6 and the pipelined
+MMDiT within 1e-5 of the JAX ``lax.scan``; the sharded engine's images
+within 1 level of the JAX one-device engine's on under 2% of the pixels
+(tests/test_serve.py's TestShardedEngine bound), and bit-equal across the
+ranks (tests/test_multihost.py). The JAX pipeline test's (8 stages, 4
+microbatches) needs 8 ranks: the four here run (2, 2), (4, 2) and (4, 4).
 
 The traps of an explicit sharding each have a test that fails when the
 trap is back: the GEGLU halves (a plain column cut of ``ff.proj`` gives
@@ -22,6 +28,7 @@ global noise draw (rank r's t and noise are rows r of the global draw;
 train steps replay the JAX draws by row), the global norm (AdamW with
 clipping at 1.0 against the JAX step's grad_norm).
 """
+import dataclasses
 import pickle
 import time
 
@@ -45,6 +52,8 @@ from tinyfusers_tpu.models import t5 as jt5
 from tinyfusers_tpu.models import unet as junet
 from tinyfusers_tpu.pipeline import sd as jsd
 from tinyfusers_tpu.pipeline import sdxl as jsdxl
+from tinyfusers_tpu.ops.attention import sdpa_xla
+from tinyfusers_tpu.serve import engine as jengine
 from tinyfusers_tpu_torch import parallel as tparallel
 from tinyfusers_tpu_torch import train as ttrain
 from tinyfusers_tpu_torch.io.from_jax import load_params
@@ -75,6 +84,10 @@ TRAIN_KW = dict(in_channels=4, out_channels=4, model_channels=8, channel_mult=(1
 # SD2-style 64... here 8-wide heads: 5 at level 0 (no split at model 2), 10 at level 1
 NONDIV_KW = dict(model_channels=40, channel_mult=(1, 2), attention_levels=(0, 1),
                  context_dim=16, num_heads=-1, head_dim=8, num_groups=8)
+RING = "ring:model,data"  # the JAX ring wiring tests' impl
+RING_OUT = dict(atol=2e-5, rtol=2e-4)
+PIPE_STACK = [(2, 2), (4, 2), (4, 4)]  # (stages, microbatches)
+SERVE_STEPS = (2, 3, 2)  # tests/multihost_worker.py's requests
 
 
 def rand(seed, *shape):
@@ -128,6 +141,8 @@ def _inputs():
     unet_ref = lambda: np.asarray(jitted_unet(ucfg)(up, x, t, ctx))  # noqa: E731
     c["unet"] = (dict(case="unet_forward", cfg=tunet.TINY_CONFIG, params=up, x=x, t=t, ctx=ctx),
                  unet_ref)
+    c["unet_ring"] = (dict(case="unet_forward", cfg=dataclasses.replace(
+        tunet.TINY_CONFIG, self_attn_impl=RING), params=up, x=x, t=t, ctx=ctx), unet_ref)
     c["unet_plain_column"] = (dict(case="unet_forward", cfg=tunet.TINY_CONFIG, params=up, x=x,
                                    t=t, ctx=ctx, plain_geglu_column=True), unet_ref)
 
@@ -156,6 +171,15 @@ def _inputs():
     c["mmdit"] = (dict(case="mmdit_forward", cfg=tmmdit.TINY_MMDIT, params=mp_, x=dx, t=mt,
                        ctx=mctx, pooled=pooled),
                   lambda: np.asarray(jmmdit.apply(mp_, dx, mt, mctx, pooled, mcfg)))
+    # the joint attention over 16 + 7 = 23 tokens, which do not divide over
+    # the ring's 2 ranks
+    rcfg = dataclasses.replace(mcfg, context_len=7)
+    rctx = rand(30, 4, 7, 32)
+    c["mmdit_ring"] = (dict(case="mmdit_forward", cfg=dataclasses.replace(
+        tmmdit.TINY_MMDIT, context_len=7, attn_impl=RING), params=mp_, x=dx, t=mt, ctx=rctx,
+        pooled=pooled), lambda: np.asarray(jmmdit.apply(mp_, dx, mt, rctx, pooled, rcfg)))
+    c["mmdit_pipe"] = (dict(case="pipe_mmdit", cfg=tmmdit.TINY_MMDIT, params=mp_, x=dx, t=mt,
+                            ctx=mctx, pooled=pooled), c["mmdit"][1])
     # SD3.5's per-head RMS q / k gains, replicated over the model ranks
     qcfg = jmmdit.TINY_MMDIT_QKN
     qp = perturbed(random_tree(lambda k: jmmdit.init(k, qcfg), 25), 26)
@@ -177,10 +201,14 @@ def _inputs():
     uids = np.full((4, n), scfg.clip.vocab_size - 1, np.int32)
     uids[:, 0] = 0
     lat = rng.standard_normal((4, *tsd.TINY.latent_shape)).astype(np.float32)
+    gen_ref = lambda: np.asarray(jsd.generate(sp, ids, uids, lat, jnp.float32(7.5),  # noqa: E731
+                                              num_steps=2, cfg=scfg))
     c["generate"] = (dict(case="sd_generate", cfg=tsd.TINY, params=sp, ids=ids, uids=uids,
-                          latent=lat, steps=2),
-                     lambda: np.asarray(jsd.generate(sp, ids, uids, lat, jnp.float32(7.5),
-                                                     num_steps=2, cfg=scfg)))
+                          latent=lat, steps=2), gen_ref)
+    rsd = dataclasses.replace(tsd.TINY, unet=dataclasses.replace(tsd.TINY.unet,
+                                                                 self_attn_impl=RING))
+    c["generate_ring"] = (dict(case="sd_generate", cfg=rsd, params=sp, ids=ids, uids=uids,
+                               latent=lat, steps=2), gen_ref)
 
     ccfg = scfg.clip
     cp = sp["clip"]
@@ -191,6 +219,58 @@ def _inputs():
     tids = np.random.default_rng(18).integers(0, 255, (4, 12)).astype(np.int32)
     c["t5"] = (dict(case="t5_forward", cfg=tt5.TINY_T5, params=tp_, ids=tids),
                lambda: np.asarray(jt5.apply(tp_, tids, jt5.TINY_T5)))
+
+    # ring attention alone: (2, 64, 16) over 4 ranks, a remote key moved on
+    # the last shard, 61 tokens (which do not divide) at 2 heads
+    q, k, v = rand(31, 2, 64, 16), rand(32, 2, 64, 16), rand(33, 2, 64, 16)
+    k_remote = k.copy()
+    k_remote[0, -1] += 10.0
+    odd = [rand(34 + i, 1, 2, 61, 8) for i in range(3)]
+    c["ring"] = (dict(case="ring_cases", q=q, k=k, v=v, k_remote=k_remote, q_odd=odd[0],
+                      k_odd=odd[1], v_odd=odd[2]),
+                 lambda: {"out": np.asarray(sdpa_xla(q, k, v)),
+                          "odd": np.asarray(sdpa_xla(*odd)),
+                          "two": np.asarray(sdpa_xla(*(a[..., :2, :] for a in odd)))})
+
+    # GPipe: the JAX test's linear stack (L 8, batch 4, width 16) and carry
+    ws, bs, px = rand(40, 8, 16, 16) * 0.1, rand(41, 8, 16) * 0.1, rand(42, 4, 16)
+
+    def stack_ref():
+        def blk(lp, c):
+            return jnp.tanh(c @ lp["w"] + lp["b"])
+        y, _ = jax.lax.scan(lambda cc, lp: (blk(lp, cc), None), px, {"w": ws, "b": bs})
+        return np.asarray(y)
+
+    for stages, mbs in PIPE_STACK:
+        c[f"pipe_{stages}_{mbs}"] = (dict(case="pipe_linear", ws=ws, bs=bs, x=px, stages=stages,
+                                          microbatches=mbs), stack_ref)
+    cw, cx, cc = rand(43, 4, 8, 8) * 0.1, rand(44, 4, 8), rand(45, 4, 8)
+
+    def carry_ref():
+        (y, _), _ = jax.lax.scan(lambda carry, lp: ((jnp.tanh(carry[0] @ lp + carry[1]),
+                                                     carry[1]), None), (cx, cc), cw)
+        return np.asarray(y)
+
+    c["pipe_carry"] = (dict(case="pipe_carry", ws=cw, x=cx, cond=cc), carry_ref)
+    c["pipe_raises"] = (dict(case="pipe_raises", x=px), None)
+
+    # the serving engine: tests/multihost_worker.py's requests, each with the
+    # JAX engine's initial latent (jax.random.normal of its seed) replayed
+    sids = np.full((n,), 3, np.int32)
+    suids = np.zeros_like(sids)
+    slat = {seed: np.asarray(jax.random.normal(jax.random.key(seed), scfg.latent_shape,
+                                               jnp.float32)) for seed in range(3)}
+
+    def engine_ref():
+        eng = jengine.Engine(sp, scfg, num_slots=4)
+        for i, steps in enumerate(SERVE_STEPS):
+            eng.submit(eng.make_request(sids, suids, num_steps=steps, guidance=5.0, seed=i))
+        return {r.request_id: r.image for r in eng.run_until_idle()}
+
+    serve_kw = dict(cfg=tsd.TINY, params=sp, latents=slat, ids=sids, uids=suids,
+                    steps=SERVE_STEPS)
+    c["serve_mesh"] = (dict(case="serve_mesh", **serve_kw), engine_ref)
+    c["serve_subgroup"] = (dict(case="serve_subgroup", **serve_kw), engine_ref)
 
     c["mesh"] = (dict(case="mesh_axes"), None)
     c["sync"] = (dict(case="sync_decision"), None)
@@ -557,3 +637,205 @@ def test_fsdp_splits_the_state(ranks):
 def test_sharded_adafactor_raises(ranks):
     got = result(ranks, "train_adafactor")["raised"]
     assert got and "adafactor" in got
+
+
+# -- ring attention -------------------------------------------------------------------
+
+def test_ring_attention_matches_full_attention(ranks):
+    """(2, 64, 16) over a 4-way axis against the JAX sdpa_xla, on every rank;
+    the ops.sdpa ring impl on the ambient mesh is the same call."""
+    want = ranks[1]["ring"]["out"]
+    for r in range(WORLD):
+        got = result(ranks, "ring", r)
+        np.testing.assert_allclose(got["out"], want, err_msg=f"rank {r}", **RING_OUT)
+        np.testing.assert_array_equal(got["sdpa"], got["out"])
+
+
+@pytest.mark.parametrize("which", ["odd", "two"])
+def test_ring_attention_pads_a_sequence_that_does_not_divide(ranks, which):
+    """61 tokens over 4 ranks (3 pad keys), and 2 tokens (two ranks' key
+    chunks padding alone: p = 1 over zero values, merged with weight 0)."""
+    want = ranks[1]["ring"][which]
+    for r in range(WORLD):
+        np.testing.assert_allclose(result(ranks, "ring", r)[which], want, **RING_OUT)
+
+
+def test_ring_sdpa_packed_unpacks_and_packs_back(ranks):
+    want = ranks[1]["ring"]["odd"]  # (1, 2, 61, 8)
+    got = result(ranks, "ring")["packed"]  # (1, 61, 16)
+    np.testing.assert_allclose(got.reshape(1, 61, 2, 8).transpose(0, 2, 1, 3), want,
+                               **RING_OUT)
+
+
+def test_ring_cross_shard_dependency(ranks):
+    """A key on the last shard moves the first shard's rows."""
+    got = result(ranks, "ring")
+    assert not np.allclose(got["out"][0, :16], got["remote"][0, :16])
+
+
+def test_ring_splits_the_sequence_in_ceil_chunks(ranks):
+    """Rank r holds rows [r c, r c + c) of S, c = ceil(S / 4), cut at S: the
+    JAX package's zero-pad to a multiple of the axis."""
+    want = {64: [(0, 16), (16, 32), (32, 48), (48, 64)],
+            61: [(0, 16), (16, 32), (32, 48), (48, 61)], 2: [(0, 1), (1, 2), (2, 2), (2, 2)]}
+    for seq, rows in want.items():
+        assert [tuple(result(ranks, "ring", r)["rows"][seq]) for r in range(WORLD)] == rows
+
+
+def test_ring_self_attention_projects_its_own_rows(ranks):
+    """Under "ring:model,data" each model rank's attn1 projects k (and q, v)
+    for its half of the tokens only, the cross-attention's q all of them;
+    without a ring attn1 takes all of them too."""
+    for name, parts in (("unet_ring", 2), ("unet", 1)):
+        rows = result(ranks, name)["rows"]
+        whole = {k.rsplit(".attn2.", 1)[0]: n for k, n in rows.items() if k.endswith("attn2.to_q")}
+        own = {k.rsplit(".attn1.", 1)[0]: n for k, n in rows.items() if k.endswith("attn1.to_k")}
+        assert own.keys() == whole.keys() and own
+        assert all(own[k] == -(-whole[k] // parts) for k in own), (name, own, whole)
+
+
+def test_ring_refusals_and_the_ambient_mesh(ranks):
+    got = result(ranks, "ring")
+    assert "no mask and no kv_len" in got["kv_len_raised"]
+    assert "no mesh" in got["no_mesh_raised"]
+    assert got["ambient_after"]  # use_mesh restored on exit
+
+
+def test_ambient_mesh_is_restored_after_an_exception():
+    assert tparallel.current_mesh() is None
+    with pytest.raises(KeyError):
+        with tparallel.use_mesh("outer"):
+            with tparallel.use_mesh("inner"):
+                assert tparallel.current_mesh() == "inner"
+                raise KeyError
+    assert tparallel.current_mesh() is None
+
+
+@pytest.mark.parametrize("name", ["unet_ring", "mmdit_ring"])
+def test_ring_forward_matches_jax_dense(ranks, name):
+    """The TINY UNet with self_attn_impl and the TINY MMDiT at 16 + 7 = 23
+    joint tokens with attn_impl "ring:model,data", on (data 2, model 2),
+    against the JAX dense forwards."""
+    want = ranks[1][name]
+    for r in range(WORLD):
+        np.testing.assert_allclose(result(ranks, name, r)["out"], want, err_msg=f"rank {r}",
+                                   **OUT)
+
+
+def test_model_axis_ring_keeps_the_self_attention_whole(ranks):
+    """Under a ring over the model axis each attn1 (and each MMDiT stream's
+    qkv / proj) stays whole while attn2, the FF and the MLPs split; the
+    specs stay the JAX ones."""
+    split = result(ranks, "unet_ring")["split"]
+    assert split and not [k for k in split if ".attn1." in k]
+    assert [k for k in split if ".attn2." in k] and [k for k in split if ".ff." in k]
+    msplit = result(ranks, "mmdit_ring")["split"]
+    assert msplit and all("mlp." in k for k in msplit)
+    ring = dataclasses.replace(tunet.TINY_CONFIG, self_attn_impl=RING)
+    want = flat_specs(jparallel.tp_spec_tree(jax.eval_shape(
+        lambda k: junet.init(k, junet.TINY_CONFIG), jax.random.key(0))))
+    got = tparallel.tp_spec_tree(_port_unet(ring))
+    assert got.keys() == want.keys()
+    for k, s in want.items():
+        assert got[k] == tuple(s), k
+
+
+def test_sharded_generate_with_a_ring_matches_jax_dense(ranks):
+    want = ranks[1]["generate_ring"]
+    for r in range(WORLD):
+        got = result(ranks, "generate_ring", r)["image"]
+        assert got.shape == want.shape == (4, 32, 32, 3)
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1, r
+
+
+# -- the pipeline -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("stages, microbatches", PIPE_STACK)
+def test_pipeline_linear_stack_matches_scan(ranks, stages, microbatches):
+    name = f"pipe_{stages}_{microbatches}"
+    for r in range(WORLD):
+        np.testing.assert_allclose(result(ranks, name, r)["out"], ranks[1][name],
+                                   atol=1e-6, rtol=1e-6)
+
+
+def test_pipeline_carry_pytree_and_passthrough_cond(ranks):
+    cond = ranks[2]["pipe_carry"][0]["cond"]
+    for r in range(WORLD):
+        got = result(ranks, "pipe_carry", r)
+        np.testing.assert_allclose(got["out"], ranks[1]["pipe_carry"], atol=1e-6, rtol=1e-6)
+        np.testing.assert_array_equal(got["cond"], cond)
+
+
+def test_mmdit_pipeline_matches_jax_scan(ranks):
+    """The TINY MMDiT (2 blocks) over two two-stage pipes, 2 microbatches."""
+    for r in range(WORLD):
+        np.testing.assert_allclose(result(ranks, "mmdit_pipe", r)["out"], ranks[1]["mmdit_pipe"],
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_pipe_mesh_places_one_stage_of_blocks_per_rank(ranks):
+    """shard_params over a pipe axis of 2 keeps block s on stage s and frees
+    the other: each rank holds half of the stack's parameters."""
+    for r in range(WORLD):
+        got = result(ranks, "mmdit_pipe", r)
+        assert got["held"] == [got["stage"]]
+        assert 2 * got["held_params"] == sum(got["block_params"])
+    assert sorted(result(ranks, "mmdit_pipe", r)["stage"] for r in range(WORLD)) == [0, 0, 1, 1]
+
+
+def test_pipeline_refusals(ranks):
+    got = result(ranks, "pipe_raises")
+    assert "not divisible by microbatches" in got["batch"]
+    assert "do not split over 2 pipeline stages" in got["depth"]
+    assert "placed on another stage" in got["elsewhere"]
+
+
+# -- the serving engine on a mesh ----------------------------------------------------------
+
+def _close_to_jax_engine(images, want):
+    assert images.keys() == want.keys() == {0, 1, 2}
+    for rid in want:
+        assert images[rid].shape == (32, 32, 3) and images[rid].dtype == np.uint8
+        diff = np.abs(images[rid].astype(np.int16) - want[rid].astype(np.int16))
+        assert diff.max() <= 1 and (diff > 0).mean() < 0.02, (rid, diff.max(), (diff > 0).mean())
+
+
+@pytest.mark.parametrize("name", ["serve_mesh", "serve_subgroup"])
+def test_sharded_engine_matches_the_jax_engine(ranks, name):
+    """(data 2, model 2) over the four ranks, and (data 2, model 1) over two
+    ranks (two such engines at once), against the JAX one-device engine."""
+    _close_to_jax_engine(result(ranks, name)["images"], ranks[1][name])
+
+
+@pytest.mark.parametrize("name", ["serve_mesh", "serve_subgroup"])
+def test_sharded_engine_images_bit_equal_on_every_rank(ranks, name):
+    first = result(ranks, name)["images"]
+    for r in range(1, WORLD):
+        got = result(ranks, name, r)["images"]
+        assert got.keys() == first.keys()
+        for rid in first:
+            np.testing.assert_array_equal(got[rid], first[rid], err_msg=f"rank {r}")
+    if name == "serve_subgroup":
+        assert [result(ranks, name, r)["ranks"] for r in range(WORLD)] == [[0, 1]] * 2 + [[2, 3]] * 2
+
+
+def test_router_over_a_sharded_and_a_local_engine(ranks):
+    first = result(ranks, "serve_mesh")
+    assert sorted(first["routed"]) == sorted(first["rids"])
+    for r in range(WORLD):
+        got = result(ranks, "serve_mesh", r)
+        assert got["health"]["big"]["failures"] == got["health"]["small"]["failures"] == 0
+        for rid, img in first["routed"].items():
+            np.testing.assert_array_equal(got["routed"][rid], img, err_msg=f"rank {r}")
+
+
+def test_lockstep_only_on_a_mesh_or_beside_one(ranks):
+    """A local engine in a process group of four ranks hands decodes out by
+    event; a Router beside a sharded engine puts it in step."""
+    for r in range(WORLD):
+        assert result(ranks, "serve_mesh", r)["lockstep"] == {
+            "mesh": True, "local": False, "local_under_router": True}
+
+
+def test_engine_slots_must_divide_over_the_data_axis(ranks):
+    assert "does not divide" in result(ranks, "serve_mesh")["slots_raised"]

@@ -203,9 +203,9 @@ def test_mmdit_joint_pad_reaches_the_attention_as_kv_len(monkeypatch):
     seen = []
     real = tops.sdpa
 
-    def spy(q, k, v, mask=None, *, scale=None, kv_len=None):
+    def spy(q, k, v, mask=None, *, scale=None, impl=None, kv_len=None):
         seen.append((tuple(q.shape), kv_len))
-        return real(q, k, v, mask, scale=scale, kv_len=kv_len)
+        return real(q, k, v, mask, scale=scale, impl=impl, kv_len=kv_len)
 
     monkeypatch.setattr(tmmdit.ops, "sdpa", spy)
     model = tmmdit.MMDiT(tmmdit.TINY_MMDIT, device="cpu")
@@ -214,16 +214,6 @@ def test_mmdit_joint_pad_reaches_the_attention_as_kv_len(monkeypatch):
         tmmdit.apply(model, torch.zeros(1, 64, 64, 4), torch.zeros(1),
                      torch.zeros(1, 77, 32), torch.zeros(1, 16))
     assert seen == [((1, 4, 1152, 16), 1101)] * 2
-
-
-def test_mmdit_parallel_options_are_not_ported():
-    for kw in (dict(attn_impl="ring:model"), dict(pipeline_microbatches=2)):
-        cfg = dataclasses.replace(tmmdit.TINY_MMDIT, **kw)
-        model = tmmdit.MMDiT(cfg, device="cpu")
-        init_weights(model, 0)
-        with pytest.raises(NotImplementedError):
-            tmmdit.apply(model, torch.zeros(1, 8, 8, 4), torch.zeros(1),
-                         torch.zeros(1, 8, 32), torch.zeros(1, 16))
 
 
 def test_init_weights_follows_the_jax_init():

@@ -274,13 +274,11 @@ def test_reset_keeps_the_model_and_the_buffers(tiny):
     assert len(eng.run_until_idle()) == 1
 
 
-def test_refuses_v_prediction_and_a_mesh(tiny):
+def test_refuses_v_prediction_and_a_foreign_config(tiny):
     v_model = tsd.StableDiffusion(dataclasses.replace(tsd.TINY, prediction_type="v"),
                                   device="cpu", seed=None)
     with pytest.raises(ValueError, match="prediction_type 'v'"):
         Engine(v_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tiny[1], mesh=object())
     with pytest.raises(ValueError, match="not the model's config"):
         Engine(tiny[1], tsd.SD15)
 

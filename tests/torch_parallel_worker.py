@@ -12,6 +12,7 @@ own test only.
 This module imports torch and the port only: the test spawns the ranks,
 and a child importing the test module would import JAX.
 """
+import dataclasses
 import datetime
 import os
 import pickle
@@ -24,12 +25,13 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tinyfusers_tpu_torch import parallel, train  # noqa: E402
+from tinyfusers_tpu_torch import ops, parallel, train  # noqa: E402
 from tinyfusers_tpu_torch.io.from_jax import load_params, load_sd  # noqa: E402
 from tinyfusers_tpu_torch.models import clip, dit, mmdit, t5, unet  # noqa: E402
 from tinyfusers_tpu_torch.models.layers import set_trainable  # noqa: E402
 from tinyfusers_tpu_torch.parallel import sharding  # noqa: E402
 from tinyfusers_tpu_torch.pipeline import samplers, sd  # noqa: E402
+from tinyfusers_tpu_torch.serve import Engine, Router  # noqa: E402
 from tinyfusers_tpu_torch.train import losses, optim  # noqa: E402
 
 MESH = None
@@ -91,13 +93,26 @@ def unet_forward(cfg, params, x, t, ctx, adm=None, plain_geglu_column=False):
     else:
         _sharded(model)
     args = _rows(x, t, ctx) + (() if adm is None else _rows(adm))
-    with torch.no_grad():
+    # the sequence rows each self-attention's k projection and each
+    # cross-attention's q projection take
+    rows = {}
+
+    def seen(name):
+        def hook(mod, inp):
+            rows.setdefault(name, inp[0].shape[1])
+        return hook
+
+    hooks = [m.register_forward_pre_hook(seen(name)) for name, m in model.named_modules()
+             if name.endswith(("attn1.to_k", "attn2.to_q"))]
+    with torch.no_grad(), parallel.use_mesh(MESH):  # the mesh of a ring self-attention
         y = unet.apply(model, *args[:3], adm_cond=args[3] if adm is not None else None)
+    for h in hooks:
+        h.remove()
     split = {name: (m.tp_role, dist.get_world_size(m.tp_group), tuple(m.weight.shape))
              for name, m in model.named_modules() if getattr(m, "tp_role", None)}
     ff = next(m for name, m in model.named_modules() if name.endswith("ff.proj"))
     return {"out": _global(y), "split": split, "ff_proj": ff.weight.detach().numpy(),
-            "ff_proj_bias": ff.bias.detach().numpy()}
+            "ff_proj_bias": ff.bias.detach().numpy(), "rows": rows}
 
 
 def dit_forward(cfg, params, x, t):
@@ -112,8 +127,10 @@ def mmdit_forward(cfg, params, x, t, ctx, pooled):
     model = mmdit.MMDiT(cfg, device="cpu")
     load_params(model, params)
     _sharded(model)
-    with torch.no_grad():
-        return {"out": _global(mmdit.apply(model, *_rows(x, t, ctx, pooled)))}
+    with torch.no_grad(), parallel.use_mesh(MESH):  # the mesh of a ring attention
+        y = mmdit.apply(model, *_rows(x, t, ctx, pooled))
+    split = sorted(name for name, m in model.named_modules() if getattr(m, "tp_role", None))
+    return {"out": _global(y), "split": split}
 
 
 def clip_forward(cfg, params, ids):
@@ -247,6 +264,159 @@ def train_unplaced(cfg, params, x0, ctx):
     except ValueError as e:
         return {"raised": str(e)}
     return {"raised": None}
+
+
+# -- ring attention -----------------------------------------------------------------
+
+def ring_cases(q, k, v, k_remote, q_odd, k_odd, v_odd):
+    """The sequence over a 4-way data axis (data 4, model 1): ring_attention
+    whole and with a remote key moved, through ops.sdpa / sdpa_packed's
+    ring impl on the ambient mesh, and at sequences that do not divide (61
+    tokens, and 2, where two ranks' key chunks are padding alone)."""
+    mesh = parallel.make_mesh(data=4, model=1, device_type="cpu")
+    ra = parallel.ring_attention
+    q, k, v, k_remote, q_odd, k_odd, v_odd = map(_t, (q, k, v, k_remote, q_odd, k_odd, v_odd))
+    out = {"out": ra.ring_attention(q, k, v, mesh=mesh, axis="data").numpy(),
+           "remote": ra.ring_attention(q, k_remote, v, mesh=mesh, axis="data").numpy(),
+           "odd": ra.ring_attention(q_odd, k_odd, v_odd, mesh=mesh, axis="data").numpy(),
+           "two": ra.ring_attention(q_odd[..., :2, :], k_odd[..., :2, :], v_odd[..., :2, :],
+                                    mesh=mesh, axis="data").numpy()}
+    with parallel.use_mesh(mesh):
+        out["sdpa"] = ops.sdpa(q, k, v, impl="ring:data").numpy()
+        b, h, s_, d = q_odd.shape
+        pack = lambda x: x.transpose(1, 2).reshape(b, s_, h * d)  # noqa: E731
+        out["packed"] = ops.sdpa_packed(pack(q_odd), pack(k_odd), pack(v_odd), heads=h,
+                                        impl="ring:data").numpy()
+        try:
+            ops.sdpa(q, k, v, impl="ring:data", kv_len=32)
+        except ValueError as e:
+            out["kv_len_raised"] = str(e)
+    out["ambient_after"] = parallel.current_mesh() is None
+    out["rows"] = {seq: (lambda sp: (sp.lo, sp.hi))(ra.split_sequence(seq, mesh=mesh, axis="data"))
+                   for seq in (64, 61, 2)}
+    try:
+        ra.ring_attention(q, k, v)
+    except ValueError as e:
+        out["no_mesh_raised"] = str(e)
+    return out
+
+
+# -- the pipeline -----------------------------------------------------------------------
+
+def _pipe_mesh(stages):
+    """stages 4: one four-stage pipe; 2: two two-stage pipes (data 2)."""
+    return parallel.make_mesh(data=4 // stages, pipe=stages, device_type="cpu")
+
+
+def pipe_linear(ws, bs, x, stages, microbatches):
+    blocks = [{"w": _t(w), "b": _t(b)} for w, b in zip(ws, bs)]
+    got = parallel.pipeline_apply(lambda lp, c: torch.tanh(c @ lp["w"] + lp["b"]), blocks,
+                                  _t(x), mesh=_pipe_mesh(stages), microbatches=microbatches)
+    return {"out": got.numpy()}
+
+
+def pipe_carry(ws, x, cond):
+    def blk(lp, carry):
+        h, c = carry
+        return torch.tanh(h @ lp + c), c
+
+    with parallel.use_mesh(_pipe_mesh(4)):  # the ambient mesh
+        h, c = parallel.pipeline_apply(blk, list(_t(ws)), (_t(x), _t(cond)), microbatches=2)
+    return {"out": h.numpy(), "cond": c.numpy()}
+
+
+def pipe_mmdit(cfg, params, x, t, ctx, pooled):
+    """The MMDiT placed over two two-stage pipes (shard_params keeps this
+    stage's blocks) and run pipelined."""
+    model = mmdit.MMDiT(dataclasses.replace(cfg, pipeline_microbatches=2), device="cpu")
+    load_params(model, params)
+    whole = [sum(p.numel() for p in b.parameters()) for b in model.blocks]
+    mesh = _pipe_mesh(2)
+    parallel.shard_params(model, mesh)
+    with torch.no_grad(), parallel.use_mesh(mesh):
+        y = mmdit.apply(model, *map(_t, (x, t, ctx, pooled)))
+    return {"out": y.numpy(), "stage": mesh.get_local_rank(parallel.PIPE_AXIS),
+            "held": [i for i, b in enumerate(model.blocks)
+                     if not isinstance(b, parallel.pipeline.Elsewhere)],
+            "held_params": sum(p.numel() for p in model.blocks.parameters()),
+            "block_params": whole}
+
+
+def pipe_raises(x):
+    out = {}
+    mesh = _pipe_mesh(2)
+    blocks = [torch.eye(x.shape[1])] * 2
+    for name, kw in (("batch", dict(blocks=blocks, microbatches=2)),
+                     ("depth", dict(blocks=blocks + blocks[:1], microbatches=1))):
+        try:
+            parallel.pipeline_apply(lambda w, c: c @ w, kw["blocks"], _t(x)[:3], mesh=mesh,
+                                    microbatches=kw["microbatches"])
+        except ValueError as e:
+            out[name] = str(e)
+    try:  # blocks placed for other stages
+        parallel.pipeline_apply(lambda w, c: c @ w, [parallel.pipeline.Elsewhere(1),
+                                                     parallel.pipeline.Elsewhere(0)],
+                                _t(x), mesh=mesh, microbatches=2)
+    except ValueError as e:
+        out["elsewhere"] = str(e)
+    return out
+
+
+# -- the serving engine --------------------------------------------------------------
+
+def _served(mesh, cfg, params, latents, ids, uids, steps, slots=4):
+    """{request id: image} of the engine over ``mesh`` (its model split
+    over the mesh's model axis), the requests' initial latents replayed
+    from ``latents`` {seed: array}."""
+    model = sd.StableDiffusion(cfg, device="cpu", seed=None)
+    load_sd(model, params)
+    parallel.shard_params(model, mesh)
+    real = sd.initial_latent
+    sd.initial_latent = lambda seed, batch, cfg, device, dtype: _t(latents[seed])[None].to(
+        device, dtype)
+    try:
+        eng = Engine(model, num_slots=slots, mesh=mesh)
+        for i, n in enumerate(steps):
+            eng.submit(eng.make_request(ids, uids, num_steps=n, guidance=5.0, seed=i))
+        images = {r.request_id: r.image for r in eng.run_until_idle()}
+    finally:
+        sd.initial_latent = real
+    return eng, images
+
+
+def serve_mesh(cfg, params, latents, ids, uids, steps):
+    """The engine on the (data 2, model 2) mesh, then a Router over it and
+    a local one-slot engine."""
+    eng, images = _served(MESH, cfg, params, latents, ids, uids, steps)
+    eng.reset()
+    local_model = sd.StableDiffusion(cfg, device="cpu", seed=None)
+    load_sd(local_model, params)
+    small = Engine(local_model, num_slots=1)
+    lockstep = {"mesh": eng.lockstep, "local": small.lockstep}
+    router = Router({"big": eng, "small": small})
+    lockstep["local_under_router"] = small.lockstep
+    rids = [router.submit("big" if i % 2 == 0 else "small", ids, uids, num_steps=2,
+                          seed=10 + i) for i in range(3)]
+    routed = {r.request_id: r.image for r in router.run_until_idle()}
+    try:
+        Engine(local_model, num_slots=3, mesh=MESH)
+        slots_raised = None
+    except ValueError as e:
+        slots_raised = str(e)
+    return {"images": images, "routed": routed, "rids": rids, "health": router.health(),
+            "slots_raised": slots_raised, "lockstep": lockstep}
+
+
+def serve_subgroup(cfg, params, latents, ids, uids, steps):
+    """Two engines at once, each on a (data 2, model 1) mesh of two ranks:
+    ranks 0 and 1, ranks 2 and 3."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", (2, 2, 1), mesh_dim_names=("replica", parallel.DATA_AXIS,
+                                                                parallel.MODEL_AXIS))
+    sub = mesh[parallel.DATA_AXIS, parallel.MODEL_AXIS]
+    _, images = _served(sub, cfg, params, latents, ids, uids, steps)
+    return {"images": images, "ranks": sub.mesh.flatten().tolist()}
 
 
 # -- the rank ---------------------------------------------------------------------

@@ -21,9 +21,19 @@ On CUDA the joint attention goes to the heads-packed flash kernel
 it takes the bhsd math route, as the JAX package does off the TPU.
 Under tensor parallelism (parallel.shard_params) each stream's fused qkv,
 output projection and MLP hold this rank's slices and the joint attention
-runs this rank's heads. The parallel options of the JAX config
-(``attn_impl``: ring attention; ``pipeline_microbatches``: GPipe) are a
-later part of the port and raise.
+runs this rank's heads. The parallel options of the JAX config:
+
+- ``attn_impl`` (an ops.sdpa impl, e.g. "ring:model"): the txt stream is
+  unpadded and there is no ``kv_len``. Under a ring impl each rank
+  projects only its rows of the joint sequence, runs the ring on them and
+  gathers the output rows (parallel/ring_attention.py); a stream whose
+  attention rings over the model axis stays whole under shard_params
+  (parallel/sharding.py). Another impl takes the bhsd route through
+  ``ops.sdpa(impl=...)``;
+- ``pipeline_microbatches``: the block stack runs as a GPipe pipeline over
+  the ambient mesh's ``pipe`` axis (parallel/pipeline.py), the modulation
+  vector c riding the carry with the two streams; shard_params on a mesh
+  with a ``pipe`` axis keeps only this stage's blocks.
 """
 from __future__ import annotations
 
@@ -35,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
-from ..parallel import tp
+from ..parallel import pipeline, ring_attention, tp
 from .dit import _modulate, _pos_embed_2d, split_fused_qkv
 from .layers import Conv, Gain, Linear, ZeroLinear
 from .unet import timestep_embedding
@@ -54,9 +64,9 @@ class MMDiTConfig:
     context_dim: int = 4096        # joint text embedding width
     pooled_dim: int = 2048         # pooled CLIP-L + bigG conditioning
     context_len: int = 77
-    attn_impl: Optional[str] = None               # not ported: raises
+    attn_impl: Optional[str] = None               # the joint attention's ops.sdpa impl
     qk_norm: Optional[str] = None                 # "rms" (SD3.5) | None
-    pipeline_microbatches: Optional[int] = None   # not ported: raises
+    pipeline_microbatches: Optional[int] = None   # GPipe over the mesh's pipe axis
 
 
 SD3_MEDIUM = MMDiTConfig()
@@ -89,6 +99,7 @@ class _Stream(nn.Module):
         super().__init__()
         d = cfg.dim
         self.heads = cfg.num_heads
+        self.impl = cfg.attn_impl  # read by parallel.shard_params
         self.mod = ZeroLinear(d, 6 * d, **kw)
         self.qkv = Linear(d, 3 * d, **kw)
         self.proj = Linear(d, d, **kw)
@@ -120,6 +131,7 @@ class MMDiT(nn.Module):
     computed on each forward, as in the JAX package."""
 
     STACKED = ("blocks",)  # one stacked leaf per name in the JAX tree
+    PIPELINED = "blocks"   # the stack pipeline_apply runs (cfg.pipeline_microbatches)
 
     def __init__(self, cfg: MMDiTConfig = SD3_MEDIUM, *, learned_pos_embed: bool = False,
                  device=None, dtype=None):
@@ -178,22 +190,35 @@ def _stream_post(p: _Stream, x, attn_out, gates):
 def _block(p: _Block, img, txt, c, cfg: MMDiTConfig, kv_len: Optional[int] = None):
     """Joint attention over [img ‖ txt] tokens; kv_len marks the real
     tokens when apply() padded the txt stream."""
-    qi, ki, vi, gi = _stream_pre(p.img, img, c, cfg)
-    qt, kt, vt, gt = _stream_pre(p.txt, txt, c, cfg)
     b, ti = img.shape[:2]
     t_all = ti + txt.shape[1]
     # under tensor parallelism this rank's heads and their width
     heads = p.img.heads
     dim = heads * (cfg.dim // cfg.num_heads)
     joint = lambda a, z: torch.cat([a, z], dim=1)  # noqa: E731  (B, T, H, hd)
-    if ops.packed_beneficial(t_all, t_all, dim, heads,
-                             img.element_size(), device=img.device):
+    if ring_attention.is_ring(cfg.attn_impl):
+        # this rank's rows [lo, hi) of [img ‖ txt] only, projected by their
+        # streams; the output rows gathered back
+        sp = ring_attention.split_for(t_all, cfg.attn_impl)
+        lo_i, hi_i = min(sp.lo, ti), min(sp.hi, ti)
+        qi, ki, vi, gi = _stream_pre(p.img, img[:, lo_i:hi_i], c, cfg)
+        qt, kt, vt, gt = _stream_pre(p.txt, txt[:, max(sp.lo - ti, 0):max(sp.hi - ti, 0)],
+                                     c, cfg)
+        bhsd = lambda a, z: joint(a, z).transpose(1, 2)  # noqa: E731
+        o = sp.attend(bhsd(qi, qt), bhsd(ki, kt), bhsd(vi, vt))
+        o = sp.gather(o.transpose(1, 2).reshape(b, sp.hi - sp.lo, dim), dim=1)
+        return _stream_post(p.img, img, o[:, :ti], gi), _stream_post(p.txt, txt, o[:, ti:], gt)
+    qi, ki, vi, gi = _stream_pre(p.img, img, c, cfg)
+    qt, kt, vt, gt = _stream_pre(p.txt, txt, c, cfg)
+    if cfg.attn_impl is None and ops.packed_beneficial(t_all, t_all, dim, heads,
+                                                       img.element_size(), device=img.device):
         packed = lambda a, z: joint(a, z).reshape(b, t_all, dim)  # noqa: E731
         o = ops.sdpa_packed(packed(qi, qt), packed(ki, kt), packed(vi, vt),
                             heads=heads, kv_len=kv_len)
     else:
         bhsd = lambda a, z: joint(a, z).transpose(1, 2)  # noqa: E731
-        o = ops.sdpa(bhsd(qi, qt), bhsd(ki, kt), bhsd(vi, vt), kv_len=kv_len)
+        o = ops.sdpa(bhsd(qi, qt), bhsd(ki, kt), bhsd(vi, vt), impl=cfg.attn_impl,
+                     kv_len=kv_len)
         o = o.transpose(1, 2).reshape(b, t_all, dim)
     img = _stream_post(p.img, img, o[:, :ti], gi)
     txt = _stream_post(p.txt, txt, o[:, ti:], gt)
@@ -206,10 +231,6 @@ def apply(model: MMDiT, x: torch.Tensor, timesteps: torch.Tensor,
     context (B, T, context_dim), pooled (B, pooled_dim) -> velocity
     (B, H, W, C)."""
     cfg = model.cfg
-    if cfg.attn_impl is not None or cfg.pipeline_microbatches:
-        raise NotImplementedError(
-            "MMDiT attn_impl / pipeline_microbatches (ring attention, GPipe) "
-            "are not ported yet")
     b, h, w, _ = x.shape
     p = cfg.patch_size
     img = model.patch_embed(x, stride=p).reshape(b, -1, cfg.dim)
@@ -223,7 +244,7 @@ def apply(model: MMDiT, x: torch.Tensor, timesteps: torch.Tensor,
     # outputs ride the txt stream unread (the final layer reads img only).
     kv_len = None
     t_all = img.shape[1] + txt.shape[1]
-    if t_all >= 1024 and t_all % 128:
+    if cfg.attn_impl is None and t_all >= 1024 and t_all % 128:
         txt = F.pad(txt, (0, 0, 0, (-t_all) % 128))
         kv_len = t_all
 
@@ -232,8 +253,17 @@ def apply(model: MMDiT, x: torch.Tensor, timesteps: torch.Tensor,
     pc = model.pooled_mlp.fc2(ops.silu(model.pooled_mlp.fc1(pooled.to(x.dtype))))
     c = c + pc
 
-    for blk in model.blocks:
-        img, txt = _block(blk, img, txt, c, cfg, kv_len=kv_len)
+    if cfg.pipeline_microbatches:
+        def stage(blk, carry):  # c rides the carry, split with the streams
+            im, tx, cc = carry
+            im, tx = _block(blk, im, tx, cc, cfg, kv_len=kv_len)
+            return im, tx, cc
+
+        img, txt, _ = pipeline.pipeline_apply(stage, model.blocks, (img, txt, c),
+                                              microbatches=cfg.pipeline_microbatches)
+    else:
+        for blk in model.blocks:
+            img, txt = _block(blk, img, txt, c, cfg, kv_len=kv_len)
 
     shift, scale = model.final.mod(ops.silu(c)).chunk(2, dim=-1)
     out = model.final.proj(_modulate(ops.layer_norm(img), shift, scale))

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..parallel import ring_attention
 from .layers import Conv, Linear, Norm
 
 
@@ -39,6 +40,9 @@ class UNetConfig:
     # SDXL's "text_time" ADM conditioning: the pooled text embedding and the
     # size embeddings through a second MLP, added to the timestep embedding
     adm_in_channels: Optional[int] = None
+    # the spatial self-attention's ops.sdpa impl (e.g. "ring:model": ring
+    # attention over the mesh's model axis); cross-attention keeps the default
+    self_attn_impl: Optional[str] = None
 
     def heads_for(self, ch: int) -> Tuple[int, int]:
         if self.head_dim is not None:
@@ -153,9 +157,13 @@ class ResBlock(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, query_dim: int, context_dim: int, inner_dim: int, heads: int, **kw):
+    """impl: the ops.sdpa impl of this attention (None: the default route)."""
+
+    def __init__(self, query_dim: int, context_dim: int, inner_dim: int, heads: int,
+                 impl: Optional[str] = None, **kw):
         super().__init__()
         self.heads = heads
+        self.impl = impl
         self.to_q = Linear(query_dim, inner_dim, bias=False, **kw)
         self.to_k = Linear(context_dim, inner_dim, bias=False, **kw)
         self.to_v = Linear(context_dim, inner_dim, bias=False, **kw)
@@ -174,7 +182,7 @@ class TransformerBlock(nn.Module):
         super().__init__()
         heads, _ = cfg.heads_for(ch)
         self.norm1 = Norm(ch, **kw)
-        self.attn1 = CrossAttention(ch, ch, ch, heads, **kw)
+        self.attn1 = CrossAttention(ch, ch, ch, heads, cfg.self_attn_impl, **kw)
         self.norm2 = Norm(ch, **kw)
         self.attn2 = CrossAttention(ch, cfg.context_dim, ch, heads, **kw)
         self.norm3 = Norm(ch, **kw)
@@ -268,8 +276,22 @@ def _res_apply(p: ResBlock, x, emb, cfg: UNetConfig):
 
 def _xattn_apply(p: CrossAttention, x, context):
     # p.heads: this rank's under tensor parallelism (parallel/sharding.py)
-    o = ops.sdpa_packed(p.to_q(x), p.to_k(context), p.to_v(context), heads=p.heads)
+    if ring_attention.is_ring(p.impl):
+        return _ring_self_attn_apply(p, x)
+    o = ops.sdpa_packed(p.to_q(x), p.to_k(context), p.to_v(context), heads=p.heads,
+                        impl=p.impl)
     return p.to_out(o)
+
+
+def _ring_self_attn_apply(p: CrossAttention, x):
+    """A self-attention on the ring of its impl: this rank projects its own
+    rows of the sequence, attends over all of it and gathers the rows."""
+    sp = ring_attention.split_for(x.shape[1], p.impl)
+    xl = x[:, sp.lo:sp.hi]
+    b, s, c = xl.shape
+    unpack = lambda t: t.reshape(b, s, p.heads, -1).transpose(1, 2)  # noqa: E731
+    o = sp.attend(unpack(p.to_q(xl)), unpack(p.to_k(xl)), unpack(p.to_v(xl)))
+    return sp.gather(p.to_out(o.transpose(1, 2).reshape(b, s, -1)), dim=1)
 
 
 def _transformer_block_apply(p: TransformerBlock, x, context):

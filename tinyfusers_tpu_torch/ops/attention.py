@@ -1,7 +1,9 @@
 """Scaled dot-product attention (port of tinyfusers_tpu/ops/attention.py).
 
 Two routes, dispatched as the JAX package does with "on the TPU" read as
-"tensor on CUDA":
+"tensor on CUDA" (``impl=None``; ``impl`` "xla" asks for the math route,
+"flash" for the kernels, "ring[:seq_axis[,batch_axis]]" for ring attention
+over the ambient mesh, parallel/ring_attention.py):
 
 - ``sdpa_math``: plain math, softmax(scale * q @ k^T + mask) @ v with
   fp32 logits and statistics (the JAX package's ``sdpa_xla``);
@@ -70,6 +72,14 @@ def packed_beneficial(sq: int, sk: int, channels: int, heads: int,
             and channels % heads == 0)
 
 
+def _route(q: torch.Tensor, mask, impl: Optional[str]) -> str:
+    if impl is None:
+        return "flash" if _takes_kernel(q, mask) else "xla"
+    if impl in ("xla", "flash") or impl.startswith("ring"):
+        return impl
+    raise ValueError(f"sdpa: unknown impl {impl!r}")
+
+
 def _math(q, k, v, mask, scale, kv_len) -> torch.Tensor:
     if kv_len is not None:
         k = k[..., :kv_len, :]
@@ -84,17 +94,22 @@ def sdpa_packed(
     *,
     heads: int,
     scale: Optional[float] = None,
+    impl: Optional[str] = None,
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
     """SDPA over channel-packed activations: q (B, Sq, H*d), k/v
-    (B, Sk, H*d) -> (B, Sq, H*d). kv_len: real key count of padded k/v."""
-    if _takes_kernel(q, None):
+    (B, Sk, H*d) -> (B, Sq, H*d). kv_len: real key count of padded k/v.
+    The kernel route takes the packed layout as it is; the others unpack
+    to (B, H, S, d), go through ``sdpa`` and pack back."""
+    route = _route(q, None, impl)
+    if route == "flash":
         return flash_packed_diff(q, k, v, heads=heads, scale=scale, kv_len=kv_len)
     b, sq, c = q.shape
     sk = k.shape[1]
     d = c // heads
     unpack = lambda x, s: x.reshape(b, s, heads, d).transpose(1, 2)  # noqa: E731
-    o = _math(unpack(q, sq), unpack(k, sk), unpack(v, sk), None, scale, kv_len)
+    o = sdpa(unpack(q, sq), unpack(k, sk), unpack(v, sk), scale=scale, impl=route,
+             kv_len=kv_len)
     return o.transpose(1, 2).reshape(b, sq, c)
 
 
@@ -105,9 +120,20 @@ def sdpa(
     mask: Optional[torch.Tensor] = None,
     *,
     scale: Optional[float] = None,
+    impl: Optional[str] = None,
     kv_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """Dispatching SDPA over (..., S, D): the bhsd kernel or the math."""
-    if _takes_kernel(q, mask):
+    """Dispatching SDPA over (..., S, D): impl None | "xla" | "flash" |
+    "ring[:seq_axis[,batch_axis]]" (ring attention, no mask or kv_len)."""
+    route = _route(q, mask, impl)
+    if route == "flash":
+        if mask is not None:
+            raise ValueError("sdpa: the flash kernels take kv_len, not a mask")
         return flash_bhsd_diff(q, k, v, scale=scale, kv_len=kv_len)
+    if route.startswith("ring"):
+        from ..parallel.ring_attention import ring_sdpa
+
+        if mask is not None or kv_len is not None:
+            raise ValueError("ring attention takes no mask and no kv_len")
+        return ring_sdpa(q, k, v, route, scale=scale)
     return _math(q, k, v, mask, scale, kv_len)

@@ -60,15 +60,28 @@ def hybrid_mesh(model: int = 1, *, device_type: Optional[str] = None):
     return make_mesh(model=model, device_type=device_type)
 
 
-def sync_decision(value):
+def sync_decision(value, mesh=None):
     """Rank 0's ``value`` (a pytree of tensors, numpy arrays and scalars,
     of the same structure on every rank) on every rank, each tensor on the
-    device its counterpart has here. The identity on one process."""
+    device its counterpart has here. The identity on one process.
+
+    mesh: the mesh's first rank's value on every rank of the mesh, by a
+    broadcast over each axis's group from its index 0 in turn (after the
+    one over an axis, a rank holds the value of the rank with that
+    coordinate 0), so that a mesh over some of the world's ranks needs no
+    group of its own."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return value
     leaves, spec = pytree.tree_flatten(value)
     box = [[x.detach().cpu() if isinstance(x, torch.Tensor) else x for x in leaves]]
-    dist.broadcast_object_list(box, src=0)
+    if mesh is None:
+        dist.broadcast_object_list(box, src=0)
+    else:
+        for i, name in enumerate(mesh.mesh_dim_names):
+            if mesh.size(i) > 1:
+                group = mesh.get_group(name)
+                dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                                           group=group)
     return pytree.tree_unflatten(
         [g.to(x.device) if isinstance(x, torch.Tensor) else g for g, x in zip(box[0], leaves)],
         spec)

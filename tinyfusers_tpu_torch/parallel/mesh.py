@@ -7,18 +7,27 @@ Axis convention, as in the JAX package:
 - ``model``: tensor parallelism (attention heads, FF columns): each rank
   of a model group holds its slices of the column- and row-parallel
   weights (parallel/sharding.py) and the collectives of parallel/tp.py
-  join them.
+  join them;
+- ``pipe`` (parallel/pipeline.py, meshes made with ``pipe=``): pipeline
+  stages, each rank of a pipe group running its share of a block stack.
 
 The JAX package hands a ``jax.sharding.Mesh`` to GSPMD, which inserts
 every collective. Here the mesh is a ``torch.distributed`` DeviceMesh
 over the initialised process group, and the port's layers call the
 collectives themselves on the groups the mesh gives
 (``mesh.get_group("model")``).
+
+The JAX models reach the mesh of ring attention and of the pipeline
+through ``jax.set_mesh``; here ``use_mesh(mesh)`` makes ``mesh`` the
+ambient mesh for the code it encloses (``current_mesh()``), restored when
+the block is left, by an exception too.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -28,12 +37,32 @@ from ..device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
+
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("tinyfusers_mesh", default=None)
 
 
-def make_mesh(data: Optional[int] = None, model: int = 1, *,
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[DeviceMesh]) -> Iterator[Optional[DeviceMesh]]:
+    """``mesh`` as the ambient mesh (``current_mesh()``) inside the block."""
+    token = _AMBIENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def current_mesh() -> Optional[DeviceMesh]:
+    """The mesh of the innermost enclosing ``use_mesh``, else None."""
+    return _AMBIENT.get()
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1, *, pipe: Optional[int] = None,
               device_type: Optional[str] = None) -> DeviceMesh:
     """A (data, model) DeviceMesh over the world of the initialised process
     group, the model axis innermost: ranks r and r + 1 share a model group.
+    With ``pipe``, a (data, pipe, model) mesh: each data index holds its own
+    pipe groups, so that four ranks at pipe = 2 run two two-stage pipes.
 
     device_type defaults to "cuda" and raises without a GPU, as the port's
     entry points do; pass "cpu" for a gloo mesh on the CPU."""
@@ -44,12 +73,17 @@ def make_mesh(data: Optional[int] = None, model: int = 1, *,
                            "parallel.distributed.initialize() (or "
                            "torch.distributed.init_process_group) first")
     n = dist.get_world_size()
+    inner = model * (pipe or 1)
     if data is None:
-        data = n // model
-    if data * model != n:
-        raise ValueError(f"a (data {data}, model {model}) mesh does not cover the "
-                         f"{n} ranks of the process group")
-    return init_device_mesh(device_type, (data, model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+        data = n // inner
+    if data * inner != n:
+        raise ValueError(f"a (data {data}, {'' if pipe is None else f'pipe {pipe}, '}model "
+                         f"{model}) mesh does not cover the {n} ranks of the process group")
+    if pipe is None:
+        return init_device_mesh(device_type, (data, model),
+                                mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    return init_device_mesh(device_type, (data, pipe, model),
+                            mesh_dim_names=(DATA_AXIS, PIPE_AXIS, MODEL_AXIS))
 
 
 def axis(mesh: Optional[DeviceMesh], name: str) -> Tuple[int, int, object]:

@@ -48,7 +48,11 @@ dense layer computes. So SD2.x's 5-head level stays whole at model = 2
 while its 10- and 20-head levels split (the JAX package computes it
 through GSPMD's resharding around the head reshape); the numbers are the
 dense ones either way. An attention module without ``heads`` stays
-replicated.
+replicated. An attention whose ``impl`` is ring attention over the model
+axis (``UNetConfig.self_attn_impl`` / ``MMDiTConfig.attn_impl`` =
+"ring:model...") stays whole too: the ring splits its sequence over the
+model ranks, each of which then needs every head (the JAX package's GSPMD
+re-shards the head-split q / k / v to sequence-split ones instead).
 
 FSDP (ZeRO-3): ``fsdp_spec_tree`` / ``shard_fsdp`` apply the JAX rule,
 the TP spec first, then the largest still-unsplit axis (in the JAX
@@ -69,6 +73,7 @@ from torch import nn
 
 from . import tp
 from .mesh import DATA_AXIS, MODEL_AXIS, Placement, axis
+from .pipeline import place_stages
 
 COLUMN_PARALLEL = {"to_q", "to_k", "to_v", "q_proj", "k_proj", "v_proj",
                    "fc1", "qkv",
@@ -182,13 +187,19 @@ def _units(module: nn.Module) -> Dict[str, Tuple[nn.Module, List[_Member]]]:
     return units
 
 
+def _rings_over_model(impl: Optional[str]) -> bool:
+    from .ring_attention import is_ring, ring_axes
+
+    return is_ring(impl) and ring_axes(impl)[0] == MODEL_AXIS
+
+
 def _splits(unit: nn.Module, members: List[_Member], n: int) -> bool:
     """Whether a unit splits n ways (the rule of the module docstring)."""
     if n == 1:
         return False
     if any(m.name.rsplit(".", 1)[-1] in _ATTN_COLUMNS for m in members):
         heads = getattr(unit, "heads", None)
-        if not heads or heads % n:
+        if not heads or heads % n or _rings_over_model(getattr(unit, "impl", None)):
             return False
     for m in members:
         if "weight" not in m.linear._parameters:  # quantized
@@ -212,8 +223,10 @@ def shard_params(module: nn.Module, mesh):
     rank's slice over the mesh's model axis, in place, and set its role
     (``tp_role``, ``tp_group``) and its unit's ``heads`` to this rank's
     count; cut each ``TP_HEAD_TABLES`` table to this rank's heads when the
-    model's attention split. Returns ``module``. A mesh whose model axis
-    has one rank changes nothing."""
+    model's attention split. On a mesh with a ``pipe`` axis keep only this
+    stage's blocks of a pipelined model (``pipeline.place_stages``).
+    Returns ``module``. A mesh whose model axis has one rank, and no pipe
+    axis of more, changes nothing."""
     n, r, group = axis(mesh, MODEL_AXIS)
     units = _units(module)
     if any(m.linear.tp_role is not None for _, members in units.values() for m in members):
@@ -237,7 +250,7 @@ def shard_params(module: nn.Module, mesh):
                 table = getattr(mod, name)
                 _replace(table, "weight", tp.rank_slice(table.weight, 1, r, n))
                 table.tp_parts = n
-    return module
+    return place_stages(module, mesh)
 
 
 def _layout_of(mod: nn.Module):

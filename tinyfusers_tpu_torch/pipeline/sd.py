@@ -362,9 +362,11 @@ def generate(model: StableDiffusion, input_ids: torch.Tensor,
     mesh (parallel.make_mesh): the global batch's ids and latents (and
     prompt weights) split over the data axis, each rank sampling its rows
     through its tensor-parallel text encoder and UNet
-    (``parallel.shard_params``); the images gathered back in row order on
-    every rank. A generator would draw other noise than the dense call's:
-    the ancestral samplers are not taken on a mesh."""
+    (``parallel.shard_params``), with ``mesh`` the ambient mesh
+    (``parallel.use_mesh``) of a ring self-attention (``UNetConfig.
+    self_attn_impl``); the images gathered back in row order on every rank.
+    A generator would draw other noise than the dense call's: the ancestral
+    samplers are not taken on a mesh."""
     if mesh is not None:
         return _generate_on(mesh, model, input_ids, uncond_ids, latent, guidance,
                             generator=generator, prompt_weights=prompt_weights,
@@ -386,7 +388,7 @@ def generate(model: StableDiffusion, input_ids: torch.Tensor,
 def _generate_on(mesh, model, input_ids, uncond_ids, latent, guidance, *, generator,
                  prompt_weights, control, **kw) -> torch.Tensor:
     from ..parallel import tp
-    from ..parallel.mesh import DATA_AXIS, axis
+    from ..parallel.mesh import DATA_AXIS, axis, use_mesh
 
     if generator is not None:
         raise NotImplementedError("generate on a mesh takes no generator: each rank "
@@ -397,8 +399,9 @@ def _generate_on(mesh, model, input_ids, uncond_ids, latent, guidance, *, genera
     rows = lambda x: None if x is None else tp.rank_slice(x, 0, r, n)  # noqa: E731
     if latent.shape[0] % n:
         raise ValueError(f"batch {latent.shape[0]} does not split over {n} data ranks")
-    images = generate(model, rows(input_ids), rows(uncond_ids), rows(latent), guidance,
-                      prompt_weights=rows(prompt_weights), **kw)
+    with use_mesh(mesh):
+        images = generate(model, rows(input_ids), rows(uncond_ids), rows(latent), guidance,
+                          prompt_weights=rows(prompt_weights), **kw)
     return tp.all_gather(images, group, dim=0)
 
 

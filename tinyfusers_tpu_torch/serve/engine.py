@@ -22,9 +22,22 @@ tinyfusers_tpu/serve/engine.py).
   without blocking. Each completion's VAE decode is issued at once and
   copied to pinned host memory without blocking, behind a CUDA event; a
   later tick hands it out once the event has passed (flush() waits).
+- On a (data, model) mesh (``mesh=``) the slots split over the data axis:
+  a rank holds the latents and contexts of its num_slots / n slots, its
+  model (``parallel.shard_params``) split over the model axis. Every rank
+  runs the same scheduler core on the same submissions (mirrored: the
+  same submit() calls in the same order everywhere) and takes each tick's
+  control vectors from the mesh's first rank
+  (``parallel.distributed.sync_decision``), so that every rank feeds the
+  step the same numbers. A rank steps its own slots. A finished slot is
+  decoded by the ranks that hold it and broadcast over the data axis. On
+  a mesh, and in an engine that a Router runs beside a sharded one
+  (``lockstep``), a decode is handed out on the tick after the one that
+  issued it, not when its event has passed, so that every rank returns
+  the same Results, with the same images, in the same order, and takes
+  the same number of ticks.
 - The engine refuses what it would get wrong: a v-prediction model (the
-  JAX engine feeds v to the DDIM update as if it were epsilon) and a
-  device mesh (the sharded, multi-host engine is not ported yet).
+  JAX engine feeds v to the DDIM update as if it were epsilon).
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import unet as unet_model
 from ..models import vae as vae_model
@@ -164,6 +178,10 @@ class Engine:
         """model: a pipeline.sd.StableDiffusion; the engine runs on its
         device in its UNet's dtype. cfg, if given, must be model.cfg.
 
+        mesh: a (data, model) mesh (parallel.make_mesh); num_slots must
+        divide over its data axis, and model should be split over its model
+        axis already (parallel.shard_params).
+
         stage_window: how many queued requests may hold issued device
         state (CLIP context + initial latent) ahead of admission; default
         2 x num_slots, so a deep queue holds O(slots) device memory, not
@@ -176,28 +194,43 @@ class Engine:
                 f"Engine: prediction_type {cfg.prediction_type!r} is not served: the "
                 "slot step's DDIM update takes epsilon predictions (the JAX engine "
                 "would treat v as epsilon and return a wrong image)")
+        n, r, group = 1, 0, None
         if mesh is not None:
-            raise NotImplementedError(
-                "Engine: the sharded, multi-host engine (mesh, sync_decision) waits "
-                "for the second part of the parallelism port (ROADMAP §1 item 2)")
+            from ..parallel.mesh import DATA_AXIS, axis
+
+            n, r, group = axis(mesh, DATA_AXIS)
+            if num_slots % n:
+                raise ValueError(f"Engine: num_slots {num_slots} does not divide over the "
+                                 f"{n} ranks of the mesh's data axis")
         param = next(model.unet.parameters())
         self.model = model
         self.cfg = cfg
         self.S = num_slots
+        self.mesh = mesh
+        # this rank's slots: [first, first + local_slots) of the S
+        self._data_n, self._data_group = n, group
+        self.local_slots = num_slots // n
+        self._first = r * self.local_slots
         self.device = param.device
         self.dtype = param.dtype
         self.core = make_scheduler_core(num_slots, prefer_native)
         h, w, c = cfg.latent_shape
-        self.latents = torch.zeros((num_slots, h, w, c), dtype=self.dtype, device=self.device)
-        self.contexts = torch.zeros((2 * num_slots, cfg.clip.max_length, cfg.clip.dim),
+        s_l = self.local_slots
+        self.latents = torch.zeros((s_l, h, w, c), dtype=self.dtype, device=self.device)
+        self.contexts = torch.zeros((2 * s_l, cfg.clip.max_length, cfg.clip.dim),
                                     dtype=self.dtype, device=self.device)
+        self._tick = 0
+        # hand decodes out by tick, not by event, so that the ranks keep step
+        # (a Router sets it on the engines beside a sharded one)
+        self.lockstep = mesh is not None
         self.guidance = np.zeros((num_slots,), np.float32)
         self._steps_total: Dict[int, int] = {}     # slot -> total steps
         self._ladders: Dict[int, np.ndarray] = {}  # per distinct num_steps
         self._acp = ddim.alphas_cumprod().numpy()  # host copy, read once
         self._next_rid = 0
         self._requests: Dict[int, Request] = {}    # in flight and queued only
-        # (rid, host uint8 image, CUDA event of its copy or None on the CPU)
+        # (rid, host uint8 image, CUDA event of its copy or None on the CPU,
+        # the tick that issued it)
         self._pending_decodes: List = []
         # rid -> (ctx2 (2, T, D) [uncond ‖ cond], lat0 (1, h, w, c)) on the
         # device, for at most stage_window queued requests; the overflow
@@ -212,7 +245,7 @@ class Engine:
         # now, so that no tick reads back
         self._rows = RowInvariance()
         with torch.inference_mode(), self._rows:
-            zero = torch.zeros((num_slots,), dtype=torch.float32, device=self.device)
+            zero = torch.zeros((s_l,), dtype=torch.float32, device=self.device)
             self._slot_step(model.unet, self.latents, self.contexts, zero, zero, zero + 1.0,
                             zero + 1.0, zero > 0)
 
@@ -264,10 +297,30 @@ class Engine:
         self._staged[req.request_id] = (ctx2, lat0)
 
     def _inject(self, slot: int, lat0: torch.Tensor, ctx2: torch.Tensor) -> None:
-        """One admitted request's state into its slot, on the device."""
-        self.latents[slot] = lat0[0]
-        self.contexts[slot] = ctx2[0]
-        self.contexts[slot + self.S] = ctx2[1]
+        """One admitted request's state into its slot, on the device, by the
+        ranks that hold the slot."""
+        i = slot - self._first
+        if 0 <= i < self.local_slots:
+            self.latents[i] = lat0[0]
+            self.contexts[i] = ctx2[0]
+            self.contexts[i + self.local_slots] = ctx2[1]
+
+    def _decode(self, slot: int) -> torch.Tensor:
+        """The uint8 image (H, W, 3) of a finished slot, on every rank: the
+        ranks of its data index decode it, then broadcast it over the data
+        axis."""
+        i = slot - self._first
+        if 0 <= i < self.local_slots:
+            img = vae_model.to_image(vae_model.decode(self.model.vae,
+                                                      self.latents[i:i + 1]))[0]
+        else:
+            img = torch.empty((self.cfg.height, self.cfg.width, 3), dtype=torch.uint8,
+                              device=self.device)
+        if self._data_n > 1:
+            owner = dist.get_global_rank(self._data_group, slot // self.local_slots)
+            img = img.contiguous()
+            dist.broadcast(img, src=owner, group=self._data_group)
+        return img
 
     def reset(self) -> None:
         """Drop all queued and in-flight state; keep the model and the
@@ -296,7 +349,10 @@ class Engine:
     def step(self) -> List[Result]:
         """One scheduler tick: admit, denoise every active slot by one
         step, issue the decodes of completions, hand out the decoded
-        results that are ready. Nothing here waits for the device."""
+        results that are ready. Nothing here waits for the device, but a
+        lockstep engine's collectives and its handing out of a decode
+        whose copy is still in flight."""
+        self._tick += 1
         for rid, slot, steps in self.core.assign():
             req = self._requests[rid]
             self._steps_total[slot] = steps
@@ -330,6 +386,11 @@ class Engine:
             ctl[_A_PREV, slot] = self._acp[ladder[idx - 1]] if idx > 0 else 1.0
             ctl[_ACTIVE, slot] = 1.0
 
+        if self.mesh is not None:  # rows (t, a_t, a_prev, active, guidance): rank 0's
+            from ..parallel.distributed import sync_decision
+
+            ctl = sync_decision(ctl, self.mesh)
+            ctl = np.ascontiguousarray(ctl[:, self._first:self._first + self.local_slots])
         if ctl[_ACTIVE].any():
             v = self._upload(ctl)
             with self._rows:
@@ -338,8 +399,7 @@ class Engine:
                     v[_A_T], v[_A_PREV], v[_ACTIVE] > 0.5))
 
         for rid, slot in self.core.tick():
-            img = vae_model.to_image(
-                vae_model.decode(self.model.vae, self.latents[slot:slot + 1]))[0]
+            img = self._decode(slot)
             event = None
             if img.is_cuda:  # copy out behind an event, harvested when it passed
                 host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
@@ -347,24 +407,28 @@ class Engine:
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self.device))
                 img = host
-            self._pending_decodes.append((rid, img, event))
+            self._pending_decodes.append((rid, img, event, self._tick))
             self._steps_total.pop(slot, None)
             self._requests.pop(rid, None)
         return self._harvest(block=False)
 
     def _harvest(self, block: bool) -> List[Result]:
         done, still = [], []
-        for rid, img, event in self._pending_decodes:
-            if event is not None and block:
-                event.synchronize()
-            if event is None or block or event.query():
+        for rid, img, event, tick in self._pending_decodes:
+            if self.lockstep:  # out on the tick after its own, on every rank
+                ready = block or tick < self._tick
+            else:
+                ready = block or event is None or event.query()
+            if ready:
+                if event is not None:
+                    event.synchronize()
                 done.append(Result(rid, img.numpy()))
                 if self.stats["first_result_s"] is None:
                     self.stats["first_result_s"] = (
                         time.perf_counter() - self.stats["first_submit_t"])
                 self.stats["completed"] += 1
             else:
-                still.append((rid, img, event))
+                still.append((rid, img, event, tick))
         self._pending_decodes = still
         return done
 

@@ -30,9 +30,15 @@ class _Tracked:
 
 class Router:
     def __init__(self, engines: Dict[str, Engine], *, max_retries: int = 1):
-        """engines: model key -> Engine (e.g. {"sd15": ..., "sd21": ...})."""
+        """engines: model key -> Engine (e.g. {"sd15": ..., "sd21": ...}).
+        Beside an engine on a mesh every engine keeps step with the ranks
+        (``Engine.lockstep``), so that each rank routes the same results
+        on the same tick."""
         if not engines:
             raise ValueError("Router: need at least one engine")
+        if any(e.mesh is not None for e in engines.values()):
+            for e in engines.values():
+                e.lockstep = True
         self.engines = engines
         self.max_retries = max_retries
         self._tracked: Dict[int, _Tracked] = {}
