@@ -19,7 +19,9 @@ fine-tuned through the two training CLIs' jobs (all of the UNet, and
 rank-8 LoRA), SD1.5 on a (data, model) mesh (one NCCL rank, then two
 ranks on the one card: tensor-parallel and FSDP, ring attention in the
 UNet and the MMDiT, a GPipe MMDiT, the serving engine on a mesh and a
-Router over it), and holds every
+Router over it, Adafactor on the sharded state, an ancestral image and a
+ControlNet image on a mesh), ControlNet composed with cached CFG and
+DeepCache, the full-geometry checkpoint drill, and holds every
 hand-written CUDA kernel of those paths
 against its plain PyTorch version. Imports neither jax nor
 tinyfusers_tpu. The SD3 models' adaLN-Zero leaves (every block's ``mod``
@@ -109,7 +111,8 @@ Phases, one or more lines each:
    then one image with the launch counts set to 0 just before it and read
    just after (exactly 400 flash_packed on the wgmma variant, 1 flash_bhsd
    on wgmma_wide, 320 geglu, each at a shape that phase 3 measured), then
-   two more images; seconds per
+   two more images (every later image path times PATH_IMAGES = 1, the
+   counted one); seconds per
    image by the host clock after synchronize, and peak device memory;
 5p. parallel: [parallel-1] the same image through ``generate(mesh=)`` on
    a one-rank NCCL (data 1, model 1) mesh, equal to phase 5's bit for bit
@@ -125,7 +128,18 @@ Phases, one or more lines each:
    launches counted exactly per part (20 flash_packed and 16 geglu a
    forward, twice a step with remat) at shapes phase 3 measured (its TP2
    rows: 4 heads and half the FF columns of each rank); on the same two
-   ranks [parallel-ring] (an SD1.5 512x512 fp32 image through
+   ranks [parallel-adafactor] (the same TP and FSDP steps with
+   ``optim.adafactor``, its statistics reduced over the shards, held alike
+   to the unsharded Adafactor step, and each leaf's update within
+   ADA_UPDATE_TOL of the unsharded update's norm), [parallel-gen] (an SD1.5 512x512
+   GEN_STEPS-step euler_ancestral bf16 image at batch 2 through
+   ``generate(mesh=, generator=)`` on (data 2, model 1): every noise draw of
+   a rank its row of the one-device draw bit for bit, the image's mean
+   level error against the one-device fp32 call within twice the
+   one-device bf16 call's), [parallel-cn] (an SD1.5 + ControlNet 512x512
+   CN_STEPS-step fp32 image at model 2, the ControlNet split by
+   ``shard_params`` as the UNet, within 1 of 255 of the unsharded image),
+   [parallel-ring] (an SD1.5 512x512 fp32 image through
    ``generate(mesh=)`` with ``self_attn_impl="ring:model"`` on (data 1,
    model 2), within 1 of 255 of the unsharded image; SD3-medium's MMDiT at
    1024x1024 with ``attn_impl="ring:model"``, fp32 allclose atol 2e-4 rtol
@@ -156,7 +170,7 @@ Phases, one or more lines each:
    fp8 and int4 in turn; for each a warm-up (latents compared with the
    dense ones), one image with the counts checked exactly (3,680 quant
    matmuls at the 19 shapes of phase 3, all on the wgmma variant, 0
-   geglu, 400 flash_packed, 1 flash_bhsd), one more image; s/image, peak
+   geglu, 400 flash_packed, 1 flash_bhsd); s/image, peak
    and held device memory; for int8 also the bias casts per image that
    the wgmma variant's reading of a bf16 bias leaves out;
 6q. profile: one int8 and one int4 image under ``torch.profiler``, as
@@ -166,8 +180,8 @@ Phases, one or more lines each:
    the pipeline's stages (finite latents), one image with the counts
    checked exactly (672 flash_packed at (2, 4224, 4224, 1536, 24, kv_len
    4173), 1 flash_bhsd at (1, 16384, 16384, 512), no geglu or quant
-   matmul; the flash calls on the wgmma variants), one more image;
-   s/image, held and peak device memory;
+   matmul; the flash calls on the wgmma variants); s/image, held and
+   peak device memory;
 6s. profile: one more SD3 image under ``torch.profiler``, as phase 6;
 5t. SD3-medium with T5-XXL: one warm-up and one counted image (672
    flash_packed at (2, 4352, 4352, 1536, 24, kv_len 4250), 1 flash_bhsd);
@@ -185,7 +199,7 @@ Phases, one or more lines each:
    bit;
 5sq. the quantized MMDiT through ``tools/sd3_bench_torch.py``'s job (the
    JAX tool's fill): dense, int8 and int4 in turn, a warm-up's latents
-   (compared with dense's), two images, the first counted exactly (196
+   (compared with dense's), one image counted exactly (196
    quant launches at the MMDiT's 6 shapes on wgmma, 672 flash_packed, 1
    flash_bhsd); s/image, held and peak memory, s/image over dense's;
 5c. SD2.1-v checkpoint: the model seeded on the card in bf16, written by
@@ -201,7 +215,7 @@ Phases, one or more lines each:
    warm-up (finite latents), one image with the counts checked exactly
    (400 flash_packed at the four shapes of the 96x96 and 48x48 levels, 1
    flash_bhsd at (1, 9216, 9216, 512), 320 geglu at four shapes, all on
-   the wgmma variants and measured in phase 3), one more image; s/image,
+   the wgmma variants and measured in phase 3); s/image,
    held and peak memory; then euler_ancestral and heun latents on the
    ladder schedule, their launches 20 flash_packed and 16 geglu per
    network call (heun: 39 calls, the JAX scan's discarded 40th not made);
@@ -217,7 +231,12 @@ Phases, one or more lines each:
    23 geglu); [main-cn] 512x512 20-step DDIM CFG 7.5 images through the
    CLI's ``build()`` with ``--control-ckpt`` that file and a seeded hint
    tensor (560 flash_packed, 140 at each SD1.5 shape; 460 geglu; 1
-   flash_bhsd), and a [profile] line of one;
+   flash_bhsd), and a [profile] line of one; [cn-compose]
+   (``tools/controlnet_compose_bench_torch.py``'s four modes on that
+   ControlNet with the tool's gates, checkerboard hint and scale: exact,
+   cached CFG u = 2, DeepCache k = 2, both; the tool's ``run_modes``: a
+   warm-up and one counted image each, launches from build_plan, s/image
+   and PSNR against the exact controlled image);
 5d. DeepCache and FreeU through the same job: [main-deepcache] interval 3,
    split 3; [main-deepcache-cfg] the same with cached CFG interval 2 (the
    branches apart at batch 1: the B=1 shapes of phase 3); [main-freeu]
@@ -231,6 +250,11 @@ Phases, one or more lines each:
    inpainting (``unet.SD15_INPAINT_CONFIG``, runwayml's
    v1-inpainting-inference.yaml, in_channels 9; right half masked; the
    kept half equal to the source bit for bit) at 512x512;
+   [ckpt-drill] ``tools/ckpt_drill_torch.py --steps DRILL_STEPS``: the
+   full-geometry SD1.5 state (1.066 B parameters, fp16) written as
+   .safetensors and as a torch-zip .ckpt, each read back through
+   ``load_sd_params`` bit for bit after fp16 -> bf16 and run through the
+   CLI in a child: load seconds, wall seconds, the child's peak host RSS;
    each image phase prints s/image, held and peak memory, the launches by
    wrapper, by shape and by variant (every shape measured in phase 3);
 5e. serving (``serve/engine.py`` over the native scheduler core, 4 slots, a
@@ -258,8 +282,8 @@ Phases, one or more lines each:
    by ``io/checkpoints.save_sdxl_checkpoint`` (about 7 GB) to a temporary
    directory after checking its free space, read back through the CLI's
    ``build()`` with ``--preset sdxl --ckpt`` bit for bit; [main-sdxl] a
-   warm-up and two 1024x1024 20-step DDIM CFG 7.5 images, the first with
-   its counts checked exactly (2,800 flash_packed: 200 / 200 / 1,200 /
+   warm-up and one 1024x1024 20-step DDIM CFG 7.5 image with its counts
+   checked exactly (2,800 flash_packed: 200 / 200 / 1,200 /
    1,200 at the four SDXL shapes; 1,400 geglu: 200 / 1,200; 1 flash_bhsd
    at (1, 16384, 16384, 512));
 6x. profile: one more SDXL image under ``torch.profiler``, as phase 6;
@@ -271,7 +295,7 @@ Phases, one or more lines each:
 5qe. quant-eval: ``tools/quant_eval_torch.py --preset sd15 --quant
    int8|fp8|int4`` (seeded bf16 weights): the eps errors at t = 981, 501,
    21, the image PSNR, the largest pixel change, the changed share;
-5ae. accuracy: ``tools/accuracy_eval_torch.py --preset sd15 --prompts 4
+5ae. accuracy: ``tools/accuracy_eval_torch.py --preset sd15 --prompts 2
    --variants int8,fp8,int4,cached_cfg,deepcache`` (seeded SD1.5 bf16,
    seeded ViT-L/14 scorer, TF32 off): each variant's 4 images with their
    launches counted exactly (bf16: 400 flash_packed, 320 geglu, 1
@@ -305,13 +329,13 @@ Phases, one or more lines each:
    versions in their place, per tensor within UNET_GRAD_TOL, every
    parameter with a finite non-zero gradient; [train] the job of
    ``examples/train_full_torch.py --preset sd15 --batch 4 --optimizer adamw
-   --remat`` (bf16, seeded synthetic pairs): a warm-up step, then 10 steps
+   --remat`` (bf16, seeded synthetic pairs): a warm-up step, then 5 steps
    with the launches checked exactly (40 flash_packed and 32 geglu a step,
    remat running each forward twice, at the phase-3 training shapes, on the
    wgmma variants), finite losses and gradient norms, steps/s and
    samples/s, the first step's seconds, held and peak memory, the
    optimizer state's bytes and one profiled step's busy share;
-   [train-overfit] 20 steps on one batch with t and noise fixed: the loss
+   [train-overfit] 10 steps on one batch with t and noise fixed: the loss
    must fall (the last below the first, the last five's mean below the
    first five's); [train-resume] that job's train
    state written by ``train.save_train_state`` (the JAX package's keys and
@@ -440,12 +464,12 @@ SERVE_SLOTS = 4
 # [serve-mesh]: tests/multihost_worker.py's three requests, over SERVE_SLOTS
 SERVE_MESH_STEPS = (2, 3, 2)
 # [parallel-ring]'s SD1.5 image: DDIM steps
-RING_STEPS = 4
+RING_STEPS = 2
 # serve_demo.py's sd15 step mix, one request a tick, seeds 0-11
 SERVE_MIX = [20, 30, 25]
 SERVE_REQUESTS = 12
 # tools/accuracy_eval_torch.py at SD1.5: prompts, and its variants after bf16
-ACC_PROMPTS = 4
+ACC_PROMPTS = 2
 ACC_VARIANTS = ["int8", "fp8", "int4", "cached_cfg", "deepcache"]
 # tools/serve_quant_bench_torch.py's formats (dense first: the same schedule)
 SERVE_QUANT = ["fp16", "int8", "int4"]
@@ -535,8 +559,23 @@ SERVE_TP2_GEGLU_SHAPES = [("serve TP2 64x64", (32768, 640, 320), None),
 # [parallel-tp2]'s train steps: fp32, SGD (momentum 0.9 for FSDP, whose
 # trace the data ranks split) after global-norm clipping at 1.0
 TP2_LR = 1e-2
-TRAIN_STEPS = 10      # timed steps of each training job, after one warm-up step
-OVERFIT_STEPS = 20    # steps on one repeated batch, t and noise fixed
+# [parallel-adafactor]'s steps: optax.adafactor's defaults at this rate; each
+# leaf's update (about 1e-3 rms(p) a step, far under the params' tolerance)
+# held to the unsharded update within this share of its norm: sums in
+# another order give 2.3e-5 on the H100, a mean reduced over too few ranks
+# 0.13-0.29
+ADA_LR = 1e-3
+ADA_UPDATE_TOL = 1e-3
+# [parallel-gen]'s euler_ancestral bf16 image at batch 2 and [parallel-cn]'s
+# fp32 ControlNet image: steps
+GEN_STEPS = 5
+CN_STEPS = 2
+DRILL_STEPS = 2       # the CLI's steps on each container in [ckpt-drill]
+# timed images of each image path after phase 5 (the first with its launches
+# counted); phase 5 itself times 3
+PATH_IMAGES = 1
+TRAIN_STEPS = 5       # timed steps of each training job, after one warm-up step
+OVERFIT_STEPS = 10    # steps on one repeated batch, t and noise fixed
 # Gradients through the autograd Functions (the kernel forward, the exact-math
 # backward) against autograd through the plain versions, ||d|| / ||plain||:
 # in bf16 the plain versions round otherwise (q's base-2 prescale in bf16, the
@@ -1040,6 +1079,136 @@ def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
             check += f"; {secs:.3f} s, the plain forward {mm[f'{dtype}_s']:.3f} s"
         part(name, what, secs, want, ok, check)
 
+    def gen_part():
+        """[parallel-gen]: an SD1.5 512x512 euler_ancestral bf16 image at batch
+        2 on (data 2, model 1), each rank sampling its row with its rows of
+        the global noise, against the one-device bf16 and fp32 calls."""
+        from tinyfusers_tpu_torch.pipeline import samplers
+
+        t_group = time.perf_counter()
+        mesh = parallel.make_mesh(data=2, model=1)
+        ids, uncond = (x.expand(2, -1).contiguous() for x in sd15_prompt(dev))
+        latent = sd.initial_latent(6, 2, sd.SD15, device=dev)
+        real, drawn = samplers._normal, []
+
+        def recorded(generator, like):  # every noise draw of the sampler, as drawn
+            x = real(generator, like)
+            drawn.append(x.clone())
+            return x
+
+        def image(model, dtype, on=None):
+            return sd.generate(model, ids, uncond, latent.to(dtype), GUIDANCE,
+                               num_steps=GEN_STEPS, method="euler_ancestral",
+                               generator=torch.Generator(device=dev).manual_seed(7), mesh=on)
+
+        samplers._normal = recorded
+        try:
+            model = sd.StableDiffusion(sd.SD15, device=dev, seed=51)
+            refs = {}
+            if rank == 0:  # the one-device calls: fp32, then bf16 with its draws kept
+                for dt in (torch.float32, torch.bfloat16):
+                    drawn.clear()
+                    t0 = time.perf_counter()
+                    refs[dt] = image(model.to(dt), dt)
+                    refs[f"{dt}_s"] = seconds_since(t0)
+            model.to(torch.bfloat16)
+            n = torch.tensor([len(drawn)], device=dev)
+            dist.broadcast(n, src=0)
+            # (clones made here: the draws are inference tensors, which the
+            # broadcast may not write to)
+            dense = ([x.clone() for x in drawn] if rank == 0 else
+                     [torch.empty((2, 64, 64, 4), device=dev) for _ in range(int(n))])
+            for x in dense:
+                dist.broadcast(x, src=0)
+            parallel.shard_params(model, mesh)
+            drawn.clear()
+            t0 = start()
+            img = image(model, torch.bfloat16, mesh)
+            secs = seconds_since(t0)
+        finally:
+            samplers._normal = real
+        r = mesh.get_local_rank("data")
+        rows = (len(drawn) == len(dense)
+                and all(torch.equal(a, b[r:r + 1]) for a, b in zip(drawn, dense)))
+        same = same_as_rank0(img)
+        ok = rows and same and img.shape == (2, 512, 512, 3)
+        check = (f"{len(drawn)} noise draws, each this rank's row of the one-device draw bit "
+                 f"for bit: {rows}; image equal to rank 0's bit for bit: {same}")
+        if rank == 0:
+            err = (img.float() - refs[torch.float32].float()).abs().mean().item()
+            floor = (refs[torch.bfloat16].float() - refs[torch.float32].float()).abs().mean().item()
+            ok = ok and err <= 2 * floor
+            check += (f"; mean |d pixel| against the one-device fp32 call {err:.4f} (tol 2x the "
+                      f"one-device bf16 call's, 2 x {floor:.4f}); {secs:.2f} s, one device "
+                      f"bf16 {refs[f'{torch.bfloat16}_s']:.2f} s, fp32 "
+                      f"{refs[f'{torch.float32}_s']:.2f} s")
+        flash, geglu = unet_launches(cfg, 64, 2)  # a rank's row, CFG: the batch-2 pass
+        part("gen_ancestral", f"SD1.5 512x512 {GEN_STEPS}-step euler_ancestral CFG {GUIDANCE} "
+             "bf16 batch 2 through generate(mesh=, generator=) on (data 2, model 1) against "
+             "the one-device calls", secs,
+             {"flash_packed": GEN_STEPS * sum(flash.values()), "flash_bhsd": 1,
+              "geglu": GEN_STEPS * sum(geglu.values())}, ok, check)
+        del model, img, refs, dense
+        torch.cuda.empty_cache()
+        wall("gen", t_group)
+
+    def cn_part():
+        """[parallel-cn]: an SD1.5 512x512 fp32 ControlNet image at model 2
+        (the UNet and the ControlNet split by shard_params) against the
+        unsharded image."""
+        from tinyfusers_tpu_torch.models import controlnet as cn_mod
+
+        t_group = time.perf_counter()
+        mesh = parallel.make_mesh(data=1, model=2)
+        ids, uncond = sd15_prompt(dev)
+        latent = sd.initial_latent(8, 1, sd.SD15, device=dev)
+        hint = torch.rand((1, 512, 512, 3), generator=torch.Generator(device=dev).manual_seed(9),
+                          device=dev)
+
+        def models():
+            cn = cn_mod.ControlNet(cfg, device=dev, seed=62)
+            fill_zero_init(cn, 63)  # the JAX init's zero convs would add nothing
+            return sd.StableDiffusion(sd.SD15, device=dev, seed=61), cn
+
+        def image(model, cn, on=None):
+            return sd.generate(model, ids, uncond, latent, GUIDANCE, num_steps=CN_STEPS,
+                               control=(cn, hint, 0.9), mesh=on)
+
+        want_img = None
+        if rank == 0:
+            model, cn = models()
+            t0 = time.perf_counter()
+            want_img = image(model, cn)
+            dense_s = seconds_since(t0)
+            del model, cn
+            torch.cuda.empty_cache()
+        model, cn = models()
+        parallel.shard_params(model, mesh)
+        parallel.shard_params(cn, mesh)
+        split = sum(1 for m in cn.modules() if getattr(m, "tp_role", None))
+        t0 = start()
+        img = image(model, cn, mesh)
+        secs = seconds_since(t0)
+        flash, geglu = launches_of((1, tp_shapes(unet_launches(cfg, 64, 2), 2)),
+                                   (1, tp_shapes(unet_launches(cfg, 64, 2, "control"), 2)))
+        want = {"flash_packed": CN_STEPS * sum(flash.values()), "flash_bhsd": 1,
+                "geglu": CN_STEPS * sum(geglu.values())}
+        same = same_as_rank0(img)
+        ok, check = same and split > 0, (f"{split} ControlNet Linears split; equal to rank 0's "
+                                         f"bit for bit: {same}")
+        if rank == 0:
+            diff = (img.int() - want_img.int()).abs()
+            ok = ok and diff.max().item() <= 1
+            check += (f"; max |d pixel| {diff.max().item()} against the unsharded image (tol 1 "
+                      f"of 255), {(diff > 0).float().mean().item():.4%} of pixels differ; "
+                      f"{secs:.2f} s, unsharded {dense_s:.2f} s")
+        part("cn_image", f"SD1.5 + ControlNet 512x512 {CN_STEPS}-step DDIM CFG {GUIDANCE} fp32 "
+             "image through generate(mesh=, control=) at model 2 (the ControlNet split as the "
+             "UNet) against the unsharded image", secs, want, ok, check)
+        del model, cn, img
+        torch.cuda.empty_cache()
+        wall("cn", t_group)
+
     def ring_parts():
         t_group = time.perf_counter()
         mesh = parallel.make_mesh(data=1, model=2)
@@ -1243,37 +1412,64 @@ def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
         torch.cuda.empty_cache()
         wall("serve", t_group)
 
-    # the forward at model = 2, fp32 and bf16, against the unsharded UNet
+    def tp2_parts():
+        forward_parts()
+        train_part("train_tp", "one train step fp32, data 1 x model 2 (tensor parallel), batch "
+                   "2, remat, SGD after clipping, against the unsharded step", mesh,
+                   optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(TP2_LR)), False)
+        train_part("train_fsdp", "one train step fp32, data 2 x model 1 (FSDP: params and "
+                   "momentum split over the data ranks), one row a rank, remat, SGD with "
+                   "momentum after clipping, against the unsharded step on both rows",
+                   parallel.make_mesh(data=2, model=1),
+                   optim.chain(optim.clip_by_global_norm(1.0),
+                               optim.sgd(TP2_LR, momentum=0.9)), True)
+
+    def adafactor_parts():
+        def adafactor(model):  # optax.adafactor's defaults, each leaf factored in the JAX layout
+            return optim.adafactor(ADA_LR, layouts=train.param_layouts(model))
+
+        t_group = time.perf_counter()
+        train_part("ada_tp", "one Adafactor train step fp32, data 1 x model 2 (tensor "
+                   "parallel: each statistic reduced over the model group), batch 2, remat, "
+                   "against the unsharded step", mesh, adafactor, False, ADA_UPDATE_TOL)
+        train_part("ada_fsdp", "one Adafactor train step fp32, data 2 x model 1 (FSDP: params "
+                   "split over the data ranks, statistics reduced over them), one row a rank, "
+                   "remat, against the unsharded step on both rows",
+                   parallel.make_mesh(data=2, model=1), adafactor, True, ADA_UPDATE_TOL)
+        wall("adafactor", t_group)
+
     mesh = parallel.make_mesh(data=1, model=2)
-    x16, ctx16 = x.bfloat16(), ctx.bfloat16()
-    with torch.inference_mode():
-        model = unet()
-        want32, dense32 = timed(lambda: unet_mod.apply(model, x, t, ctx))
-        m16 = unet(torch.bfloat16)
-        want16, dense16 = timed(lambda: unet_mod.apply(m16, x16, t, ctx16))
-        parallel.shard_params(model, mesh)
-        parallel.shard_params(m16, mesh)
-        got32, secs = timed(lambda: unet_mod.apply(model, x, t, ctx))
-        ok = torch.allclose(got32, want32, atol=2e-4, rtol=2e-3)
-        part("forward_fp32", "SD1.5 UNet fp32 (2,64,64,4) at model = 2 against the unsharded "
-             "UNet on the card", secs, per_forward, ok,
-             f"max_abs={(got32 - want32).abs().max().item():.3e} rel={rel(got32, want32):.3e} "
-             f"(allclose atol 2e-4 rtol 2e-3: {ok}); a warm forward {secs:.4f} s sharded, "
-             f"{dense32:.4f} s unsharded")
-        got16, secs = timed(lambda: unet_mod.apply(m16, x16, t, ctx16))
-        err16, floor16 = rel(got16, want16), rel(want16, want32)
-        # two bf16 evaluations, each about floor16 from the fp32 result, lie
-        # up to about sqrt(2) floor16 apart: the limit is 2 floor16
-        part("forward_bf16", "SD1.5 UNet bf16 (2,64,64,4) at model = 2 against the unsharded "
-             "bf16 UNet on the card", secs, per_forward, err16 <= 2 * floor16,
-             f"rel={err16:.3e} (tol 2x the unsharded bf16 UNet's rel against fp32, "
-             f"2 x {floor16:.3e}; sharded bf16 against fp32 rel={rel(got16, want32):.3e}); a "
-             f"warm forward {secs:.4f} s sharded, {dense16:.4f} s unsharded")
-    del model, m16, want32, want16, got32, got16
-    torch.cuda.empty_cache()
 
     x0 = torch.randn((2, 64, 64, 4), generator=g, device=dev)
     c0 = torch.randn((2, 77, 768), generator=g, device=dev)
+
+    def forward_parts():  # the forward at model = 2, fp32 and bf16, against the unsharded UNet
+        x16, ctx16 = x.bfloat16(), ctx.bfloat16()
+        with torch.inference_mode():
+            model = unet()
+            want32, dense32 = timed(lambda: unet_mod.apply(model, x, t, ctx))
+            m16 = unet(torch.bfloat16)
+            want16, dense16 = timed(lambda: unet_mod.apply(m16, x16, t, ctx16))
+            parallel.shard_params(model, mesh)
+            parallel.shard_params(m16, mesh)
+            got32, secs = timed(lambda: unet_mod.apply(model, x, t, ctx))
+            ok = torch.allclose(got32, want32, atol=2e-4, rtol=2e-3)
+            part("forward_fp32", "SD1.5 UNet fp32 (2,64,64,4) at model = 2 against the unsharded "
+                 "UNet on the card", secs, per_forward, ok,
+                 f"max_abs={(got32 - want32).abs().max().item():.3e} rel={rel(got32, want32):.3e} "
+                 f"(allclose atol 2e-4 rtol 2e-3: {ok}); a warm forward {secs:.4f} s sharded, "
+                 f"{dense32:.4f} s unsharded")
+            got16, secs = timed(lambda: unet_mod.apply(m16, x16, t, ctx16))
+            err16, floor16 = rel(got16, want16), rel(want16, want32)
+            # two bf16 evaluations, each about floor16 from the fp32 result, lie
+            # up to about sqrt(2) floor16 apart: the limit is 2 floor16
+            part("forward_bf16", "SD1.5 UNet bf16 (2,64,64,4) at model = 2 against the unsharded "
+                 "bf16 UNet on the card", secs, per_forward, err16 <= 2 * floor16,
+                 f"rel={err16:.3e} (tol 2x the unsharded bf16 UNet's rel against fp32, "
+                 f"2 x {floor16:.3e}; sharded bf16 against fp32 rel={rel(got16, want32):.3e}); a "
+                 f"warm forward {secs:.4f} s sharded, {dense16:.4f} s unsharded")
+        del model, m16, want32, want16, got32, got16
+        torch.cuda.empty_cache()
 
     def leaves_close(got, want):
         bad = [k for k in want if not torch.allclose(got[k], want[k], rtol=2e-3, atol=2e-5)]
@@ -1305,29 +1501,50 @@ def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
             f"(max |d| {worst:.3e}{', first off: ' + bad[0] if bad else ''}); loss and "
             f"grad_norm {mets.tolist()} against rank 0's {ref.tolist()} within rtol 2e-4: {same}")
 
-    def train_part(name, what, mesh, tx, fsdp):
+    def updates_close(new, old, want_new, want_old, tol):
+        """Each leaf's update (new - old, exact in fp64) against the
+        unsharded step's: the norm of the difference over the norm of the
+        unsharded update, at most ``tol`` on every leaf."""
+        worst, worst_k = 0.0, None
+        for k in want_new:
+            ref = want_new[k].double() - want_old[k].double()
+            d = (new[k].double() - old[k].double() - ref).norm().item()
+            ref_n = ref.norm().item()
+            r = 0.0 if d == 0 else d / ref_n if ref_n else math.inf
+            if r >= worst:
+                worst, worst_k = r, k
+        return worst <= tol, (f"each leaf's update against the unsharded update: worst "
+                              f"|d| / |update| {worst:.3e} ({worst_k}; tol {tol:.0e})")
+
+    def train_part(name, what, mesh, tx, fsdp, update_tol=None):
+        """One step on each side, timed. tx: the optimizer, or a function of
+        the model giving it. update_tol: also hold each leaf's update to the
+        unsharded one's (``updates_close``)."""
+        tx_of = tx if callable(tx) else (lambda model: tx)
+
         def state_of(model, placements=None):
-            return train.TrainState.create(train.params_of(model, trainable_only=True), tx,
-                                           placements=placements)
+            return train.TrainState.create(train.params_of(model, trainable_only=True),
+                                           tx_of(model), placements=placements)
 
         want = None
         if rank == 0:  # the unsharded step on the global batch, then a second one timed
             dense = set_trainable(unet())
-            step = train.make_train_step(train.module_apply(dense), tx, remat=True)
-            new, m = step(state_of(dense), (x0, c0), torch.Generator(device=dev).manual_seed(13))
-            want = (new.params, float(m["loss"]), float(m["grad_norm"]))
-            del new
+            step = train.make_train_step(train.module_apply(dense), tx_of(dense), remat=True)
+            old = state_of(dense)
             t0 = time.perf_counter()
-            step(state_of(dense), (x0, c0), torch.Generator(device=dev).manual_seed(13))
+            new, m = step(old, (x0, c0), torch.Generator(device=dev).manual_seed(13))
             dense_s = seconds_since(t0)
+            want = (new.params, float(m["loss"]), float(m["grad_norm"]), old.params)
+            del new, old
             del dense, step
             torch.cuda.empty_cache()
         model = set_trainable(parallel.shard_params(unet(), mesh))
         state = state_of(model, parallel.sharding_tree(model, mesh))
         if fsdp:
             state = parallel.shard_fsdp(state, mesh)
+        old_whole = parallel.unshard(state.params, state.placements) if update_tol else None
         held = sum(v.numel() for v in state.params.values())
-        step = train.make_train_step(train.module_apply(model), tx, remat=True)
+        step = train.make_train_step(train.module_apply(model), tx_of(model), remat=True)
         batch = train.shard_batch((x0, c0), mesh)
         t0 = start()
         new, m = step(state, batch, torch.Generator(device=dev).manual_seed(13))
@@ -1337,6 +1554,9 @@ def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
         ok, check = replicas_close(new, m)
         if want is not None:
             close, check = leaves_close(whole, want[0])
+            if update_tol:
+                moved, how = updates_close(whole, old_whole, want[0], want[3], update_tol)
+                close, check = close and moved, f"{check}; {how}"
             loss, norm = float(m["loss"]), float(m["grad_norm"])
             ok = (ok and close and abs(loss - want[1]) <= 2e-4 * abs(want[1])
                   and abs(norm - want[2]) <= 2e-4 * abs(want[2]))
@@ -1346,29 +1566,16 @@ def parallel_rank(rank: int, world: int, store: str, outdir: str) -> None:
                      f"the state's params")
         if launched != {kn: w.launches for kn, w in counted.items()}:
             ok, check = False, f"launches after the step: {launched}, then more"
-        del new, whole
-        t0 = start()  # the same step again, warm
-        step(state, batch, torch.Generator(device=dev).manual_seed(13))
-        secs = seconds_since(t0)
+        del new, whole, old_whole
         if want is not None:
-            check += (f"; a warm step {secs:.3f} s sharded (the first {first_s:.3f} s), "
-                      f"{dense_s:.3f} s unsharded")
-        part(name, what, secs, {kn: 2 * n for kn, n in per_forward.items()}, ok, check)
+            check += f"; the first step {first_s:.3f} s sharded, {dense_s:.3f} s unsharded"
+        part(name, what, first_s, {kn: 2 * n for kn, n in per_forward.items()}, ok, check)
         del model, state, want
         torch.cuda.empty_cache()
 
-    train_part("train_tp", "one train step fp32, data 1 x model 2 (tensor parallel), batch 2, "
-               "remat, SGD after clipping, against the unsharded step",
-               mesh, optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(TP2_LR)), False)
-    train_part("train_fsdp", "one train step fp32, data 2 x model 1 (FSDP: params and "
-               "momentum split over the data ranks), one row a rank, remat, SGD with "
-               "momentum after clipping, against the unsharded step on both rows",
-               parallel.make_mesh(data=2, model=1),
-               optim.chain(optim.clip_by_global_norm(1.0), optim.sgd(TP2_LR, momentum=0.9)),
-               True)
-    ring_parts()
-    pipe_parts()
-    serve_parts()
+    for run in (tp2_parts, adafactor_parts, gen_part, cn_part, ring_parts, pipe_parts,
+                serve_parts):
+        run()
     Path(outdir, f"rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
 
@@ -2278,6 +2485,8 @@ def main() -> None:
     # engine on the data axis runs other slots on each rank)
     tags = {"forward_fp32": "parallel-tp2", "forward_bf16": "parallel-tp2",
             "train_tp": "parallel-tp2", "train_fsdp": "parallel-tp2",
+            "ada_tp": "parallel-adafactor", "ada_fsdp": "parallel-adafactor",
+            "gen_ancestral": "parallel-gen", "cn_image": "parallel-cn",
             "ring_image": "parallel-ring", "ring_mmdit_float32": "parallel-ring",
             "ring_mmdit_bfloat16": "parallel-ring", "pipe_float32": "parallel-pipe",
             "pipe_bfloat16": "parallel-pipe", "serve_data2": "serve-mesh",
@@ -2299,8 +2508,9 @@ def main() -> None:
                 if {tuple(json.loads(k)) for k in by_shape} - measured(kn):
                     fail(f"[{tag}] {part} {kn}: shapes {by_shape} not all measured in "
                          f"phase 3")
-    for group, tag in (("ring", "parallel-ring"), ("pipe", "parallel-pipe"),
-                       ("serve", "serve-mesh")):
+    for group, tag in (("adafactor", "parallel-adafactor"), ("gen", "parallel-gen"),
+                       ("cn", "parallel-cn"), ("ring", "parallel-ring"),
+                       ("pipe", "parallel-pipe"), ("serve", "serve-mesh")):
         say(f"[{tag}] wall {tp2[0]['wall'][group]:.1f} s on rank 0 (model builds included); "
             f"transport between the two gloo ranks on the card through host memory; card "
             f"{card}")
@@ -2351,7 +2561,7 @@ def main() -> None:
         lat_rel = ((qlat.float() - dense_lat).norm() / dense_lat.norm()).item()
         torch.cuda.reset_peak_memory_stats()
         secs = []
-        for i in range(2):
+        for i in range(PATH_IMAGES):
             if i == 0:
                 reset_counts()
             torch.cuda.synchronize()
@@ -2390,7 +2600,7 @@ def main() -> None:
         q_launches[qname], q_shapes[qname] = counts[kname], counted[kname]
         say(f"[main-{qname}] SD1.5 512x512 {STEPS}-step DDIM CFG {GUIDANCE} bf16 batch 1, "
             f"UNet weights {qname}: s/image {[round(x, 4) for x in secs]} mean "
-            f"{sum(secs) / 2:.4f}; peak device memory {peak_gb:.2f} GB ({held_gb:.2f} GB "
+            f"{sum(secs) / len(secs):.4f}; peak device memory {peak_gb:.2f} GB ({held_gb:.2f} GB "
             f"held before the images); final latents vs the dense image's: rel "
             f"{lat_rel:.4e}; card {card}")
         if qname == "int8":
@@ -2513,7 +2723,7 @@ def main() -> None:
         return model3, run, counts3, counted3
 
     model3, run3, sd3_launches, sd3_shapes = sd3_images(
-        "main-sd3", sd3.SD3_MEDIUM_CFG, 8, 2, MULTIK_SHAPES[0][1])
+        "main-sd3", sd3.SD3_MEDIUM_CFG, 8, PATH_IMAGES, MULTIK_SHAPES[0][1])
     prof = profile(run3)
     say(f"[profile] one SD3-medium 1024x1024 image under torch.profiler: {json.dumps(prof)}")
     del model3, run3
@@ -2601,7 +2811,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 5sq. the quantized MMDiT through tools/sd3_bench_torch.py's job: dense,
-    # int8, int4 in turn (the JAX tool's fill), a warm-up's latents, two images
+    # int8, int4 in turn (the JAX tool's fill), a warm-up's latents, one image
     sys.path.insert(0, str(ROOT / "tools"))
     import sd3_bench_torch
 
@@ -2619,7 +2829,7 @@ def main() -> None:
         sd3q_lat[quant] = lat_q.float()
         torch.cuda.reset_peak_memory_stats()
         secs = []
-        for i in range(2):
+        for i in range(PATH_IMAGES):
             if i == 0:
                 reset_counts()
             torch.cuda.synchronize()
@@ -2707,7 +2917,7 @@ def main() -> None:
         held_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         secs = []
-        for i in range(2):
+        for i in range(PATH_IMAGES):
             if i == 0:
                 reset_counts()
             torch.cuda.synchronize()
@@ -2794,34 +3004,21 @@ def main() -> None:
                 "flash_bhsd": {"wgmma_wide": sum(bhsd.values())} if bhsd else {},
                 "geglu": {"wgmma": sum(geglu.values())} if geglu else {}}
 
-    def images(tag, run, n_images, want, img_shape, what, path=None, more=None):
-        """n_images images of run(), the first with its launches counted and
-        checked exactly against want = (flash_packed, flash_bhsd, geglu
-        launches by call shape) and ``more`` (a quant wrapper -> launches by
-        call shape, all on its wgmma variant), by variant, and every shape
-        measured in phase 3; s/image by the host clock after synchronize,
-        held and peak device memory. Keeps the counts for the kernels line
-        under ``path`` (by default the SD1.5 path of the tag); returns the
-        last image."""
-        held_gb = torch.cuda.memory_allocated() / 1e9
-        torch.cuda.reset_peak_memory_stats()
-        secs = []
-        for i in range(n_images):
-            if i == 0:
-                reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            img = run()
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            if i == 0:
-                counts = {kn: w.launches for kn, w in wrappers.items()}
-                counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
-                by_variant = variants()
-                by_variant.update((kn, dict(wrappers[kn].variants)) for kn in more or {})
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if img.dtype != torch.uint8 or tuple(img.shape) != img_shape:
-            fail(f"{tag}: image {img.dtype} {tuple(img.shape)}, want uint8 {img_shape}")
+    @contextlib.contextmanager
+    def counting(tag, want, path=None, more=None):
+        """The launches of what runs inside, checked exactly against want =
+        (flash_packed, flash_bhsd, geglu launches by call shape) and
+        ``more`` (a quant wrapper -> launches by call shape, all on its
+        wgmma variant), by variant, and every shape measured in phase 3;
+        kept for the kernels line under ``path`` (by default the SD1.5 path
+        of the tag)."""
+        reset_counts()
+        yield
+        torch.cuda.synchronize()
+        counts = {kn: w.launches for kn, w in wrappers.items()}
+        counted = {kn: dict(w.shapes) for kn, w in wrappers.items()}
+        by_variant = variants()
+        by_variant.update((kn, dict(wrappers[kn].variants)) for kn in more or {})
         want_shapes = {kn: {} for kn in wrappers}
         want_shapes.update(flash_packed=want[0], flash_bhsd=want[1], geglu=want[2], **(more or {}))
         want_counts = {kn: sum(c.values()) for kn, c in want_shapes.items()}
@@ -2836,10 +3033,28 @@ def main() -> None:
         for kn, by_shape in counted.items():
             if set(by_shape) - measured(kn):
                 fail(f"{tag} {kn}: shapes {by_shape} not all measured in phase 3")
+        extra_paths[path or tag.replace("main-", "sd15_").replace("-", "_")] = (counts, counted)
+
+    def images(tag, run, n_images, want, img_shape, what, path=None, more=None):
+        """n_images images of run(), the first with its launches counted and
+        checked (``counting``); s/image by the host clock after synchronize,
+        held and peak device memory. Returns the last image."""
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i in range(n_images):
+            with counting(tag, want, path, more) if i == 0 else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = run()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if img.dtype != torch.uint8 or tuple(img.shape) != img_shape:
+            fail(f"{tag}: image {img.dtype} {tuple(img.shape)}, want uint8 {img_shape}")
         say(f"[{tag}] {what} bf16 batch 1: s/image {[round(x, 4) for x in secs]} mean "
             f"{sum(secs) / len(secs):.4f}; peak device memory {peak_gb:.2f} GB ({held_gb:.2f} "
             f"GB held before the images); card {card}")
-        extra_paths[path or tag.replace("main-", "sd15_").replace("-", "_")] = (counts, counted)
         return img
 
     def finite_latents(tag, lat, shape):
@@ -2927,13 +3142,47 @@ def main() -> None:
                                                   device=dev), job.control[2])
         finite_latents("main-cn", job.latents(), (1, 64, 64, 4))
         want = launches_of((STEPS, full_pass), (STEPS, unet_launches(sd15.unet, 64, 2, "control")))
-        images("main-cn", job.image, 2, (want[0], vae_512, want[1]), (1, 512, 512, 3),
+        images("main-cn", job.image, PATH_IMAGES, (want[0], vae_512, want[1]), (1, 512, 512, 3),
                f"SD1.5 + ControlNet 512x512 {STEPS}-step DDIM CFG {GUIDANCE} scale 0.9, through "
                f"examples/txt2img_torch.py --control-ckpt,")
         prof = profile(job.image, host_ops=True)
         say(f"[profile] one SD1.5 + ControlNet image under torch.profiler: {json.dumps(prof)}")
 
-        stamp("5n (ControlNet)")
+        # [cn-compose] tools/controlnet_compose_bench_torch.py's four modes on
+        # this ControlNet with the tool's gates (0.02), checkerboard hint and
+        # scale 1.0: the tool's own loop, a warm-up, then one counted, timed
+        # image each
+        import controlnet_compose_bench_torch as compose
+
+        control = (compose.open_gates(job.control[0]), compose.checkerboard(sd15, dev), 1.0)
+        cn2 = unet_launches(sd15.unet, 64, 2, "control")
+        b1, b1_cn = unet_launches(sd15.unet, 64, 1), unet_launches(sd15.unet, 64, 1, "control")
+        half = sum(n % 2 == 0 for n in range(STEPS))  # full passes / uncond calls at k = 2
+        compose_want = {
+            "exact+control": launches_of((STEPS, full_pass), (STEPS, cn2)),
+            "cached_cfg u=2": launches_of((STEPS + half, b1), (STEPS + half, b1_cn)),
+            "deepcache k=2": launches_of((half, full_pass), (half, cn2),
+                                         (STEPS - half, unet_launches(sd15.unet, 64, 2,
+                                                                      "shallow", 3))),
+            "dc k=2 + u=2": launches_of((2 * half, b1), (2 * half, b1_cn),
+                                        (STEPS - half, unet_launches(sd15.unet, 64, 1,
+                                                                     "shallow", 3)))}
+        rows = compose.run_modes(
+            job.model, control, job.ids, job.uids, job.latent, STEPS, repeats=1,
+            counted=lambda mode: counting(
+                "cn-compose", (compose_want[mode][0], vae_512, compose_want[mode][1]),
+                path="cn_compose_" + re.sub(r"\W+", "_", mode).strip("_")),
+            report=lambda line: say(f"[cn-compose] SD1.5 + ControlNet 512x512 {STEPS}-step "
+                                    f"DDIM CFG {compose.GUIDANCE}: {line}; card {card}"))
+        for row in rows:
+            img = row["image"]
+            if img.dtype.name != "uint8" or img.shape != (1, 512, 512, 3) or not (
+                    row["psnr"] is None or row["psnr"] > 0):
+                fail(f"cn-compose {row['mode']}: image {img.dtype} {img.shape}, PSNR "
+                     f"{row['psnr']}")
+        del rows
+
+        stamp("5n (ControlNet, cn-compose)")
 
         # 5d. DeepCache (interval 3, split 3), with cached CFG, and FreeU
         plain_job = dataclasses.replace(job, control=None)
@@ -2965,7 +3214,7 @@ def main() -> None:
                  "FreeU (1.5, 1.6, 0.9, 0.2)")):
             other = with_args(**kw)
             finite_latents(tag, other.latents(), (1, 64, 64, 4))
-            images(tag, other.image, 2, (want[0], vae_512, want[1]), (1, 512, 512, 3),
+            images(tag, other.image, PATH_IMAGES, (want[0], vae_512, want[1]), (1, 512, 512, 3),
                    f"SD1.5 512x512 {STEPS}-step DDIM CFG {GUIDANCE}, {what},")
 
         stamp("5d (DeepCache, FreeU)")
@@ -2976,9 +3225,9 @@ def main() -> None:
         warm = hires.image()
         torch.cuda.synchronize()
         want = launches_of((STEPS, full_pass), (tail, unet_launches(sd15.unet, 128, 2)))
-        images("main-hires", hires.image, 2, (want[0], vae_1024, want[1]), (1, 1024, 1024, 3),
-               f"SD1.5 hires fix: 512x512 {STEPS}-step DDIM CFG {GUIDANCE}, latent x2, strength "
-               f"0.6 ({tail} tail steps at 1024x1024),")
+        images("main-hires", hires.image, PATH_IMAGES, (want[0], vae_1024, want[1]),
+               (1, 1024, 1024, 3), f"SD1.5 hires fix: 512x512 {STEPS}-step DDIM CFG "
+               f"{GUIDANCE}, latent x2, strength 0.6 ({tail} tail steps at 1024x1024),")
         prof = profile(hires.image)
         say(f"[profile] one SD1.5 hires-fix 1024x1024 image under torch.profiler: "
             f"{json.dumps(prof)}")
@@ -3000,9 +3249,10 @@ def main() -> None:
 
         run_img2img()
         want = launches_of((15, full_pass))
-        images("main-img2img", run_img2img, 2, (want[0], {(1, 4096, 4096, 512): 2}, want[1]),
-               (1, 512, 512, 3), f"SD1.5 img2img 512x512, 15 of {STEPS} DDIM steps, CFG "
-               f"{GUIDANCE}, VAE encode and decode,")
+        images("main-img2img", run_img2img, PATH_IMAGES,
+               (want[0], {(1, 4096, 4096, 512): 2}, want[1]), (1, 512, 512, 3),
+               f"SD1.5 img2img 512x512, 15 of {STEPS} DDIM steps, CFG {GUIDANCE}, VAE encode "
+               "and decode,")
         del plain_job, hires, other, model15
         torch.cuda.empty_cache()
         inp_cfg = dataclasses.replace(sd15, unet=unet_mod.SD15_INPAINT_CONFIG)
@@ -3017,7 +3267,7 @@ def main() -> None:
 
         run_inpaint()
         want = launches_of((STEPS, full_pass))
-        img = images("main-inpaint", run_inpaint, 2,
+        img = images("main-inpaint", run_inpaint, PATH_IMAGES,
                      (want[0], {(1, 4096, 4096, 512): 2}, want[1]), (1, 512, 512, 3),
                      f"SD1.5 inpainting (9-channel UNet) 512x512, right half masked, {STEPS}-step "
                      f"DDIM CFG {GUIDANCE},")
@@ -3033,6 +3283,28 @@ def main() -> None:
     # the ControlNet checkpoint is gone here
 
     stamp("5i (img2img, inpainting)")
+
+    # [ckpt-drill] tools/ckpt_drill_torch.py: the full-geometry SD1.5 state
+    # (1.066 B parameters, fp16) as .safetensors and torch-zip .ckpt, each
+    # read back through load_sd_params bit for bit and run through the CLI
+    # in a child (load seconds, peak host RSS); the files deleted
+    t0 = time.perf_counter()
+    drill = subprocess.run([sys.executable, str(ROOT / "tools" / "ckpt_drill_torch.py"),
+                            "--steps", str(DRILL_STEPS)], capture_output=True, text=True,
+                           cwd=ROOT, timeout=900)
+    for line in drill.stdout.splitlines():
+        say(f"[ckpt-drill] {line}")
+    summary = [json.loads(line[len("drill: "):]) for line in drill.stdout.splitlines()
+               if line.startswith("drill: ")]
+    if drill.returncode != 0 or not summary or sorted(summary[0]) != [".ckpt", ".safetensors"]:
+        fail(f"[ckpt-drill] exit {drill.returncode}: {drill.stderr[-2000:]}")
+    say(f"[ckpt-drill] both containers' parameters equal the written state after fp16 -> "
+        f"bf16, the CLI ran on each ({DRILL_STEPS} steps): "
+        f"{all(r['params_equal'] and r['cli']['ok'] for r in summary[0].values())}; "
+        f"{time.perf_counter() - t0:.1f} s wall; card {card}")
+    if not all(r["params_equal"] and r["cli"]["ok"] for r in summary[0].values()):
+        fail("[ckpt-drill] a container's parameters differ or its CLI run failed")
+    stamp("ckpt-drill")
 
     # 5e. serving: the continuous-batching engine over 4 slots ------------------
     import numpy as np
@@ -3321,7 +3593,8 @@ def main() -> None:
     finite_latents("main-sdxl", job.latents(), (1, 128, 128, 4))
     warm_xl = job.image()
     torch.cuda.synchronize()
-    images("main-sdxl", job.image, 2, (want_xl[0], vae_1024, want_xl[1]), (1, 1024, 1024, 3),
+    images("main-sdxl", job.image, PATH_IMAGES, (want_xl[0], vae_1024, want_xl[1]),
+           (1, 1024, 1024, 3),
            f"SDXL-base 1024x1024 {STEPS}-step DDIM CFG {GUIDANCE}, from the checkpoint through "
            f"examples/txt2img_torch.py --preset sdxl --ckpt,", path="sdxl")
 
@@ -3829,8 +4102,10 @@ def main() -> None:
         paths[kn] = (by_path, summed(counted, *(sh[kn] for _, sh in extra_paths.values())),
                      per_what + ", one image of each SD1.5 path of phases 5n-5i (ControlNet, "
                      "DeepCache, DeepCache with cached CFG, FreeU, hires fix, img2img, "
-                     "inpainting), one SDXL-base image and one of each quantized one, phase "
-                     "5e's serving run (12 requests over 4 slots), phase 5f's ten timed steps "
+                     "inpainting; the four [cn-compose] modes, cn_compose_*), one SDXL-base "
+                     "image and one of each quantized one, phase "
+                     f"5e's serving run (12 requests over 4 slots), phase 5f's {TRAIN_STEPS} "
+                     "timed steps "
                      "of each fine-tune (train: full, remat; train_lora: LoRA), one bf16 "
                      "DiT-XL/2 CFG forward at 256x256 and at 512x512 (dit_256, dit_512), "
                      f"phase 5ae's {ACC_PROMPTS} images of each accuracy-harness variant "

@@ -1338,3 +1338,43 @@ def test_cuda_tp_linear_world1_is_dense(cuda, nccl_world1, role):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_world1_sharded_adafactor_update_bit_equal(cuda, nccl_world1):
+    """One Adafactor step of the TINY UNet (bf16, factored from 8 wide, in
+    the JAX layout) on a state placed on a one-rank NCCL mesh (TP rules,
+    then FSDP at min_size 1) against the same step on the unsharded state:
+    every parameter and statistic bit for bit."""
+    from tinyfusers_tpu_torch import parallel, train
+    from tinyfusers_tpu_torch.models import unet
+    from tinyfusers_tpu_torch.models.layers import set_trainable
+    from tinyfusers_tpu_torch.train import optim
+
+    cfg = dataclasses.replace(unet.TINY_CONFIG, num_heads=2)
+
+    def step_of(mesh):
+        model = unet.UNet(cfg, device=cuda, dtype=torch.bfloat16)
+        init_weights(model, 0)
+        set_trainable(model)
+        tx = optim.adafactor(1e-2, min_dim_size_to_factor=8,
+                             layouts=train.param_layouts(model))
+        placements = None if mesh is None else parallel.sharding_tree(
+            parallel.shard_params(model, mesh), mesh)
+        state = train.TrainState.create(train.params_of(model), tx, placements=placements)
+        if mesh is not None:
+            state = parallel.shard_fsdp(state, mesh, min_size=1)
+        g = torch.Generator(device=cuda).manual_seed(1)
+        batch = (torch.randn(2, 32, 32, 4, generator=g, device=cuda).bfloat16(),
+                 torch.randn(2, 77, cfg.context_dim, generator=g, device=cuda).bfloat16())
+        step = train.make_train_step(train.module_apply(model), tx)
+        return step(state, batch, torch.Generator(device=cuda).manual_seed(2))
+
+    want, want_m = step_of(None)
+    got, got_m = step_of(nccl_world1)
+    assert torch.equal(got_m["loss"], want_m["loss"])
+    for k, v in want.params.items():
+        assert torch.equal(got.params[k], v), k
+    for field in ("v_row", "v_col", "v"):
+        for k, v in getattr(want.opt_state[0], field).items():
+            assert torch.equal(getattr(got.opt_state[0], field)[k], v), (field, k)

@@ -10,7 +10,9 @@ test below. While they run, this process computes the JAX references.
 
 Tolerances, the JAX tests' own: sharded forwards within atol 2e-4, rtol
 2e-3 (fp32; TP sums each row-parallel product in another order); images
-within 1 of 255 (as tests/test_torch_pipeline.py's generate); a train
+within 1 of 255 (as tests/test_torch_pipeline.py's generate; every
+generation entry point on the mesh, its generator's draws replayed from
+the JAX dense call's global normals); a train
 step's loss within rtol 2e-4 and every parameter leaf within rtol 2e-3,
 atol 2e-5; ring attention alone within atol 2e-5, rtol 2e-4 of the JAX
 ``sdpa_xla``; the pipelined linear stack within 1e-6 and the pipelined
@@ -26,7 +28,9 @@ other numbers), local heads (every sharded forward), the T5 bias table cut
 to the rank's heads, heads that do not divide (SD2-style 5-head level), the
 global noise draw (rank r's t and noise are rows r of the global draw;
 train steps replay the JAX draws by row), the global norm (AdamW with
-clipping at 1.0 against the JAX step's grad_norm).
+clipping at 1.0 against the JAX step's grad_norm), Adafactor's statistics
+over whole leaves (factored from 8 wide, the GEGLU halves among the split
+leaves; the MMDiT's block RMS over its whole stack).
 """
 import dataclasses
 import pickle
@@ -46,11 +50,13 @@ from tinyfusers_tpu import parallel as jparallel
 from tinyfusers_tpu import train as jtrain
 from tinyfusers_tpu.io.quantize_tree import quantize_params
 from tinyfusers_tpu.models import clip as jclip
+from tinyfusers_tpu.models import controlnet as jcn
 from tinyfusers_tpu.models import dit as jdit
 from tinyfusers_tpu.models import mmdit as jmmdit
 from tinyfusers_tpu.models import t5 as jt5
 from tinyfusers_tpu.models import unet as junet
 from tinyfusers_tpu.pipeline import sd as jsd
+from tinyfusers_tpu.pipeline import sd3 as jsd3
 from tinyfusers_tpu.pipeline import sdxl as jsdxl
 from tinyfusers_tpu.ops.attention import sdpa_xla
 from tinyfusers_tpu.serve import engine as jengine
@@ -58,15 +64,18 @@ from tinyfusers_tpu_torch import parallel as tparallel
 from tinyfusers_tpu_torch import train as ttrain
 from tinyfusers_tpu_torch.io.from_jax import load_params
 from tinyfusers_tpu_torch.io.quantize_tree import quantize_params as tquantize_params
+from tinyfusers_tpu_torch.models import controlnet as tcn
 from tinyfusers_tpu_torch.models import dit as tdit
 from tinyfusers_tpu_torch.models import mmdit as tmmdit
 from tinyfusers_tpu_torch.models import t5 as tt5
 from tinyfusers_tpu_torch.models import unet as tunet
+from tinyfusers_tpu_torch.pipeline import samplers as tsamplers
 from tinyfusers_tpu_torch.pipeline import sd as tsd
+from tinyfusers_tpu_torch.pipeline import sd3 as tsd3
 from tinyfusers_tpu_torch.pipeline import sdxl as tsdxl
 
 import torch_parallel_worker as worker
-from torch_parity import few_torch_threads, random_tree  # noqa: F401
+from torch_parity import few_torch_threads, jax_noises, random_tree  # noqa: F401
 
 WORLD = 4
 OUT = dict(atol=2e-4, rtol=2e-3)
@@ -76,6 +85,10 @@ RANKS_TIMEOUT = 300  # seconds for every case on every rank
 # the MMDiT step's SGD rate: at 1e-2 a qk gain's missing gradient share
 # moves one element of 32 past the tolerance, at 1.0 most of them
 QKN_LR = 1.0
+# Adafactor's steps: the rate, and the smallest dim it factors (optax's 128
+# would factor no leaf of these widths)
+ADA = ("adafactor", 1e-2, 8)
+GEN_STEPS = 2  # the mesh generate cases' steps
 
 # tests/test_train.py's tiny UNet, for the train steps
 TRAIN_KW = dict(in_channels=4, out_channels=4, model_channels=8, channel_mult=(1, 2),
@@ -210,6 +223,80 @@ def _inputs():
     c["generate_ring"] = (dict(case="sd_generate", cfg=rsd, params=sp, ids=ids, uids=uids,
                                latent=lat, steps=2), gen_ref)
 
+    # every entry point on the mesh, against the JAX dense call whose
+    # normals each rank's generator draws replay (the global batch's, the
+    # rank keeping its rows)
+    g = jnp.float32(7.5)
+    gkey = jax.random.key(41)
+    on_mesh = dict(case="sd_mesh", cfg=tsd.TINY, params=sp, ids=ids, uids=uids)
+    c["gen_ancestral"] = (
+        dict(on_mesh, kind="generate", latent=lat,
+             noises=jax_noises(gkey, 0, GEN_STEPS, lat.shape),
+             kw=dict(num_steps=GEN_STEPS, method="euler_ancestral")),
+        lambda: np.asarray(jsd.generate(sp, ids, uids, lat, g, num_steps=GEN_STEPS, cfg=scfg,
+                                        method="euler_ancestral", key=gkey)))
+    cnp = random_tree(lambda k: jcn.init(k, scfg.unet), 42)
+    hint = np.random.default_rng(43).random((1, 128, 128, 3)).astype(np.float32)  # 8x latents
+    c["gen_control"] = (
+        dict(on_mesh, kind="generate", latent=lat, control=(cnp, hint, 0.9),
+             kw=dict(num_steps=GEN_STEPS)),
+        lambda: np.asarray(jsd.generate(sp, ids, uids, lat, g, num_steps=GEN_STEPS, cfg=scfg,
+                                        control=(cnp, jnp.asarray(hint), 0.9))))
+    src = rng.integers(0, 256, (4, 32, 32, 3)).astype(np.uint8)
+    c["img2img_mesh"] = (
+        dict(on_mesh, kind="img2img", image=src,
+             noises=[np.asarray(jax.random.normal(gkey, lat.shape, jnp.float32))],
+             kw=dict(num_steps=4, start_step=3)),
+        lambda: np.asarray(jsd.img2img(sp, src, ids, uids, gkey, g, num_steps=4, start_step=3,
+                                       cfg=scfg)))
+    icfg = dataclasses.replace(scfg, unet=dataclasses.replace(scfg.unet, in_channels=9))
+    ip = random_tree(lambda k: jsd.init(k, icfg), 44)
+    mask = np.zeros((4, 32, 32, 1), np.float32)
+    mask[:, :, 16:] = 1.0
+    mask[1, 4:9, 3:7] = 1.0
+    c["inpaint_mesh"] = (
+        dict(on_mesh, kind="inpaint", cfg=dataclasses.replace(
+            tsd.TINY, unet=dataclasses.replace(tsd.TINY.unet, in_channels=9)), params=ip,
+             image=src, mask=mask, latent=lat, kw=dict(num_steps=GEN_STEPS)),
+        lambda: np.asarray(jsd.inpaint(ip, src, mask, ids, uids, lat, g, num_steps=GEN_STEPS,
+                                       cfg=icfg)))
+    hs = GEN_STEPS + 1
+    k_base, k_noise, k_hi = jax.random.split(gkey, 3)
+    hi_shape = (4, 2 * lat.shape[1], 2 * lat.shape[2], lat.shape[3])
+    c["hires_mesh"] = (
+        dict(on_mesh, kind="hires", latent=lat,
+             noises=(jax_noises(k_base, 0, GEN_STEPS, lat.shape)
+                     + [np.asarray(jax.random.normal(k_noise, hi_shape, jnp.float32))]
+                     + jax_noises(k_hi, tsd.hires_tail_start(hs, 0.6), hs, hi_shape)),
+             kw=dict(num_steps=GEN_STEPS, method="euler_ancestral", hires_steps=hs,
+                     hires_strength=0.6)),
+        lambda: np.asarray(jsd.generate_hires(sp, ids, uids, lat, gkey, g, num_steps=GEN_STEPS,
+                                              cfg=scfg, method="euler_ancestral",
+                                              hires_steps=hs, hires_strength=0.6)))
+    xlp = random_tree(lambda k: jsdxl.init(k, jsdxl.TINY_XL), 45)
+    xids = rng.integers(0, 127, (2, 4, 16)).astype(np.int32)
+    xids[:, :, 9:] = 127
+    xuids = np.full((2, 4, 16), 127, np.int32)
+    xuids[:, :, 0] = 0
+    xlat = rng.standard_normal((4, *tsdxl.TINY_XL.latent_shape)).astype(np.float32)
+    c["sdxl_mesh"] = (
+        dict(case="sdxl_mesh", cfg=tsdxl.TINY_XL, params=xlp, ids=xids, uids=xuids,
+             latent=xlat, noises=jax_noises(gkey, 0, GEN_STEPS, xlat.shape), steps=GEN_STEPS),
+        lambda: np.asarray(jsdxl.generate(xlp, *xids, *xuids, xlat, g, num_steps=GEN_STEPS,
+                                          cfg=jsdxl.TINY_XL, method="euler_ancestral",
+                                          key=gkey)))
+    s3p = random_tree(lambda k: jsd3.init(k, jsd3.TINY_SD3), 46)
+    s3ids = rng.integers(0, 127, (4, 4, 8)).astype(np.int32)
+    s3ids[:2, :, 5:] = 127
+    s3ids[2:] = 127
+    s3ids[2:, :, 0] = 0
+    s3lat = rng.standard_normal((4, *tsd3.TINY_SD3.latent_shape)).astype(np.float32)
+    c["sd3_mesh"] = (
+        dict(case="sd3_mesh", cfg=tsd3.TINY_SD3, params=s3p, ids=s3ids, latent=s3lat,
+             steps=GEN_STEPS),
+        lambda: np.asarray(jsd3.generate(s3p, *s3ids, s3lat, jnp.float32(5.0),
+                                         num_steps=GEN_STEPS, cfg=jsd3.TINY_SD3)))
+
     ccfg = scfg.clip
     cp = sp["clip"]
     c["clip"] = (dict(case="clip_forward", cfg=tsd.TINY.clip, params=cp, ids=ids),
@@ -288,11 +375,12 @@ def _inputs():
     port_cfg = tunet.UNetConfig(**TRAIN_KW)
 
     def jax_step(opt, apply=lambda p, a, b, cc: junet.apply(p, a, b, cc, tcfg), params=trp,
-                 batch=(x0, tctx), loss_cfg=jtrain.LossConfig()):
-        def run():
+                 batch=(x0, tctx), loss_cfg=jtrain.LossConfig(), steps=1):
+        def run():  # ``steps`` steps on the same batch and draws
             step = jtrain.make_train_step(apply, opt, loss_cfg, donate=False)
             state = jtrain.TrainState.create(jax.tree.map(jnp.asarray, params), opt)
-            state, m = step(state, tuple(jnp.asarray(a) for a in batch), key)
+            for _ in range(steps):
+                state, m = step(state, tuple(jnp.asarray(a) for a in batch), key)
             return flat_tree(state.params), {k: float(v) for k, v in m.items()}
         return run
 
@@ -313,15 +401,29 @@ def _inputs():
              cond=(qctx, qpooled), draws=rf_draws, opt=("sgd", QKN_LR), objective="rf"),
         jax_step(optax.sgd(QKN_LR), lambda p, a, b, cc, pp: jmmdit.apply(p, a, b, cc, pp, qcfg),
                  qp, (qx0, qctx, qpooled), rf))
-    c["train_adafactor"] = (dict(case="train_adafactor", cfg=port_cfg, params=trp, x0=x0,
-                                 ctx=tctx), None)
+    # Adafactor: two steps, so that the second reads the statistics each
+    # rank holds from the first
+    ada_ref = jax_step(optax.adafactor(ADA[1], min_dim_size_to_factor=ADA[2]), steps=2)
+    ada = dict(common, opt=ADA, steps=2)
+    c["train_dp_tp_adafactor"] = (ada, ada_ref)
+    c["train_fsdp_adafactor"] = (dict(ada, fsdp_min_size=1), ada_ref)
+    c["train_fsdp4_adafactor"] = (dict(ada, fsdp_min_size=1, mesh_shape=(4, 1)), ada_ref)
+    c["train_mmdit_qkn_adafactor"] = (
+        dict(case="train_step", cfg=tmmdit.TINY_MMDIT_QKN, params=qp, x0=qx0,
+             cond=(qctx, qpooled), draws=rf_draws, opt=ADA, objective="rf", steps=2),
+        jax_step(optax.adafactor(ADA[1], min_dim_size_to_factor=ADA[2]),
+                 lambda p, a, b, cc, pp: jmmdit.apply(p, a, b, cc, pp, qcfg),
+                 qp, (qx0, qctx, qpooled), rf, steps=2))
     c["train_unplaced"] = (dict(case="train_unplaced", cfg=port_cfg, params=trp, x0=x0,
                                 ctx=tctx), None)
-    c["fsdp_specs"] = (dict(case="fsdp_specs", cfg=port_cfg, params=trp),
-                       lambda: flat_specs(jparallel.fsdp_spec_tree(
-                           trp, jparallel.make_mesh(data=2, model=2,
-                                                    devices=jax.devices()[:4]),
-                           min_size=1)))
+    def fsdp_specs_ref():
+        mesh = jparallel.make_mesh(data=2, model=2, devices=jax.devices()[:4])
+        stats = optax.adafactor(ADA[1], min_dim_size_to_factor=ADA[2]).init(trp)[0]
+        specs = {"params": trp, "v_row": stats.v_row, "v_col": stats.v_col, "v": stats.v}
+        return {k: flat_specs(jparallel.fsdp_spec_tree(t, mesh, min_size=1))
+                for k, t in specs.items()}
+
+    c["fsdp_specs"] = (dict(case="fsdp_specs", cfg=port_cfg, params=trp), fsdp_specs_ref)
     return c
 
 
@@ -401,7 +503,7 @@ def test_tp_specs_cover_attention():
     assert sum(s == ("model", None) for s in specs.values()) > 0
 
 
-@pytest.mark.parametrize("model", ["unet", "dit", "mmdit", "t5"])
+@pytest.mark.parametrize("model", ["unet", "dit", "mmdit", "t5", "controlnet"])
 def test_specs_equal_jax_tp_spec_tree(model):
     """Every leaf's spec is the JAX tp_spec_tree's (stacked leaves with
     their leading layer axis)."""
@@ -412,9 +514,11 @@ def test_specs_equal_jax_tp_spec_tree(model):
         "mmdit": (lambda k: jmmdit.init(k, jmmdit.TINY_MMDIT_QKN),
                   lambda: tmmdit.MMDiT(tmmdit.TINY_MMDIT_QKN, device="cpu")),
         "t5": (lambda k: jt5.init(k, jt5.TINY_T5), lambda: tt5.T5Encoder(tt5.TINY_T5, device="cpu")),
+        "controlnet": (lambda k: jcn.init(k, junet.TINY_CONFIG),
+                       lambda: tcn.ControlNet(tunet.TINY_CONFIG, device="cpu", seed=None)),
     }[model]
     want = flat_specs(jparallel.tp_spec_tree(jax.eval_shape(jinit, jax.random.key(0))))
-    got = {unstacked(k, () if model == "unet" else ("blocks", "layers")): v
+    got = {unstacked(k, () if model in ("unet", "controlnet") else ("blocks", "layers")): v
            for k, v in tparallel.tp_spec_tree(tmodel()).items()}
     assert set(got) == set(want)
     for k, s in want.items():
@@ -462,12 +566,16 @@ def test_quantized_specs_equal_jax(qdtype):
 
 
 def test_fsdp_specs_equal_jax(ranks):
+    """The params' specs and an Adafactor state's (v_row, v_col and v, the
+    rule on each statistic's own shape) against the JAX fsdp_spec_tree."""
     got = result(ranks, "fsdp_specs")
     want = ranks[1]["fsdp_specs"]
     assert set(got) == set(want)
-    for k, s in want.items():
-        assert got[k] == tuple(s), k
-    assert any("data" in s for s in got.values())
+    for tree, specs in want.items():
+        assert set(got[tree]) == set(specs), tree
+        for k, s in specs.items():
+            assert got[tree][k] == tuple(s), (tree, k)
+        assert any("data" in s for s in got[tree].values()), tree
 
 
 # -- sharded forwards against the JAX dense ones ------------------------------------
@@ -602,7 +710,9 @@ def as_jax_leaves(params: dict, module) -> dict:
 
 
 @pytest.mark.parametrize("name", ["train_dp_tp_sgd", "train_fsdp_sgd", "train_fsdp_adamw",
-                                  "train_mmdit_qkn_sgd"])
+                                  "train_mmdit_qkn_sgd", "train_dp_tp_adafactor",
+                                  "train_fsdp_adafactor", "train_fsdp4_adafactor",
+                                  "train_mmdit_qkn_adafactor"])
 def test_sharded_train_step_matches_jax_dense(ranks, name):
     """Every leaf on every rank, the replicated ones' copies included."""
     want_params, want_m = ranks[1][name]
@@ -634,9 +744,48 @@ def test_fsdp_splits_the_state(ranks):
     assert convs  # the TP rules alone leave convs whole
 
 
-def test_sharded_adafactor_raises(ranks):
-    got = result(ranks, "train_adafactor")["raised"]
-    assert got and "adafactor" in got
+def test_fsdp_splits_adafactor_statistics(ranks):
+    """FSDP holds a rank's share of the Adafactor state over the data axis
+    too (each statistic cut with its leaf), less than the TP step's."""
+    dp = result(ranks, "train_dp_tp_adafactor")
+    for name in ("train_fsdp_adafactor", "train_fsdp4_adafactor"):
+        assert result(ranks, name)["state_bytes"] < dp["state_bytes"], name
+
+
+def test_the_ranks_draw_their_rows_of_the_global_noise():
+    """Under global_rows(r, n) a draw is rows r of the global batch's."""
+    like = torch.zeros((2, 3, 3, 4))
+    whole = tsamplers._normal(torch.Generator().manual_seed(5), torch.zeros((6, 3, 3, 4)))
+    for r in range(3):
+        with tsamplers.global_rows(r, 3):
+            got = tsamplers._normal(torch.Generator().manual_seed(5), like)
+        assert torch.equal(got, whole[2 * r:2 * r + 2])
+    outside = tsamplers._normal(torch.Generator().manual_seed(5), like)
+    assert outside.shape == like.shape  # outside: a draw of like's own shape
+
+
+@pytest.mark.parametrize("name", ["gen_ancestral", "gen_control", "img2img_mesh",
+                                  "inpaint_mesh", "hires_mesh", "sdxl_mesh", "sd3_mesh"])
+def test_entry_points_on_a_mesh_match_jax_dense(ranks, name):
+    """sd.generate with an ancestral sampler and with a ControlNet hint,
+    img2img, inpaint, generate_hires, sdxl.generate and sd3.generate on
+    (data 2, model 2), every draw replayed from the JAX dense call's
+    global normals and drawn, within 1 of 255 of its images on every rank."""
+    want = ranks[1][name]
+    for r in range(WORLD):
+        got = result(ranks, name, r)
+        assert got["left"] == 0, (r, got["left"])
+        img = got["image"]
+        assert img.dtype == np.uint8 and img.shape == want.shape and img.shape[0] == 4
+        assert np.abs(img.astype(int) - want.astype(int)).max() <= 1, r
+    if name == "gen_control":  # the ControlNet's attention and FF split like the UNet's
+        split = result(ranks, name)["cn_split"]
+        assert any(k.endswith("attn1.to_q") for k in split)
+        assert any(k.endswith("ff.proj") for k in split)
+    if name == "inpaint_mesh":  # the kept pixels are the source's on every rank
+        src = ranks[2][name][0]["image"]
+        keep = np.broadcast_to(ranks[2][name][0]["mask"] <= 0.5, src.shape)
+        np.testing.assert_array_equal(result(ranks, name)["image"][keep], src[keep])
 
 
 # -- ring attention -------------------------------------------------------------------

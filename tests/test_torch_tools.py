@@ -17,6 +17,10 @@ sd.TINY with ``--cpu``.
   an int8 or int4 UNet gives the JAX engine's images over the same
   quantized tree within 1, and a request that joins it mid-flight its own
   image bit for bit; the tool runs every variant at ``--preset tiny``.
+- controlnet_compose_bench (benchmarks/controlnet_compose_bench.py's): at
+  ``--preset tiny --cpu --steps 3`` a row per mode of the JAX tool, the
+  exact mode's image sd.generate's with the same control bit for bit, each
+  PSNR the JAX tool's function's, the gates and the hint the JAX tool's.
 - memory_footprint (benchmarks/memory_footprint.py's): its argument bytes
   are the JAX step's argument shapes' bytes (the quantized UNet tree, the
   slot latents and contexts) but for the control vectors, fp16 > int8 >
@@ -27,6 +31,7 @@ tests/test_torch_eval.py.)
 The JAX tools are loaded from their files, the persistent-cache settings
 their imports make restored at once.
 """
+import contextlib
 import importlib.util
 import json
 import re
@@ -78,6 +83,8 @@ sd3_bench = load_file(ROOT / "tools" / "sd3_bench_torch.py", "sd3_bench_torch")
 quant_eval = load_file(ROOT / "tools" / "quant_eval_torch.py", "quant_eval_torch")
 serve_quant = load_file(ROOT / "tools" / "serve_quant_bench_torch.py", "serve_quant_bench_torch")
 footprint = load_file(ROOT / "tools" / "memory_footprint_torch.py", "memory_footprint_torch")
+compose = load_file(ROOT / "tools" / "controlnet_compose_bench_torch.py",
+                    "controlnet_compose_bench_torch")
 
 
 # -- sd3_bench -----------------------------------------------------------------
@@ -295,7 +302,8 @@ def test_the_tools_import_no_jax():
     code = (
         "import importlib.util, sys\n"
         "for name in ('sd3_bench_torch', 'quant_eval_torch', 'accuracy_eval_torch',\n"
-        "             'serve_quant_bench_torch', 'memory_footprint_torch'):\n"
+        "             'serve_quant_bench_torch', 'memory_footprint_torch',\n"
+        "             'controlnet_compose_bench_torch', 'ckpt_drill_torch'):\n"
         "    spec = importlib.util.spec_from_file_location(name, f'tools/{name}.py')\n"
         "    mod = importlib.util.module_from_spec(spec)\n"
         "    sys.modules[name] = mod\n"
@@ -308,3 +316,71 @@ def test_the_tools_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_compose_bench_runs_on_the_cpu(capsys):
+    rows = compose.main(["--preset", "tiny", "--cpu", "--steps", "3"])
+    assert [r["mode"] for r in rows] == [m for m, _ in compose.MODES]
+    assert [m for m, _ in compose.MODES] == ["exact+control", "cached_cfg u=2",
+                                             "deepcache k=2", "dc k=2 + u=2"]
+    job = compose.build("tiny", "cpu")
+    with torch.inference_mode():
+        want = tsd.generate(job["model"], job["ids"], job["uids"], job["latent"],
+                            compose.GUIDANCE, num_steps=3, control=job["control"]).numpy()
+    np.testing.assert_array_equal(rows[0]["image"], want)
+    jtool = jax_tool("controlnet_compose_bench")
+    assert rows[0]["psnr"] is None
+    for r in rows[1:]:
+        assert r["psnr"] == jtool.psnr(r["image"], rows[0]["image"])
+        assert r["images_per_s"] == 1.0 / min(r["seconds"]) and len(r["seconds"]) == 3
+    out = capsys.readouterr().out
+    assert out.count("img/s") == 4 and out.count("PSNR vs exact") == 3
+
+
+def test_compose_bench_counts_the_first_timed_image_of_each_mode():
+    """run_modes(repeats=1, counted=, report=): one untimed and one timed
+    image a mode, the timed one inside counted(mode), each mode's line to
+    report; the timed image is the untimed one's again."""
+    job = compose.build("tiny", "cpu")
+    entered, lines, images = [], [], []
+    generate = tsd.generate
+
+    def kept(*args, **kw):
+        images.append(generate(*args, **kw))
+        return images[-1]
+
+    @contextlib.contextmanager
+    def counted(mode):
+        entered.append((mode, len(images)))
+        yield
+        entered.append((mode, len(images)))
+
+    tsd.generate = kept
+    try:
+        with torch.inference_mode():
+            rows = compose.run_modes(job["model"], job["control"], job["ids"], job["uids"],
+                                     job["latent"], 2, repeats=1, counted=counted,
+                                     report=lines.append)
+    finally:
+        tsd.generate = generate
+    modes = [m for m, _ in compose.MODES]
+    assert entered == [(m, n) for i, m in enumerate(modes) for n in (2 * i + 1, 2 * i + 2)]
+    assert [len(r["seconds"]) for r in rows] == [1] * 4
+    assert len(lines) == 4 and all(line.startswith(m) for line, m in zip(lines, modes))
+    for i in range(4):
+        assert torch.equal(images[2 * i], images[2 * i + 1])
+
+
+def test_compose_bench_gates_and_hint_are_the_jax_tools():
+    """Zero convs and the middle output at 0.02, the hint conv as the init
+    leaves it (zero), the checkerboard of 32-pixel squares at 8x the latent
+    grid."""
+    cn, hint, scale = compose.build("tiny", "cpu")["control"]
+    for conv in [*cn.zero_convs, cn.middle_out]:
+        assert torch.all(conv.weight == compose.GATE)
+    assert not cn.input_hint[-1].weight.any()
+    hh, ww = jsd.TINY.latent_shape[0] * 8, jsd.TINY.latent_shape[1] * 8
+    yy, xx = np.mgrid[0:hh, 0:ww]
+    want = np.stack([(yy // 32 + xx // 32) % 2] * 3, -1)[None]
+    np.testing.assert_array_equal(hint.numpy(), want.astype(np.float32))
+    assert scale == 1.0

@@ -12,6 +12,7 @@ own test only.
 This module imports torch and the port only: the test spawns the ranks,
 and a child importing the test module would import JAX.
 """
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -26,11 +27,12 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tinyfusers_tpu_torch import ops, parallel, train  # noqa: E402
-from tinyfusers_tpu_torch.io.from_jax import load_params, load_sd  # noqa: E402
-from tinyfusers_tpu_torch.models import clip, dit, mmdit, t5, unet  # noqa: E402
+from tinyfusers_tpu_torch.io.from_jax import (load_params, load_sd, load_sd3,  # noqa: E402
+                                              load_sdxl)
+from tinyfusers_tpu_torch.models import clip, controlnet, dit, mmdit, t5, unet  # noqa: E402
 from tinyfusers_tpu_torch.models.layers import set_trainable  # noqa: E402
 from tinyfusers_tpu_torch.parallel import sharding  # noqa: E402
-from tinyfusers_tpu_torch.pipeline import samplers, sd  # noqa: E402
+from tinyfusers_tpu_torch.pipeline import samplers, sd, sd3, sdxl  # noqa: E402
 from tinyfusers_tpu_torch.serve import Engine, Router  # noqa: E402
 from tinyfusers_tpu_torch.train import losses, optim  # noqa: E402
 
@@ -41,9 +43,9 @@ def _t(x):
     return torch.from_numpy(np.asarray(x))
 
 
-def _rows(*xs):
+def _rows(*xs, mesh=None):
     """This rank's rows of global batches, on the mesh's device."""
-    return train.shard_batch([np.asarray(x) for x in xs], MESH)
+    return train.shard_batch([np.asarray(x) for x in xs], mesh or MESH)
 
 
 def _global(y: torch.Tensor) -> np.ndarray:
@@ -160,6 +162,81 @@ def sd_generate(cfg, params, ids, uids, latent, steps):
     return {"image": img.numpy()}
 
 
+@contextlib.contextmanager
+def _draws(noises):
+    """samplers._draw returns ``noises`` (the JAX dense call's global
+    normals) in order; yields the list of those not drawn yet."""
+    queue = [np.asarray(x) for x in noises]
+    real = samplers._draw
+
+    def draw(generator, shape, device):
+        x = queue.pop(0)
+        if tuple(shape) != x.shape:
+            raise ValueError(f"a draw of {tuple(shape)} where the dense call drew {x.shape}")
+        return _t(x).to(device)
+
+    samplers._draw = draw
+    try:
+        yield queue
+    finally:
+        samplers._draw = real
+
+
+def sd_mesh(kind, cfg, params, ids, uids, latent=None, noises=(), image=None, mask=None,
+            control=None, kw=None):
+    """An SD entry point on the mesh (``kind``: generate, img2img, inpaint,
+    hires), its generator's draws replayed from the JAX dense call's; with
+    ``control`` (JAX ControlNet params, hint, scale) a ControlNet split by
+    shard_params as the UNet is."""
+    model = sd.StableDiffusion(cfg, device="cpu", seed=None)
+    load_sd(model, params)
+    _sharded(model)
+    kw, out, gen = dict(kw or {}), {}, torch.Generator()
+    with _draws(noises) as left:
+        if kind == "generate":
+            if control is not None:
+                cparams, hint, scale = control
+                cn = controlnet.ControlNet(cfg.unet, device="cpu", seed=None)
+                load_params(cn, cparams)
+                _sharded(cn)
+                out["cn_split"] = sorted(n for n, m in cn.named_modules()
+                                         if getattr(m, "tp_role", None))
+                kw["control"] = (cn, _t(hint), scale)
+            img = sd.generate(model, _t(ids), _t(uids), _t(latent), 7.5, generator=gen,
+                              mesh=MESH, **kw)
+        elif kind == "img2img":
+            img = sd.img2img(model, _t(image), _t(ids), _t(uids), gen, 7.5, mesh=MESH, **kw)
+        elif kind == "inpaint":
+            img = sd.inpaint(model, _t(image), _t(mask), _t(ids), _t(uids), _t(latent), 7.5,
+                             mesh=MESH, **kw)
+        else:
+            img = sd.generate_hires(model, _t(ids), _t(uids), _t(latent), gen, 7.5, mesh=MESH,
+                                    **kw)
+    out.update(image=img.numpy(), left=len(left))
+    return out
+
+
+def sdxl_mesh(cfg, params, ids, uids, latent, noises, steps):
+    """sdxl.generate on the mesh, euler_ancestral with the JAX draws."""
+    model = sdxl.StableDiffusionXL(cfg, device="cpu", seed=None)
+    load_sdxl(model, params)
+    _sharded(model)
+    with _draws(noises) as left:
+        img = sdxl.generate(model, *(_t(a).long() for a in (*ids, *uids)), _t(latent), 7.5,
+                            num_steps=steps, method="euler_ancestral",
+                            generator=torch.Generator(), mesh=MESH)
+    return {"image": img.numpy(), "left": len(left)}
+
+
+def sd3_mesh(cfg, params, ids, latent, steps):
+    model = sd3.StableDiffusion3(cfg, device="cpu", seed=None)
+    load_sd3(model, params)
+    _sharded(model)
+    img = sd3.generate(model, *(_t(a) for a in ids), _t(latent), 5.0, num_steps=steps,
+                       mesh=MESH)
+    return {"image": img.numpy(), "left": 0}
+
+
 def batch_rows(x):
     rows = train.shard_batch([x], MESH)[0]
     mine = train.make_global_batch([rows], MESH)[0]
@@ -189,14 +266,15 @@ def noise_rows(shape, seed):
     return {"t": _global(seen["t"]), "x_t": _global(seen["x_t"])}
 
 
-def _optimizer(name):
+def _optimizer(name, model):
+    if isinstance(name, tuple) and name[0] == "adafactor":  # (.., rate, min dim to factor)
+        return optim.adafactor(name[1], min_dim_size_to_factor=name[2],
+                               layouts=train.param_layouts(model))
     if isinstance(name, tuple):  # ("sgd", rate)
         return optim.sgd(name[1])
     if name == "sgd":
         return optim.sgd(1e-2)
-    if name == "adamw":
-        return train.default_optimizer(1e-3)
-    return optim.adafactor(1e-3)
+    return train.default_optimizer(1e-3)
 
 
 def _trainee(cfg, params):
@@ -209,48 +287,54 @@ def _trainee(cfg, params):
     return model
 
 
-def train_step(cfg, params, x0, cond, draws, opt, fsdp_min_size=None, objective="eps"):
-    """One sharded step with the JAX step's global t and noise replayed:
-    the draws of a rank that took its own rows' worth would be rows 0..b.
-    cond: the conditioning arrays after x0 (context, and MMDiT's pooled)."""
+def train_step(cfg, params, x0, cond, draws, opt, fsdp_min_size=None, objective="eps",
+               mesh_shape=None, steps=1):
+    """``steps`` sharded steps on one batch with the JAX step's global t
+    and noise replayed: the draws of a rank that took its own rows' worth
+    would be rows 0..b. cond: the conditioning arrays after x0 (context,
+    and MMDiT's pooled); mesh_shape: (data, model) of a mesh of its own,
+    else the module's."""
+    mesh = MESH if mesh_shape is None else parallel.make_mesh(
+        data=mesh_shape[0], model=mesh_shape[1], device_type="cpu")
     t_all, n_all = (_t(d) for d in draws)
     losses_mod, samplers_mod = losses.sample_timesteps, samplers._normal
     losses.sample_timesteps = lambda gen, n, cfg_, device=None: t_all[:n].to(device)
     samplers._normal = lambda gen, like: n_all[:like.shape[0]].to(like.device)
     try:
-        model = set_trainable(_sharded(_trainee(cfg, params)))
-        tx = _optimizer(opt)
+        model = set_trainable(parallel.shard_params(_trainee(cfg, params), mesh))
+        tx = _optimizer(opt, model)
         state = train.TrainState.create(train.params_of(model, trainable_only=True), tx,
-                                        placements=parallel.sharding_tree(model, MESH))
+                                        placements=parallel.sharding_tree(model, mesh))
         if fsdp_min_size is not None:
-            state = parallel.shard_fsdp(state, MESH, min_size=fsdp_min_size)
+            state = parallel.shard_fsdp(state, mesh, min_size=fsdp_min_size)
+        state_bytes = optim.state_bytes(state.opt_state)
         step = train.make_train_step(train.module_apply(model), tx,
                                      losses.LossConfig(objective=objective))
-        state, m = step(state, _rows(x0, *cond), torch.Generator())
+        for _ in range(steps):
+            state, m = step(state, _rows(x0, *cond, mesh=mesh), torch.Generator())
     finally:
         losses.sample_timesteps, samplers._normal = losses_mod, samplers_mod
     whole = parallel.unshard(state.params, state.placements)
     split = {k: (pl.model_dim, pl.data_dim) for k, pl in state.placements.items()}
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "params": {k: v.numpy() for k, v in whole.items()}, "split": split,
-            "local_numel": sum(v.numel() for v in state.params.values())}
+            "local_numel": sum(v.numel() for v in state.params.values()),
+            "state_bytes": state_bytes}
 
 
 def fsdp_specs(cfg, params):
+    """The FSDP specs of a TrainState of the TINY UNet's params with an
+    Adafactor state (factored from 8 wide) on it."""
     model = unet.UNet(cfg, device="cpu")
     load_params(model, params)
     _sharded(model)
-    return parallel.fsdp_spec_tree(train.params_of(model), MESH,
-                                   placements=parallel.sharding_tree(model, MESH), min_size=1)
-
-
-def train_adafactor(cfg, params, x0, ctx):
-    try:
-        train_step(cfg, params, x0, (ctx,), (np.zeros(4, np.int32), np.zeros_like(x0)),
-                   "adafactor")
-    except optim.ShardedLeafError as e:
-        return {"raised": str(e)}
-    return {"raised": None}
+    state = train.TrainState.create(train.params_of(model), _optimizer(("adafactor", 1e-3, 8),
+                                                                       model),
+                                    placements=parallel.sharding_tree(model, MESH))
+    specs = parallel.fsdp_spec_tree(state, MESH, min_size=1)
+    stats = specs["opt_state"][0]
+    return {"params": specs["params"], "v_row": stats.v_row, "v_col": stats.v_col,
+            "v": stats.v}
 
 
 def train_unplaced(cfg, params, x0, ctx):

@@ -112,7 +112,8 @@ class Placement:
     slice is taken from each half of dim ``model_dim`` (the GEGLU
     projection's ``[gx | gate]``). ``layout``: the leaf's class
     (models.layers.Linear / Conv) when its storage order is not the JAX
-    one."""
+    one. ``stack``: the blocks of the leaf the JAX package stacks this one
+    into (0: not stacked)."""
 
     mesh: Optional[DeviceMesh] = dataclasses.field(default=None, compare=False, repr=False)
     spec: tuple = ()
@@ -120,6 +121,7 @@ class Placement:
     data_dim: Optional[int] = None
     halves: bool = False
     layout: Optional[type] = dataclasses.field(default=None, compare=False)
+    stack: int = dataclasses.field(default=0, compare=False)
 
     @property
     def sharded(self) -> bool:

@@ -58,7 +58,11 @@ FSDP (ZeRO-3): ``fsdp_spec_tree`` / ``shard_fsdp`` apply the JAX rule,
 the TP spec first, then the largest still-unsplit axis (in the JAX
 layout) divisible by the data size takes the ``data`` split, leaves under
 ``min_size`` elements kept whole. It holds for params, the EMA and every
-optimizer-state tree keyed by the params' names. The train step
+optimizer-state tree keyed by the params' names. Adafactor's v_row and
+v_col, whose shapes are not the params', report the rule on their own
+global shapes (``fsdp_spec_tree``), but each rank holds them as it
+computes them (train/optim.py): split over the data axis with their leaf
+unless their mean ran over the split axis. The train step
 (train/step.py) gathers the data-split leaves before the forward and
 keeps its slice of the averaged gradients.
 """
@@ -68,6 +72,7 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -125,14 +130,18 @@ def _leaf_spec(names: List[str], ndim: int) -> tuple:
     return ()
 
 
-def _stacked_names(module: nn.Module) -> set:
-    """Parameter names inside containers the JAX package stacks."""
-    from ..models.layers import stacked_index
-
-    inside = stacked_index(module)
-    return {f"{mname}.{p}" if mname else p
-            for mname, mod in module.named_modules() if id(mod) in inside
-            for p in list(mod._parameters) + list(mod._buffers)}
+def _stacked_names(module: nn.Module) -> Dict[str, int]:
+    """Parameter and buffer names inside containers the JAX package stacks
+    -> the container's blocks."""
+    out = {}
+    for mname, mod in module.named_modules():
+        for cname in getattr(mod, "STACKED", ()):
+            blocks = getattr(mod, cname)
+            base = f"{mname}.{cname}" if mname else cname
+            for i, block in enumerate(blocks):
+                for name, _ in [*block.named_parameters(), *block.named_buffers()]:
+                    out[f"{base}.{i}.{name}"] = len(blocks)
+    return out
 
 
 def _leaves(module: nn.Module):
@@ -273,6 +282,7 @@ def sharding_tree(module: nn.Module, mesh) -> Dict[str, Placement]:
     ``shard_params`` left it: the model split (storage dim, spec in JAX
     terms) of the Linears it cut and the head tables, replicated
     elsewhere. The placements a sharded TrainState carries."""
+    stacked = _stacked_names(module)
     out = {}
     for mname, mod in module.named_modules():
         layout = _layout_of(mod)
@@ -293,11 +303,21 @@ def sharding_tree(module: nn.Module, mesh) -> Dict[str, Placement]:
             if dim is not None:
                 spec[jaxes[dim]] = MODEL_AXIS
             out[name] = Placement(mesh, tuple(spec) if dim is not None else (), model_dim=dim,
-                                  halves=halves and dim is not None, layout=layout)
+                                  halves=halves and dim is not None, layout=layout,
+                                  stack=stacked.get(name, 0))
     return out
 
 
 # -- FSDP ---------------------------------------------------------------------
+
+def _jax_shape(pl: Placement, shape: Tuple[int, ...], model_n: int) -> List[int]:
+    """A leaf's global shape in the JAX layout, from this rank's storage
+    shape before a data split."""
+    gshape = [0] * len(shape)
+    for dim, a in enumerate(_jax_axes(pl.layout, len(shape))):
+        gshape[a] = shape[dim] * (model_n if dim == pl.model_dim else 1)
+    return gshape
+
 
 def _fsdp_dim(pl: Placement, shape: Tuple[int, ...], model_n: int, data_n: int,
               min_size: int) -> Optional[int]:
@@ -305,9 +325,7 @@ def _fsdp_dim(pl: Placement, shape: Tuple[int, ...], model_n: int, data_n: int,
     leaf's global JAX shape."""
     ndim = len(shape)
     jaxes = _jax_axes(pl.layout, ndim)
-    gshape = [0] * ndim
-    for dim, a in enumerate(jaxes):
-        gshape[a] = shape[dim] * (model_n if dim == pl.model_dim else 1)
+    gshape = _jax_shape(pl, shape, model_n)
     if ndim == 0 or math.prod(gshape) < min_size:
         return None
     taken = jaxes[pl.model_dim] if pl.model_dim is not None else None
@@ -352,47 +370,115 @@ def _fsdp_placements(tree, mesh, *, placements: Optional[Dict[str, Placement]] =
     return out
 
 
-def fsdp_spec_tree(tree, mesh, *, placements: Optional[Dict[str, Placement]] = None,
-                   min_size: int = 2 ** 16) -> Dict[str, tuple]:
-    """name -> the FSDP + TP spec in the JAX package's terms (the JAX
-    ``fsdp_spec_tree`` of the same leaf)."""
-    return {k: pl.spec for k, pl in
-            _fsdp_placements(tree, mesh, placements=placements, min_size=min_size).items()}
+def _stat_spec(name: str, shape: Tuple[int, ...], data_n: int, min_size: int) -> tuple:
+    """The JAX FSDP rule's spec of an Adafactor statistic of leaf ``name``
+    and global shape ``shape`` (in the JAX layout): the TP rule of its
+    path at its rank, then the largest free axis divisible by the data
+    size."""
+    tspec = _leaf_spec(name.split("."), len(shape))
+    if not shape or math.prod(shape) < min_size:
+        return tspec
+    spec = list(tspec) + [None] * (len(shape) - len(tspec))
+    for a in sorted(range(len(shape)), key=lambda a: -shape[a]):
+        if spec[a] is None and shape[a] % data_n == 0:
+            spec[a] = DATA_AXIS
+            return tuple(spec)
+    return tspec
 
 
-def _slice_trees(obj, params: Dict[str, torch.Tensor], cut):
-    """obj with every dict keyed by param names cut leaf by leaf (the
-    tensors of a param's shape), through tuples and NamedTuples."""
+def _dropped(pl: Placement, shape: Tuple[int, ...], model_n: int, field: str
+             ) -> Tuple[List[int], int]:
+    """(the leaf's global JAX shape, the axis of it that the factored
+    statistic ``field`` (v_row / v_col) drops): train.optim's choice, on
+    the shape a stacked leaf has in the JAX tree."""
+    from ..train.optim import dropped_axis
+
+    gshape = _jax_shape(pl, shape, model_n)
+    lead = (pl.stack,) if pl.stack else ()
+    return gshape, dropped_axis(lead + tuple(gshape), field) - len(lead)
+
+
+def _map_state(obj, params: Dict[str, torch.Tensor], param_fn, stat_fn, other):
+    """obj with every dict keyed by param names mapped leaf by leaf (a
+    tensor of the param's shape by param_fn(name, tensor), an Adafactor
+    statistic by stat_fn(name, tensor, field): field "v_row" / "v_col" for
+    a factored statistic, None for the one-element stand-in of a leaf not
+    so factored), every other tensor by other(tensor), through tuples and
+    NamedTuples."""
+    from ..train.optim import FactoredState
+
+    if isinstance(obj, FactoredState):
+        factored = {k for k, v in obj.v.items() if tuple(v.shape) != tuple(params[k].shape)}
+        rows, cols = ({k: stat_fn(k, v, field if k in factored else None)
+                       for k, v in getattr(obj, field).items()} for field in ("v_row", "v_col"))
+        return FactoredState(other(obj.count), rows, cols,
+                             {k: stat_fn(k, v, None) if k in factored else param_fn(k, v)
+                              for k, v in obj.v.items()})
     if isinstance(obj, dict):
         if obj and set(obj) <= set(params):
-            return {k: cut(k, v) if tuple(v.shape) == tuple(params[k].shape) else v
-                    for k, v in obj.items()}
+            return {k: param_fn(k, v) if tuple(v.shape) == tuple(params[k].shape)
+                    else other(v) for k, v in obj.items()}
         return obj
     if isinstance(obj, tuple):
-        items = [_slice_trees(v, params, cut) for v in obj]
+        items = [_map_state(v, params, param_fn, stat_fn, other) for v in obj]
         return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
-    return obj
+    return other(obj) if isinstance(obj, torch.Tensor) else obj
+
+
+def fsdp_spec_tree(tree, mesh, *, placements: Optional[Dict[str, Placement]] = None,
+                   min_size: int = 2 ** 16):
+    """The FSDP + TP specs in the JAX package's terms (the JAX
+    ``fsdp_spec_tree`` of the same leaves): for a params dict, name ->
+    spec; for a TrainState, {"params": that, "opt_state": the optimizer
+    state's structure with a spec in place of each tensor}, Adafactor's
+    v_row and v_col by the rule on their own global shapes."""
+    pls = _fsdp_placements(tree, mesh, placements=placements, min_size=min_size)
+    specs = {k: pl.spec for k, pl in pls.items()}
+    if not hasattr(tree, "params"):
+        return specs
+    model_n, data_n = axis(mesh, MODEL_AXIS)[0], axis(mesh, DATA_AXIS)[0]
+
+    def stat_spec(k, v, field):
+        shape = tuple(v.shape)
+        if field is not None:
+            gshape, drop = _dropped(pls[k], tuple(tree.params[k].shape), model_n, field)
+            shape = tuple(np.delete(gshape, drop).tolist())
+        return _stat_spec(k, shape, data_n, min_size)
+
+    return {"params": specs, "opt_state": _map_state(
+        tree.opt_state, tree.params, lambda k, v: specs[k], stat_spec, lambda v: ())}
 
 
 def shard_fsdp(tree, mesh, *, placements: Optional[Dict[str, Placement]] = None,
                min_size: int = 2 ** 16):
     """This rank's FSDP slices of a params dict or a TrainState (params,
     optimizer state, EMA), the TrainState carrying its placements for
-    the train step."""
+    the train step. A factored Adafactor statistic is cut as this rank
+    computes it: with its leaf's data split, unless it drops that axis."""
     pls = _fsdp_placements(tree, mesh, placements=placements, min_size=min_size)
-    _, r, _ = axis(mesh, DATA_AXIS)
-    n = axis(mesh, DATA_AXIS)[0]
+    n, r, _ = axis(mesh, DATA_AXIS)
+    model_n = axis(mesh, MODEL_AXIS)[0]
     params = _params_of(tree)
 
     def cut(k, v):
         dim = pls[k].data_dim
         return v if dim is None else tp.rank_slice(v, dim, r, n).contiguous().clone()
 
+    def cut_stat(k, v, field):
+        pl, shape = pls[k], tuple(params[k].shape)
+        if field is None or pl.data_dim is None:
+            return v
+        a = _jax_axes(pl.layout, len(shape))[pl.data_dim]
+        drop = _dropped(pl, shape, model_n, field)[1]
+        if a == drop:  # the mean ran over the data-split axis: whole on every rank
+            return v
+        return tp.rank_slice(v, a - (a > drop), r, n).contiguous().clone()
+
     if not hasattr(tree, "params"):
         return {k: cut(k, v) for k, v in tree.items()}
     return dataclasses.replace(
         tree, params={k: cut(k, v) for k, v in params.items()},
-        opt_state=_slice_trees(tree.opt_state, params, cut),
+        opt_state=_map_state(tree.opt_state, params, cut, cut_stat, lambda v: v),
         ema_params=None if tree.ema_params is None
         else {k: cut(k, v) for k, v in tree.ema_params.items()},
         placements=pls)
@@ -409,11 +495,7 @@ def unshard(tree: Dict[str, torch.Tensor], placements: Dict[str, Placement]
         if pl is not None and pl.data_dim is not None:
             v = tp.all_gather(v, axis(pl.mesh, DATA_AXIS)[2], dim=pl.data_dim)
         if pl is not None and pl.model_dim is not None:
-            n, _, group = axis(pl.mesh, MODEL_AXIS)
-            v = tp.all_gather(v, group, dim=pl.model_dim)
-            if pl.halves:  # rank-major [a_0 | b_0 | a_1 | b_1 ...] -> [a | b]
-                pieces = [p.chunk(2, dim=pl.model_dim) for p in v.chunk(n, dim=pl.model_dim)]
-                v = torch.cat([p[0] for p in pieces] + [p[1] for p in pieces],
-                              dim=pl.model_dim)
+            v = tp.all_gather(v, axis(pl.mesh, MODEL_AXIS)[2], dim=pl.model_dim,
+                              halves=pl.halves)
         out[k] = v
     return out

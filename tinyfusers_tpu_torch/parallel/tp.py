@@ -77,14 +77,19 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFrom.apply(x, group)
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group, dim: int = 0, halves: bool = False) -> torch.Tensor:
     """The ranks' ``x`` (equal shapes) concatenated along ``dim`` in rank
-    order of ``group``. No gradient."""
+    order of ``group``; with ``halves``, slices that ``rank_slice`` took
+    from each half ([a_0 | b_0], [a_1 | b_1] ...) joined as [a | b]. No
+    gradient."""
     n = _size(group)
     if n == 1:
         return x
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
+    if halves:
+        pieces = [p.chunk(2, dim=dim) for p in parts]
+        parts = [p[0] for p in pieces] + [p[1] for p in pieces]
     return torch.cat(parts, dim=dim)
 
 

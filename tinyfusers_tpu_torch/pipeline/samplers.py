@@ -21,10 +21,14 @@ call on the terminal step), the port does not make it.
 
 The ancestral samplers draw their noise from an explicit
 ``torch.Generator``, through ``_normal`` alone, where the JAX package
-splits a ``jax.random`` key per step: the same seed gives other noise.
+splits a ``jax.random`` key per step: the same seed gives other noise. On
+a mesh (``global_rows``) each data rank keeps its rows of the global
+batch's draw, so that the noise is the dense call's, rows for rows.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Optional
 
 import torch
@@ -112,11 +116,34 @@ def sigma_ladder(num_steps: int, schedule: str = "ladder", *, device=None):
     return ts.to(device), sigmas.to(device)
 
 
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("noise_rows", default=(0, 1))
+
+
+@contextlib.contextmanager
+def global_rows(rank: int, parts: int):
+    """Inside the block every draw of ``_normal`` is rows ``rank`` of
+    ``parts`` equal parts of the global batch's draw: a rank of a mesh's
+    data axis draws the noise the dense call draws for its rows."""
+    token = _ROWS.set((rank, parts))
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
+
+
+def _draw(generator: torch.Generator, shape, device) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
 def _normal(generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
     """Standard-normal fp32 noise shaped like ``like``: every draw of the
-    ancestral samplers."""
-    return torch.randn(like.shape, generator=generator, device=like.device,
-                       dtype=torch.float32)
+    ancestral samplers, the re-noising of the hires fix and img2img's
+    noise; under ``global_rows`` this rank's rows of the global draw."""
+    r, n = _ROWS.get()
+    if n == 1:
+        return _draw(generator, like.shape, like.device)
+    b = like.shape[0]
+    return _draw(generator, (b * n, *like.shape[1:]), like.device)[r * b:(r + 1) * b]
 
 
 def _ancestral_split(sig, sig_next):

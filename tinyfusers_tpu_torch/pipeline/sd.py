@@ -359,49 +359,53 @@ def generate(model: StableDiffusion, input_ids: torch.Tensor,
     deepcache_split, freeu and control (controlnet, hint, scale): see
     sample_latents.
 
-    mesh (parallel.make_mesh): the global batch's ids and latents (and
-    prompt weights) split over the data axis, each rank sampling its rows
-    through its tensor-parallel text encoder and UNet
-    (``parallel.shard_params``), with ``mesh`` the ambient mesh
-    (``parallel.use_mesh``) of a ring self-attention (``UNetConfig.
-    self_attn_impl``); the images gathered back in row order on every rank.
-    A generator would draw other noise than the dense call's: the ancestral
-    samplers are not taken on a mesh."""
+    mesh (parallel.make_mesh): on each rank of the mesh's data axis its
+    rows of the global batch (``run_on_mesh``): the ids, latents, prompt
+    weights and a hint with a row per image (a one-row hint goes to every
+    rank, as the dense call broadcasts it), through its tensor-parallel
+    text encoder, UNet and ControlNet (``parallel.shard_params`` on the
+    model and on the ControlNet), with ``mesh`` the ambient mesh of a ring
+    self-attention (``UNetConfig.self_attn_impl``) and the generator's
+    draws this rank's rows of the global draw; the images gathered back in
+    row order on every rank."""
+    kw = dict(num_steps=num_steps, method=method, schedule=schedule, generator=generator,
+              uncond_interval=uncond_interval, deepcache_interval=deepcache_interval,
+              deepcache_split=deepcache_split, cfg_rescale=cfg_rescale, freeu=freeu)
     if mesh is not None:
-        return _generate_on(mesh, model, input_ids, uncond_ids, latent, guidance,
-                            generator=generator, prompt_weights=prompt_weights,
-                            control=control, num_steps=num_steps, method=method,
-                            schedule=schedule, uncond_interval=uncond_interval,
-                            deepcache_interval=deepcache_interval,
-                            deepcache_split=deepcache_split, cfg_rescale=cfg_rescale,
-                            freeu=freeu)
+        cn, hint, scale = control if control is not None else (None, None, None)
+        per_row = hint is not None and hint.shape[0] == latent.shape[0] > 1
+
+        def local(input_ids, uncond_ids, latent, prompt_weights, hint_rows):
+            ctrl = None if cn is None else (cn, hint_rows if per_row else hint, scale)
+            return generate(model, input_ids, uncond_ids, latent, guidance,
+                            prompt_weights=prompt_weights, control=ctrl, **kw)
+
+        return run_on_mesh(mesh, local, input_ids=input_ids, uncond_ids=uncond_ids,
+                           latent=latent, prompt_weights=prompt_weights,
+                           hint_rows=hint if per_row else None)
     ctx, uctx = _contexts(model, input_ids, uncond_ids, prompt_weights)
-    lat = sample_latents(model.unet, latent, ctx, uctx, num_steps=num_steps,
-                         guidance=guidance, cfg=model.cfg, method=method, schedule=schedule,
-                         generator=generator, uncond_interval=uncond_interval,
-                         deepcache_interval=deepcache_interval,
-                         deepcache_split=deepcache_split, cfg_rescale=cfg_rescale,
-                         control=control, freeu=freeu)
+    lat = sample_latents(model.unet, latent, ctx, uctx, guidance=guidance, cfg=model.cfg,
+                         control=control, **kw)
     return vae.to_image(vae.decode(model.vae, lat))
 
 
-def _generate_on(mesh, model, input_ids, uncond_ids, latent, guidance, *, generator,
-                 prompt_weights, control, **kw) -> torch.Tensor:
+def run_on_mesh(mesh, fn, **rows) -> torch.Tensor:
+    """``fn(**rows)`` on this rank's rows of the global batch: each tensor
+    of ``rows`` (batch leading; None passes as it is) cut to its part of
+    the mesh's data axis, under ``parallel.use_mesh(mesh)`` and
+    ``samplers.global_rows`` (a generator's draws are this rank's rows of
+    the global draw); fn's images gathered back in row order on every
+    rank."""
     from ..parallel import tp
     from ..parallel.mesh import DATA_AXIS, axis, use_mesh
 
-    if generator is not None:
-        raise NotImplementedError("generate on a mesh takes no generator: each rank "
-                                  "would draw its own noise, not the dense call's")
-    if control is not None:
-        raise NotImplementedError("generate on a mesh does not split a ControlNet hint")
     n, r, group = axis(mesh, DATA_AXIS)
-    rows = lambda x: None if x is None else tp.rank_slice(x, 0, r, n)  # noqa: E731
-    if latent.shape[0] % n:
-        raise ValueError(f"batch {latent.shape[0]} does not split over {n} data ranks")
-    with use_mesh(mesh):
-        images = generate(model, rows(input_ids), rows(uncond_ids), rows(latent), guidance,
-                          prompt_weights=rows(prompt_weights), **kw)
+    for name, x in rows.items():
+        if x is not None and x.shape[0] % n:
+            raise ValueError(f"{name}: batch {x.shape[0]} does not split over {n} data ranks")
+    mine = {k: None if x is None else tp.rank_slice(x, 0, r, n) for k, x in rows.items()}
+    with use_mesh(mesh), samplers.global_rows(r, n):
+        images = fn(**mine)
     return tp.all_gather(images, group, dim=0)
 
 
@@ -428,7 +432,7 @@ def generate_hires(model: StableDiffusion, input_ids: torch.Tensor,
                    method: str = "ddim", schedule: str = "ladder", hires_scale: int = 2,
                    hires_steps: int = 0, hires_strength: float = 0.6,
                    uncond_interval: int = 1, cfg_rescale: float = 0.0,
-                   freeu=None) -> torch.Tensor:
+                   freeu=None, mesh=None) -> torch.Tensor:
     """Hires fix: sample at the config's resolution, upscale the latent
     bilinearly by ``hires_scale`` (fp32), noise it to a rung of a
     ``hires_steps`` ladder (0: num_steps), and sample the tail from there
@@ -437,7 +441,16 @@ def generate_hires(model: StableDiffusion, input_ids: torch.Tensor,
     hires_strength is the share of that ladder run from the noise
     (hires_tail_start). ``generator`` draws, in order: the base pass's
     ancestral noise, the re-noising, the tail's ancestral noise (the JAX
-    package splits one key three ways)."""
+    package splits one key three ways). mesh: as generate's, each draw
+    this rank's rows of the global draw."""
+    if mesh is not None:
+        kw = dict(num_steps=num_steps, method=method, schedule=schedule,
+                  hires_scale=hires_scale, hires_steps=hires_steps,
+                  hires_strength=hires_strength, uncond_interval=uncond_interval,
+                  cfg_rescale=cfg_rescale, freeu=freeu)
+        return run_on_mesh(mesh, lambda input_ids, uncond_ids, latent: generate_hires(
+            model, input_ids, uncond_ids, latent, generator, guidance, **kw),
+            input_ids=input_ids, uncond_ids=uncond_ids, latent=latent)
     cfg = model.cfg
     ctx, uctx = _contexts(model, input_ids, uncond_ids)
     common = dict(guidance=guidance, cfg=cfg, method=method, schedule=schedule,
@@ -473,12 +486,16 @@ def _param_dtype(module: nn.Module) -> torch.dtype:
 @torch.inference_mode()
 def img2img(model: StableDiffusion, image: torch.Tensor, input_ids: torch.Tensor,
             uncond_ids: torch.Tensor, generator: torch.Generator, guidance, *,
-            num_steps: int = 20, start_step: int = 15) -> torch.Tensor:
+            num_steps: int = 20, start_step: int = 15, mesh=None) -> torch.Tensor:
     """Image to image: VAE-encode ``image`` (B, H, W, 3), uint8 or float in
     [0, 1]; noise the latent to the DDIM ladder's timestep start_step - 1
     (its alpha; the noise from ``generator``, in the latent's dtype); run
     the last start_step steps of the num_steps ladder with CFG; decode.
-    start_step / num_steps is the usual "strength"."""
+    start_step / num_steps is the usual "strength". mesh: as generate's."""
+    if mesh is not None:
+        return run_on_mesh(mesh, lambda image, input_ids, uncond_ids: img2img(
+            model, image, input_ids, uncond_ids, generator, guidance, num_steps=num_steps,
+            start_step=start_step), image=image, input_ids=input_ids, uncond_ids=uncond_ids)
     cfg = model.cfg
     dtype = _param_dtype(model.unet)
     z0 = vae.encode(model.vae, (_unit_image(image) * 2.0 - 1.0).to(dtype))
@@ -506,14 +523,18 @@ def latent_mask(mask: torch.Tensor, f: int) -> torch.Tensor:
 @torch.inference_mode()
 def inpaint(model: StableDiffusion, image: torch.Tensor, mask: torch.Tensor,
             input_ids: torch.Tensor, uncond_ids: torch.Tensor, latent: torch.Tensor,
-            guidance, *, num_steps: int = 20) -> torch.Tensor:
+            guidance, *, num_steps: int = 20, mesh=None) -> torch.Tensor:
     """Inpainting with a 9-channel UNet (unet.SD15_INPAINT_CONFIG): every
     step's input is [x_t (4) ‖ mask (1) ‖ VAE(masked image) (4)], DDIM with
     CFG from the initial noise ``latent``.
 
     image (B, H, W, 3), uint8 or float in [0, 1]; mask (B, H, W, 1), 1 =
     repaint, reaching the latent grid through ``latent_mask``. Where mask
-    <= 0.5 the source image is pasted back."""
+    <= 0.5 the source image is pasted back. mesh: as generate's."""
+    if mesh is not None:
+        return run_on_mesh(mesh, lambda image, mask, input_ids, uncond_ids, latent: inpaint(
+            model, image, mask, input_ids, uncond_ids, latent, guidance, num_steps=num_steps),
+            image=image, mask=mask, input_ids=input_ids, uncond_ids=uncond_ids, latent=latent)
     cfg = model.cfg
     dtype = _param_dtype(model.unet)
     image = _unit_image(image)

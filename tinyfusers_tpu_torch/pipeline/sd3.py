@@ -24,6 +24,7 @@ from ..device import resolve_device
 from ..models import clip, mmdit, t5 as t5_model, vae
 from ..models.layers import init_weights
 from . import ddim
+from . import sd as sd_pipeline
 from . import rectified_flow as rf
 
 
@@ -151,8 +152,17 @@ def generate(model: StableDiffusion3, ids_l: torch.Tensor, ids_g: torch.Tensor,
              uids_l: torch.Tensor, uids_g: torch.Tensor, latent: torch.Tensor,
              guidance, *, num_steps: int = 28, method: str = "euler",
              ids_t5: Optional[torch.Tensor] = None,
-             uids_t5: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Tokens + initial noise -> uint8 images (B, H, W, 3)."""
+             uids_t5: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
+    """Tokens + initial noise -> uint8 images (B, H, W, 3). mesh: as
+    sd.generate's, each rank of the data axis sampling its rows of the
+    batch, with ``mesh`` the ambient mesh of a ring or pipelined MMDiT."""
+    if mesh is not None:
+        return sd_pipeline.run_on_mesh(
+            mesh, lambda ids_l, ids_g, uids_l, uids_g, latent, ids_t5, uids_t5: generate(
+                model, ids_l, ids_g, uids_l, uids_g, latent, guidance, num_steps=num_steps,
+                method=method, ids_t5=ids_t5, uids_t5=uids_t5),
+            ids_l=ids_l, ids_g=ids_g, uids_l=uids_l, uids_g=uids_g, latent=latent,
+            ids_t5=ids_t5, uids_t5=uids_t5)
     ctx_c, pool_c = encode_text(model, ids_l, ids_g, ids_t5)
     ctx_u, pool_u = encode_text(model, uids_l, uids_g, uids_t5)
     ctx2 = torch.cat([ctx_u, ctx_c], dim=0).to(latent.dtype)

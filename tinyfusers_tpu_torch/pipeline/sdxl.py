@@ -178,11 +178,19 @@ def generate(model: StableDiffusionXL, ids_l: torch.Tensor, ids_g: torch.Tensor,
              uids_l: torch.Tensor, uids_g: torch.Tensor, latent: torch.Tensor, guidance, *,
              num_steps: int = 20, method: str = "ddim", schedule: str = "ladder",
              generator: Optional[torch.Generator] = None, uncond_interval: int = 1,
-             cfg_rescale: float = 0.0, freeu=None) -> torch.Tensor:
+             cfg_rescale: float = 0.0, freeu=None, mesh=None) -> torch.Tensor:
     """Both towers' tokens (prompt and negative prompt) + initial noise ->
     uint8 images (B, H, W, 3). method, schedule and generator:
     pipeline/samplers.py; uncond_interval and cfg_rescale: sample_latents;
-    freeu (b1, b2, s1, s2) in every UNet call."""
+    freeu (b1, b2, s1, s2) in every UNet call. mesh: as sd.generate's, each
+    rank of the data axis sampling its rows of the batch."""
+    if mesh is not None:
+        kw = dict(num_steps=num_steps, method=method, schedule=schedule, generator=generator,
+                  uncond_interval=uncond_interval, cfg_rescale=cfg_rescale, freeu=freeu)
+        return sd_pipeline.run_on_mesh(
+            mesh, lambda ids_l, ids_g, uids_l, uids_g, latent: generate(
+                model, ids_l, ids_g, uids_l, uids_g, latent, guidance, **kw),
+            ids_l=ids_l, ids_g=ids_g, uids_l=uids_l, uids_g=uids_g, latent=latent)
     cond = conditioning(model, ids_l, ids_g, latent.dtype)
     uncond = conditioning(model, uids_l, uids_g, latent.dtype)
     lat = sample_latents(model.unet, latent, cond, uncond, guidance, num_steps=num_steps,

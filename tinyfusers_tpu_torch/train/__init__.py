@@ -6,7 +6,7 @@ FSDP steps, and the batch helpers that split a batch over the data axis.
 """
 from .losses import LossConfig, diffusion_loss, loss_weights, q_sample, \
     sample_timesteps
-from .step import (TrainState, default_optimizer, make_train_step, module_apply,
+from .step import (Leaf, TrainState, default_optimizer, make_train_step, module_apply,
                    param_layouts, params_of)
 from .lora import DEFAULT_TARGETS, init_lora, make_lora_train_step, merge
 from .checkpoint import load_train_state, save_train_state
@@ -16,7 +16,7 @@ from .data import (LatentDataset, NativeShardDataset, make_global_batch, shard_b
 __all__ = [
     "LossConfig", "diffusion_loss", "loss_weights", "q_sample",
     "sample_timesteps", "TrainState", "default_optimizer",
-    "make_train_step", "module_apply", "param_layouts", "params_of",
+    "make_train_step", "module_apply", "param_layouts", "params_of", "Leaf",
     "DEFAULT_TARGETS", "init_lora", "make_lora_train_step", "merge",
     "load_train_state", "save_train_state", "LatentDataset",
     "NativeShardDataset", "write_shard", "make_global_batch", "shard_batch",

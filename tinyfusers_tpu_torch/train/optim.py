@@ -24,14 +24,26 @@ the trees hold this rank's slices. Elementwise transformations (Adam,
 SGD, weight decay, schedules, the EMA) need nothing more; ``global_norm``
 (and so ``clip_by_global_norm``) sums the squares over the shards through
 ``leaves.total``, each replicated leaf counted once. Adafactor's
-statistics are over whole leaves (its factored row and column means, the
-block RMS clip and the parameter scale): on a split leaf it raises
-``ShardedLeafError``.
+statistics are those of the whole leaves, as optax computes them under
+GSPMD: the factored dims are chosen on a leaf's global shape, each row or
+column mean is a local sum, an all-reduce over the group that splits the
+dim it runs over and a division by the global size, and the block RMS of
+the clip and the parameter scale sums the squares over every group the
+leaf is split over (``leaves.totals``). Each statistic is held as this
+rank computes it: split with its leaf over each group that splits an
+axis it keeps, whole (the same on every rank of the group) where its
+mean ran over the split axis.
+
+Leaves the JAX package stacks on a leading axis for ``lax.scan`` (the
+MMDiT's and DiT's blocks) are one leaf each per block here; their
+layouts (train.step.param_layouts) carry the stack, and the block RMS
+then runs over the whole stack, as optax's over the stacked leaf.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
@@ -40,7 +52,9 @@ import torch
 from ..ops.activations import rounded_to
 
 Tree = Dict[str, torch.Tensor]
-Layouts = Dict[str, Any]  # name -> its leaf's class (models.layers.Linear / Conv)
+# name -> its leaf's layout (train.step.Leaf, or a class with static to_jax /
+# from_jax: models.layers.Linear / Conv)
+Layouts = Dict[str, Any]
 
 
 class GradientTransformation(NamedTuple):
@@ -75,18 +89,24 @@ class FactoredState(NamedTuple):
 
 # -- sharded trees --------------------------------------------------------------
 
-class ShardedLeafError(NotImplementedError):
-    """A transformation that needs whole leaves met a split one."""
-
-
 _SHARDED: contextvars.ContextVar = contextvars.ContextVar("sharded_leaves", default=None)
+
+
+class Split(NamedTuple):
+    """A leaf's storage dim ``dim`` split into ``parts`` over ``group``
+    (whichever slice of it a rank holds: each statistic is a sum)."""
+    dim: int
+    parts: int
+    group: Any
 
 
 @contextlib.contextmanager
 def sharded(leaves):
     """Run transformations on trees of shards. ``leaves`` has
     ``total(sums)``: {name: this rank's 0-d sum of squares} -> the 0-d sum
-    over the whole leaves, and ``is_split(name)``."""
+    over the whole leaves; ``totals(sums)``: the same, leaf by leaf (one
+    0-d fp32 sum over the whole of each leaf); and ``splits(name)``: the
+    leaf's Splits."""
     token = _SHARDED.set(leaves)
     try:
         yield
@@ -94,12 +114,34 @@ def sharded(leaves):
         _SHARDED.reset(token)
 
 
-def _whole_leaves(tree: Tree, what: str) -> None:
+def _view_dims(view, ndim: int) -> list:
+    """storage dim -> the dim of ``view(t)`` it lands on, for a view that
+    permutes dims (a layout's to_jax)."""
+    sizes = [2, 3, 5, 7, 11, 13, 17, 19][:ndim]
+    got = list(view(torch.empty(sizes, device="meta")).shape)
+    return [got.index(s) for s in sizes]
+
+
+def _splits_in(name: str, view, ndim: int) -> list:
+    """[(axis of view(leaf), Split)] of leaf ``name`` on this rank."""
     leaves = _SHARDED.get()
-    if leaves is not None and any(leaves.is_split(k) for k in tree):
-        raise ShardedLeafError(
-            f"{what} takes statistics over whole leaves and is not ported to a "
-            "sharded train state (FSDP or tensor parallelism): use adamw or sgd")
+    if leaves is None:
+        return []
+    dims = _view_dims(view, ndim)
+    return [(dims[s.dim], s) for s in leaves.splits(name) if s.parts > 1]
+
+
+def _reduce(x: torch.Tensor, axis: int, splits) -> torch.Tensor:
+    """x summed over the ranks of every split of ``axis``, in place."""
+    for a, s in splits:
+        if a == axis:
+            torch.distributed.all_reduce(x, group=s.group)
+    return x
+
+
+def _stat_splits(splits, removed: int) -> list:
+    """The splits of a statistic that drops axis ``removed`` of its leaf."""
+    return [(a - (a > removed), s) for a, s in splits if a != removed]
 
 
 # -- helpers ------------------------------------------------------------------
@@ -359,6 +401,14 @@ def _factored_dims(shape, factored: bool, min_dim_size_to_factor: int):
     return int(order[-2]), int(order[-1])
 
 
+def dropped_axis(shape, field: str) -> int:
+    """The axis of a factored leaf's JAX shape (a stacked leaf's with its
+    blocks first) that its statistic ``field`` drops: v_row the mean over
+    d0, v_col the mean over d1."""
+    d1, d0 = _factored_dims(shape, True, 0)
+    return d0 if field == "v_row" else d1
+
+
 def _pow(x: torch.Tensor, y: float) -> torch.Tensor:
     """x ** y in x's dtype, through fp64 and a correctly rounded fp32 (as
     XLA's pow)."""
@@ -372,6 +422,22 @@ def _mean(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
     return x.float().mean(dim=dim, keepdim=keepdim).to(x.dtype)
 
 
+def _mean_over(x: torch.Tensor, axis: int, splits, size: int,
+               keepdim: bool = False) -> torch.Tensor:
+    """jnp.mean of the whole leaf over ``axis`` (of global size ``size``):
+    where ``splits`` split that axis, a local fp32 sum, all-reduced, divided."""
+    if not any(a == axis for a, _ in splits):
+        return _mean(x, axis, keepdim)
+    total = _reduce(x.float().sum(axis, keepdim=keepdim), axis, splits)
+    return (total / size).to(x.dtype)
+
+
+def _stack(layouts: Layouts, name: str) -> Optional[tuple]:
+    """(the JAX leaf's path, block index, blocks) of a leaf the JAX package
+    stacks (its layout's ``stack``), else None."""
+    return getattr(layouts.get(name), "stack", None)
+
+
 def scale_by_factored_rms(factored: bool = True, decay_rate: float = 0.8,
                           step_offset: int = 0, min_dim_size_to_factor: int = 128,
                           epsilon: float = 1e-30,
@@ -379,23 +445,43 @@ def scale_by_factored_rms(factored: bool = True, decay_rate: float = 0.8,
     """Adafactor's factored second moment. The statistics are those of each
     leaf in the JAX package's layout (``layouts[name].to_jax``: (in, out)
     linears, HWIO convs), as optax factors them there: v_row and v_col are
-    kept in that layout, a whole-leaf v in the leaf's own."""
+    kept in that layout, a whole-leaf v in the leaf's own. The factored
+    dims are chosen on the global shape of the JAX leaf (a stacked one's
+    leading axis included: factoring over it raises)."""
     layouts = layouts or {}
 
     def views(name):
         lay = layouts.get(name)
         return (lambda t: t, lambda t: t) if lay is None else (lay.to_jax, lay.from_jax)
 
+    def plan(name, leaf):
+        """(the leaf's global shape in the JAX layout, its splits there, the
+        factored dims (d1, d0) or None)."""
+        to_jax = views(name)[0]
+        splits = _splits_in(name, to_jax, leaf.ndim)
+        shape = list(to_jax(leaf).shape)
+        for a, s in splits:
+            shape[a] *= s.parts
+        stack = _stack(layouts, name)
+        lead = (stack[2],) if stack else ()
+        dims = _factored_dims(lead + tuple(shape), factored, min_dim_size_to_factor)
+        if dims is not None and lead:
+            if 0 in dims:
+                raise ValueError(f"adafactor: {name}'s stack of {lead[0]} blocks would be "
+                                 "factored over its stack axis")
+            dims = (dims[0] - 1, dims[1] - 1)
+        return tuple(shape), splits, dims
+
     def init(params):
         v_row, v_col, v = {}, {}, {}
         for k, p in params.items():
-            shape = tuple(views(k)[0](p).shape)
-            dims = _factored_dims(shape, factored, min_dim_size_to_factor)
+            _, _, dims = plan(k, p)
             one = torch.zeros((1,), dtype=p.dtype, device=p.device)
             if dims is not None:
                 d1, d0 = dims
-                v_row[k] = torch.zeros(np.delete(shape, d0).tolist(), dtype=p.dtype, device=p.device)
-                v_col[k] = torch.zeros(np.delete(shape, d1).tolist(), dtype=p.dtype, device=p.device)
+                local = list(views(k)[0](p).shape)
+                v_row[k] = torch.zeros(np.delete(local, d0).tolist(), dtype=p.dtype, device=p.device)
+                v_col[k] = torch.zeros(np.delete(local, d1).tolist(), dtype=p.dtype, device=p.device)
                 v[k] = one
             else:
                 v_row[k], v_col[k], v[k] = one, one.clone(), torch.zeros_like(p)
@@ -404,7 +490,6 @@ def scale_by_factored_rms(factored: bool = True, decay_rate: float = 0.8,
     def update(grads, state, params):
         if params is None:
             raise ValueError("scale_by_factored_rms needs params")
-        _whole_leaves(grads, "adafactor's factored second moment")
         t = np.float64(int(state.count) - step_offset + 1)
         d = np.float32(1) - np.float32(t ** np.float64(np.float32(-decay_rate)))
         keep, fresh = float(d), _f32(np.float32(1) - d)
@@ -413,16 +498,19 @@ def scale_by_factored_rms(factored: bool = True, decay_rate: float = 0.8,
             to_jax, from_jax = views(k)
             g = to_jax(grad)
             dtype = params[k].dtype
-            shape = tuple(g.shape)
+            shape, splits, dims = plan(k, grad)
             zero = torch.zeros((1,), dtype=dtype, device=g.device)
             g_sq = g * g + rounded_to(epsilon, g.dtype)
-            dims = _factored_dims(shape, factored, min_dim_size_to_factor)
             if dims is not None:
                 d1, d0 = dims
-                row = (keep * state.v_row[k].float() + fresh * _mean(g_sq, d0).float()).to(dtype)
-                col = (keep * state.v_col[k].float() + fresh * _mean(g_sq, d1).float()).to(dtype)
+                row = (keep * state.v_row[k].float()
+                       + fresh * _mean_over(g_sq, d0, splits, shape[d0]).float()).to(dtype)
+                col = (keep * state.v_col[k].float()
+                       + fresh * _mean_over(g_sq, d1, splits, shape[d1]).float()).to(dtype)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = _pow(row / _mean(row, reduced_d1, keepdim=True), -0.5)
+                row_mean = _mean_over(row, reduced_d1, _stat_splits(splits, d0), shape[d1],
+                                      keepdim=True)
+                row_factor = _pow(row / row_mean, -0.5)
                 col_factor = _pow(col, -0.5)
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
                 v_row[k], v_col[k], v[k] = row, col, zero
@@ -436,12 +524,42 @@ def scale_by_factored_rms(factored: bool = True, decay_rate: float = 0.8,
     return GradientTransformation(init, update)
 
 
-def clip_by_block_rms(threshold: float) -> GradientTransformation:
+def _block_mean_squares(tree: Tree, layouts: Layouts) -> Tree:
+    """{name: jnp.mean(x * x) over the whole JAX leaf} (0-d, x's dtype): a
+    split leaf's squares summed over its shards (``leaves.totals``), a
+    stacked one's over its stack."""
+    leaves = _SHARDED.get()
+    stacks = {k: st for k in tree if (st := _stack(layouts, k))}
+    out, sums, numel = {}, {}, {}
+    for k, x in tree.items():
+        splits = [s for s in leaves.splits(k) if s.parts > 1] if leaves is not None else []
+        if not splits and k not in stacks:
+            out[k] = _mean(x * x)
+            continue
+        sums[k] = (x * x).float().sum()
+        numel[k] = x.numel() * math.prod(s.parts for s in splits)
+    if sums and leaves is not None:
+        sums = leaves.totals(sums)
+    members: Dict[str, list] = {}
+    for k in sums:
+        members.setdefault(stacks[k][0] if k in stacks else k, []).append(k)
+    for ks in members.values():
+        ks = sorted(ks, key=lambda k: stacks[k][1] if k in stacks else 0)
+        total = sums[ks[0]]
+        for k in ks[1:]:
+            total = total + sums[k]
+        ms = (total / sum(numel[k] for k in ks)).to(tree[ks[0]].dtype)
+        out.update((k, ms) for k in ks)
+    return out
+
+
+def clip_by_block_rms(threshold: float, layouts: Optional[Layouts] = None
+                      ) -> GradientTransformation:
     def update(updates, state, params=None):
-        _whole_leaves(updates, "clip_by_block_rms")
+        ms = _block_mean_squares(updates, layouts or {})
         out = {}
         for k, u in updates.items():
-            rms = _sqrt(_mean(u * u))
+            rms = _sqrt(ms[k])
             denom = torch.clamp(rms / rounded_to(threshold, u.dtype), min=1.0)
             out[k] = u / denom
         return out, state
@@ -449,13 +567,14 @@ def clip_by_block_rms(threshold: float) -> GradientTransformation:
     return GradientTransformation(lambda params: EmptyState(), update)
 
 
-def scale_by_param_block_rms(min_scale: float = 1e-3) -> GradientTransformation:
+def scale_by_param_block_rms(min_scale: float = 1e-3, layouts: Optional[Layouts] = None
+                             ) -> GradientTransformation:
     def update(updates, state, params):
-        _whole_leaves(updates, "scale_by_param_block_rms")
+        ms = _block_mean_squares({k: params[k] for k in updates}, layouts or {})
         out = {}
         for k, u in updates.items():
             p = params[k]
-            rms = _sqrt(_mean(p * p))
+            rms = _sqrt(ms[k])
             floor = rounded_to(min_scale, p.dtype)
             out[k] = u * torch.where(rms <= floor, torch.full_like(rms, floor), rms)
         return out, state
@@ -473,15 +592,16 @@ def adafactor(learning_rate=None, min_dim_size_to_factor: int = 128,
     factored RMS scaling, block-RMS clipping, learning rate, parameter
     scale, -1.
     ``layouts`` (train.step.param_layouts of the model) factors each leaf
-    in the JAX layout, as optax does."""
+    in the JAX layout, as optax does, and takes the block RMS of a leaf
+    the JAX package stacks over its whole stack."""
     txs = [scale_by_factored_rms(factored, decay_rate, decay_offset,
                                  min_dim_size_to_factor, eps, layouts)]
     if clipping_threshold is not None:
-        txs.append(clip_by_block_rms(clipping_threshold))
+        txs.append(clip_by_block_rms(clipping_threshold, layouts))
     if learning_rate is not None:
         txs.append(scale_by_learning_rate(learning_rate, flip_sign=False))
     if multiply_by_parameter_scale:
-        txs.append(scale_by_param_block_rms())
+        txs.append(scale_by_param_block_rms(layouts=layouts))
     txs.append(scale(-1))
     return chain(*txs)
 

@@ -8,7 +8,8 @@ that sums over leaves run in optax's order. A step differentiates
 ``apply_fn(params, x_t, t, *cond)``, the model run on those tensors with
 ``torch.func.functional_call`` (``module_apply``): the model's own
 parameters stay untouched. ``param_layouts`` gives each linear and conv
-weight's map to the JAX layout, for checkpoints and Adafactor.
+weight's map to the JAX layout and each stacked block's place in its
+stack, for checkpoints and Adafactor.
 
 remat wraps apply_fn in ``torch.utils.checkpoint`` (non-reentrant) with a
 selective policy, the counterpart of JAX's
@@ -35,7 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,13 +67,40 @@ def params_of(module: nn.Module, *, trainable_only: bool = False) -> Params:
     return {n: named[n] for n in jax_order(named)}
 
 
-def param_layouts(module: nn.Module) -> Dict[str, type]:
-    """name -> the leaf's class (Linear or Conv: its static ``to_jax`` /
-    ``from_jax`` map the weight between the port's layout and the JAX
-    package's) for every linear and conv weight of ``module``."""
-    return {f"{mname}.weight" if mname else "weight": type(mod)
-            for mname, mod in module.named_modules()
-            if isinstance(mod, (Linear, Conv)) and "weight" in mod._parameters}
+class Leaf(NamedTuple):
+    """How a parameter maps to its leaf in the JAX package's tree. ``cls``:
+    the layer class (models.layers.Linear / Conv) whose static ``to_jax`` /
+    ``from_jax`` map a linear or conv weight between the port's layout and
+    the JAX package's; None: the same layout. ``stack``: for a block of a
+    container the JAX package stacks on a leading axis (a model's
+    ``STACKED``), (the JAX leaf's path, the block's index, blocks)."""
+    cls: Optional[type] = None
+    stack: Optional[tuple] = None
+
+    def to_jax(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.cls is None else self.cls.to_jax(t)
+
+    def from_jax(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.cls is None else self.cls.from_jax(t)
+
+
+def param_layouts(module: nn.Module) -> Dict[str, Leaf]:
+    """name -> Leaf of every linear and conv weight of ``module`` and of
+    every parameter in a block the JAX package stacks: what checkpoints
+    and Adafactor need to see each leaf as the JAX package holds it."""
+    out = {f"{mname}.weight" if mname else "weight": Leaf(type(mod))
+           for mname, mod in module.named_modules()
+           if isinstance(mod, (Linear, Conv)) and "weight" in mod._parameters}
+    for mname, mod in module.named_modules():
+        for cname in getattr(mod, "STACKED", ()):
+            blocks = getattr(mod, cname)
+            base = f"{mname}.{cname}" if mname else cname
+            for i, block in enumerate(blocks):
+                for pname, _ in block.named_parameters():
+                    name = f"{base}.{i}.{pname}"
+                    out[name] = Leaf(out.get(name, Leaf()).cls,
+                                     (f"{base}.{pname}", i, len(blocks)))
+    return out
 
 
 def module_apply(module: nn.Module) -> Callable[..., torch.Tensor]:
@@ -97,7 +125,12 @@ class TrainState:
     @classmethod
     def create(cls, params: Params, optimizer: optim.GradientTransformation,
                ema: bool = False, placements: Optional[Dict[str, Any]] = None) -> "TrainState":
-        return cls(step=0, params=dict(params), opt_state=optimizer.init(params),
+        """The state at step 0; with placements the optimizer's state is
+        made for the leaves they split (Adafactor's factoring and statistics
+        sized by the whole leaves)."""
+        with _sharded(placements):
+            opt_state = optimizer.init(params)
+        return cls(step=0, params=dict(params), opt_state=opt_state,
                    ema_params={k: p.float().clone() for k, p in params.items()}
                    if ema else None, placements=placements)
 
@@ -176,30 +209,55 @@ def ema_update(ema: Params, params: Params, decay: float) -> Params:
 
 
 class _Shards:
-    """A sharded state's leaves for ``optim.sharded``: each rank adds the
-    squares of the leaves whose copy it owns (rank 0 of every mesh axis a
-    leaf is whole over) and one all-reduce sums them."""
+    """A sharded state's leaves for ``optim.sharded``, from their
+    placements: each leaf's splits over the model and data axes, and its
+    sums of squares over the whole leaf, for which each rank adds the
+    leaves whose copy it owns (rank 0 of every mesh axis a leaf is whole
+    over) and one all-reduce over the world sums them."""
 
     def __init__(self, placements: Dict[str, Any], mesh):
         self.placements = placements
         self.mesh = mesh
+        self.model, self.data = axis(mesh, MODEL_AXIS), axis(mesh, DATA_AXIS)
 
-    def is_split(self, name) -> bool:
+    def splits(self, name) -> tuple:
         pl = self.placements.get(name)
-        return pl is not None and pl.sharded
+        if pl is None:
+            return ()
+        return tuple(optim.Split(dim, n, group)
+                     for dim, (n, _, group) in ((pl.model_dim, self.model),
+                                                (pl.data_dim, self.data))
+                     if dim is not None)
+
+    def _owned(self, name) -> bool:
+        pl = self.placements.get(name)
+        return ((self.model[1] == 0 or (pl is not None and pl.model_dim is not None))
+                and (self.data[1] == 0 or (pl is not None and pl.data_dim is not None)))
+
+    def totals(self, sums: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        keys = list(sums)
+        owned = torch.stack([sums[k].float() if self._owned(k) else torch.zeros(
+            (), device=sums[k].device) for k in keys])
+        out = owned.to(mesh_device(self.mesh))
+        torch.distributed.all_reduce(out)
+        out = out.to(owned.device)
+        return {k: out[i] for i, k in enumerate(keys)}
 
     def total(self, sums: Dict[str, torch.Tensor]) -> torch.Tensor:
-        first_model = axis(self.mesh, MODEL_AXIS)[1] == 0
-        first_data = axis(self.mesh, DATA_AXIS)[1] == 0
         total = torch.zeros((), dtype=next(iter(sums.values())).dtype)
         for k, s in sums.items():
-            pl = self.placements.get(k)
-            if ((first_model or (pl is not None and pl.model_dim is not None))
-                    and (first_data or (pl is not None and pl.data_dim is not None))):
+            if self._owned(k):
                 total = total + s
         out = total.float().to(mesh_device(self.mesh))
         torch.distributed.all_reduce(out)
         return out.cpu().to(total.dtype)
+
+
+def _sharded(placements: Optional[Dict[str, Any]]):
+    """optim.sharded over the placements' mesh; nothing without them."""
+    if not placements:
+        return contextlib.nullcontext()
+    return optim.sharded(_Shards(placements, next(iter(placements.values())).mesh))
 
 
 def _mean_over_data(grads: Params, group, n: int) -> Params:
@@ -260,7 +318,7 @@ def make_train_step(apply_fn: Callable[..., torch.Tensor],
         grads = _mean_over_data(grads, group, n)
         grads = {k: tp.rank_slice(g, split[k], r, n).contiguous() if k in split else g
                  for k, g in grads.items()}
-        with optim.sharded(_Shards(pls, on)) if on is not None else contextlib.nullcontext():
+        with _sharded(pls):
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
             grad_norm = optim.global_norm(grads)
         params = optim.apply_updates(state.params, updates)
