@@ -27,7 +27,7 @@ from tinyfusers_tpu_torch.tokenizer.native import NativeClipTokenizer
 from tinyfusers_tpu_torch.utils import flops as tflops
 from tinyfusers_tpu_torch.utils import numerics as tnumerics
 from tinyfusers_tpu_torch.utils import profiling as tprofiling
-from tinyfusers_tpu_torch.utils.logging import StepLogger, kv
+from tinyfusers_tpu_torch.utils.logging import kv
 
 from torch_parity import few_torch_threads, random_tree  # noqa: F401
 
@@ -159,9 +159,6 @@ def test_checked_returns_the_error_beside_the_output():
 def test_kv_format_equals_jax():
     for fields in ({"a": 1, "b": "x"}, {"event": "done", "rid": 3, "shape": (32, 32, 3)}, {}):
         assert kv(**fields) == jlogging.kv(**fields)
-    sl = StepLogger(every_s=0.0)
-    sl.tick(x=1)
-    sl.tick(x=2)
 
 
 # -- the native tokenizer ------------------------------------------------------

@@ -23,6 +23,7 @@ from torch import nn
 from ..device import resolve_device
 from ..models import clip, controlnet, unet, vae
 from ..models.layers import init_weights
+from ..utils import profiling
 from . import ddim, samplers
 
 
@@ -367,7 +368,11 @@ def generate(model: StableDiffusion, input_ids: torch.Tensor,
     model and on the ControlNet), with ``mesh`` the ambient mesh of a ring
     self-attention (``UNetConfig.self_attn_impl``) and the generator's
     draws this rank's rows of the global draw; the images gathered back in
-    row order on every rank."""
+    row order on every rank.
+
+    Spans (utils/profiling.py): ``generate`` with ``generate.encode``,
+    ``generate.denoise`` and ``generate.decode``; on a mesh, the inner
+    call's alone."""
     kw = dict(num_steps=num_steps, method=method, schedule=schedule, generator=generator,
               uncond_interval=uncond_interval, deepcache_interval=deepcache_interval,
               deepcache_split=deepcache_split, cfg_rescale=cfg_rescale, freeu=freeu)
@@ -383,10 +388,14 @@ def generate(model: StableDiffusion, input_ids: torch.Tensor,
         return run_on_mesh(mesh, local, input_ids=input_ids, uncond_ids=uncond_ids,
                            latent=latent, prompt_weights=prompt_weights,
                            hint_rows=hint if per_row else None)
-    ctx, uctx = _contexts(model, input_ids, uncond_ids, prompt_weights)
-    lat = sample_latents(model.unet, latent, ctx, uctx, guidance=guidance, cfg=model.cfg,
-                         control=control, **kw)
-    return vae.to_image(vae.decode(model.vae, lat))
+    with profiling.span("generate"):
+        with profiling.span("generate.encode"):
+            ctx, uctx = _contexts(model, input_ids, uncond_ids, prompt_weights)
+        with profiling.span("generate.denoise"):
+            lat = sample_latents(model.unet, latent, ctx, uctx, guidance=guidance,
+                                 cfg=model.cfg, control=control, **kw)
+        with profiling.span("generate.decode"):
+            return vae.to_image(vae.decode(model.vae, lat))
 
 
 def run_on_mesh(mesh, fn, **rows) -> torch.Tensor:

@@ -23,6 +23,7 @@ from torch import nn
 from ..device import resolve_device
 from ..models import clip, mmdit, t5 as t5_model, vae
 from ..models.layers import init_weights
+from ..utils import profiling
 from . import ddim
 from . import sd as sd_pipeline
 from . import rectified_flow as rf
@@ -155,7 +156,8 @@ def generate(model: StableDiffusion3, ids_l: torch.Tensor, ids_g: torch.Tensor,
              uids_t5: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Tokens + initial noise -> uint8 images (B, H, W, 3). mesh: as
     sd.generate's, each rank of the data axis sampling its rows of the
-    batch, with ``mesh`` the ambient mesh of a ring or pipelined MMDiT."""
+    batch, with ``mesh`` the ambient mesh of a ring or pipelined MMDiT.
+    Spans: as sd.generate's."""
     if mesh is not None:
         return sd_pipeline.run_on_mesh(
             mesh, lambda ids_l, ids_g, uids_l, uids_g, latent, ids_t5, uids_t5: generate(
@@ -163,13 +165,17 @@ def generate(model: StableDiffusion3, ids_l: torch.Tensor, ids_g: torch.Tensor,
                 method=method, ids_t5=ids_t5, uids_t5=uids_t5),
             ids_l=ids_l, ids_g=ids_g, uids_l=uids_l, uids_g=uids_g, latent=latent,
             ids_t5=ids_t5, uids_t5=uids_t5)
-    ctx_c, pool_c = encode_text(model, ids_l, ids_g, ids_t5)
-    ctx_u, pool_u = encode_text(model, uids_l, uids_g, uids_t5)
-    ctx2 = torch.cat([ctx_u, ctx_c], dim=0).to(latent.dtype)
-    pool2 = torch.cat([pool_u, pool_c], dim=0).to(latent.dtype)
-    lat = sample_latents(model.mmdit, latent, ctx2, pool2, guidance,
-                         num_steps=num_steps, shift=model.cfg.shift, method=method)
-    return vae.to_image(vae.decode(model.vae, lat))
+    with profiling.span("generate"):
+        with profiling.span("generate.encode"):
+            ctx_c, pool_c = encode_text(model, ids_l, ids_g, ids_t5)
+            ctx_u, pool_u = encode_text(model, uids_l, uids_g, uids_t5)
+            ctx2 = torch.cat([ctx_u, ctx_c], dim=0).to(latent.dtype)
+            pool2 = torch.cat([pool_u, pool_c], dim=0).to(latent.dtype)
+        with profiling.span("generate.denoise"):
+            lat = sample_latents(model.mmdit, latent, ctx2, pool2, guidance,
+                                 num_steps=num_steps, shift=model.cfg.shift, method=method)
+        with profiling.span("generate.decode"):
+            return vae.to_image(vae.decode(model.vae, lat))
 
 
 def initial_latent(seed: int, batch: int, cfg: SD3Config = SD3_MEDIUM_CFG, *,

@@ -36,6 +36,13 @@ tinyfusers_tpu/serve/engine.py).
   issued it, not when its event has passed, so that every rank returns
   the same Results, with the same images, in the same order, and takes
   the same number of ticks.
+- Spans (utils/profiling.py; recorded only under ``profiling.tracing()``):
+  ``engine.submit`` (child ``engine.stage``), ``engine.tick`` with the
+  children ``engine.admit`` (any late ``engine.stage`` in it),
+  ``engine.control``, ``engine.slot_step``, one ``engine.decode`` per
+  completion and ``engine.harvest``; and each request's
+  ``request.queued`` (submit to admission), ``request.denoise`` (to the
+  tick that finished it) and ``request.decode`` (to the hand-out).
 - The engine refuses what it would get wrong: a v-prediction model (the
   JAX engine feeds v to the DDIM update as if it were epsilon).
 """
@@ -54,6 +61,7 @@ from ..models import unet as unet_model
 from ..models import vae as vae_model
 from ..ops.conv import RowInvariance
 from ..pipeline import ddim, sd
+from ..utils import profiling
 
 
 @dataclass
@@ -276,25 +284,29 @@ class Engine:
 
     @torch.inference_mode()
     def submit(self, req: Request) -> int:
-        self.core.submit(req.request_id, req.num_steps)
-        self._requests[req.request_id] = req
-        if self.stats["first_submit_t"] is None:
-            self.stats["first_submit_t"] = time.perf_counter()
-        self.stats["submitted"] += 1
-        # Issue the encode and the initial latent now, so that admission
-        # finds them on the device; only the first stage_window queued
-        # requests hold device state.
-        if len(self._staged) < self.stage_window:
-            self._stage(req)
-        else:
-            self._unstaged.append(req.request_id)
+        with profiling.span("engine.submit"):
+            profiling.begin("request.queued", req.request_id, self)
+            self.core.submit(req.request_id, req.num_steps)
+            self._requests[req.request_id] = req
+            if self.stats["first_submit_t"] is None:
+                self.stats["first_submit_t"] = time.perf_counter()
+            self.stats["submitted"] += 1
+            # Issue the encode and the initial latent now, so that admission
+            # finds them on the device; only the first stage_window queued
+            # requests hold device state.
+            if len(self._staged) < self.stage_window:
+                self._stage(req)
+            else:
+                self._unstaged.append(req.request_id)
         return req.request_id
 
     def _stage(self, req: Request) -> None:
-        ids2 = np.stack([np.asarray(req.uncond_ids), np.asarray(req.prompt_ids)]).astype(np.int64)
-        ctx2 = sd.encode_text(self.model, self._upload(ids2))
-        lat0 = sd.initial_latent(req.seed, 1, self.cfg, device=self.device, dtype=self.dtype)
-        self._staged[req.request_id] = (ctx2, lat0)
+        with profiling.span("engine.stage"):
+            ids2 = np.stack([np.asarray(req.uncond_ids),
+                             np.asarray(req.prompt_ids)]).astype(np.int64)
+            ctx2 = sd.encode_text(self.model, self._upload(ids2))
+            lat0 = sd.initial_latent(req.seed, 1, self.cfg, device=self.device, dtype=self.dtype)
+            self._staged[req.request_id] = (ctx2, lat0)
 
     def _inject(self, slot: int, lat0: torch.Tensor, ctx2: torch.Tensor) -> None:
         """One admitted request's state into its slot, on the device, by the
@@ -332,6 +344,7 @@ class Engine:
         self._staged.clear()
         self._unstaged.clear()
         self.guidance[:] = 0.0
+        profiling.forget(self)
 
     def make_request(self, prompt_ids, uncond_ids, *, num_steps=20,
                      guidance=7.5, seed=0) -> Request:
@@ -352,8 +365,32 @@ class Engine:
         results that are ready. Nothing here waits for the device, but a
         lockstep engine's collectives and its handing out of a decode
         whose copy is still in flight."""
-        self._tick += 1
+        with profiling.span("engine.tick"):
+            self._tick += 1
+            with profiling.span("engine.admit"):
+                self._admit()
+            with profiling.span("engine.control"):
+                ctl = self._control()
+                v = self._upload(ctl) if ctl[_ACTIVE].any() else None
+            if v is not None:
+                with profiling.span("engine.slot_step"), self._rows:
+                    self.latents.copy_(self._slot_step(
+                        self.model.unet, self.latents, self.contexts, v[_GUIDANCE], v[_T],
+                        v[_A_T], v[_A_PREV], v[_ACTIVE] > 0.5))
+            for rid, slot in self.core.tick():
+                with profiling.span("engine.decode"):
+                    profiling.end("request.denoise", rid, self)
+                    profiling.begin("request.decode", rid, self)
+                    self._issue_decode(rid, slot)
+            with profiling.span("engine.harvest"):
+                return self._harvest(block=False)
+
+    def _admit(self) -> None:
+        """Assign queued requests to free slots and copy their staged state
+        in; top the staging window back up."""
         for rid, slot, steps in self.core.assign():
+            profiling.end("request.queued", rid, self)
+            profiling.begin("request.denoise", rid, self)
             req = self._requests[rid]
             self._steps_total[slot] = steps
             self.guidance[slot] = req.guidance
@@ -369,8 +406,11 @@ class Engine:
             if nxt in self._requests:
                 self._stage(self._requests[nxt])
 
-        # per-slot (t, a_t, a_prev) from the remaining counts; inactive
-        # slots get the identity (a_t = a_prev = 1)
+    def _control(self) -> np.ndarray:
+        """The tick's control block (rows _T, _A_T, _A_PREV, _ACTIVE,
+        _GUIDANCE) over this rank's slots: per-slot (t, a_t, a_prev) from
+        the remaining counts; inactive slots get the identity (a_t = a_prev
+        = 1)."""
         ctl = np.zeros((5, self.S), np.float32)
         ctl[_A_T] = ctl[_A_PREV] = 1.0
         ctl[_GUIDANCE] = self.guidance
@@ -391,26 +431,22 @@ class Engine:
 
             ctl = sync_decision(ctl, self.mesh)
             ctl = np.ascontiguousarray(ctl[:, self._first:self._first + self.local_slots])
-        if ctl[_ACTIVE].any():
-            v = self._upload(ctl)
-            with self._rows:
-                self.latents.copy_(self._slot_step(
-                    self.model.unet, self.latents, self.contexts, v[_GUIDANCE], v[_T],
-                    v[_A_T], v[_A_PREV], v[_ACTIVE] > 0.5))
+        return ctl
 
-        for rid, slot in self.core.tick():
-            img = self._decode(slot)
-            event = None
-            if img.is_cuda:  # copy out behind an event, harvested when it passed
-                host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
-                host.copy_(img, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(self.device))
-                img = host
-            self._pending_decodes.append((rid, img, event, self._tick))
-            self._steps_total.pop(slot, None)
-            self._requests.pop(rid, None)
-        return self._harvest(block=False)
+    def _issue_decode(self, rid: int, slot: int) -> None:
+        """Issue a finished slot's decode and its copy to pinned host memory
+        behind an event; a later harvest hands it out."""
+        img = self._decode(slot)
+        event = None
+        if img.is_cuda:  # copy out behind an event, harvested when it passed
+            host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+            host.copy_(img, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            img = host
+        self._pending_decodes.append((rid, img, event, self._tick))
+        self._steps_total.pop(slot, None)
+        self._requests.pop(rid, None)
 
     def _harvest(self, block: bool) -> List[Result]:
         done, still = [], []
@@ -422,6 +458,7 @@ class Engine:
             if ready:
                 if event is not None:
                     event.synchronize()
+                profiling.end("request.decode", rid, self)
                 done.append(Result(rid, img.numpy()))
                 if self.stats["first_result_s"] is None:
                     self.stats["first_result_s"] = (

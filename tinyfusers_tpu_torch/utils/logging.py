@@ -7,7 +7,6 @@ from __future__ import annotations
 
 import logging
 import sys
-import time
 from typing import Any
 
 
@@ -33,19 +32,3 @@ def kv(**fields: Any) -> str:
         fields = {"proc": dist.get_rank(), **fields}
     return " ".join(f"{k}={v}" for k, v in fields.items())
 
-
-class StepLogger:
-    """Periodic step logging for long loops (serving / sampling)."""
-
-    def __init__(self, name: str = "steps", every_s: float = 10.0):
-        self._log = get_logger(name)
-        self._every = every_s
-        self._last = 0.0
-        self._count = 0
-
-    def tick(self, **fields: Any) -> None:
-        self._count += 1
-        now = time.monotonic()
-        if now - self._last >= self._every:
-            self._last = now
-            self._log.info(kv(step=self._count, **fields))

@@ -2,9 +2,12 @@
 
 - hard_sync / Timer: wall clock around work that ends in a device
   synchronize.
-- trace(): ``torch.profiler`` over a block, written as a Chrome trace
-  under ``logdir``; device_time_from_trace() reads the device's busy time
-  back from it.
+- span() / begin() / end() / forget(): named host spans in the program,
+  recorded while tracing() is on and handed out by drain(), with the
+  clock that puts them on torch.profiler's timeline (profiler_ns()).
+- trace(): ``torch.profiler`` over a block, with the spans recorded over
+  it, written as a Chrome trace under ``logdir``; device_time_from_trace()
+  reads the device's busy time back from it.
 - device_memory_stats(): the caching allocator's held and peak bytes.
 - StepMetrics: rolling latency / throughput for serving loops.
 """
@@ -13,12 +16,14 @@ from __future__ import annotations
 import contextlib
 import glob
 import gzip
+import itertools
 import json
 import os
 import statistics
 import tempfile
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,6 +70,164 @@ class Timer:
         return False
 
 
+# -- spans ------------------------------------------------------------------
+#
+# A span is a stretch of host time in which the program did one named piece
+# of work: an engine tick and its parts, a request's wait, a generate call's
+# encode. Off (the default), span() is one check of ``_on`` that returns the
+# shared NO_SPAN: no allocation and no clock read. A span never touches the
+# device; its times are the host's time.perf_counter_ns().
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int               # time.perf_counter_ns()
+    end_ns: int
+    id: int
+    parent: Optional[int]       # the innermost span open on the thread at the start
+    request_id: Optional[int]   # a request span's (begin / end); its parent is None
+
+
+class Clock(NamedTuple):
+    """(perf_counter_ns, time_ns) read together when recording began (or
+    was last drained) and when drained: profiler_ns() maps span times
+    through them onto the Unix-epoch nanoseconds of torch.profiler's
+    (kineto's) events."""
+    perf0: int
+    unix0: int
+    perf1: int
+    unix1: int
+
+
+_on = False
+_records: List[Span] = []
+_open: Dict[Tuple[str, int, int], Tuple[int, int]] = {}  # (name, id(scope), request id) -> (start, id)
+_ids = itertools.count(1)
+_thread = threading.local()
+_since: Optional[Tuple[int, int]] = None             # the Clock's first pair
+
+
+def _stack() -> List[int]:
+    stack = getattr(_thread, "stack", None)
+    if stack is None:
+        stack = _thread.stack = []
+    return stack
+
+
+def _clock_pair() -> Tuple[int, int]:
+    a = time.perf_counter_ns()
+    unix = time.time_ns()
+    return (a + time.perf_counter_ns()) // 2, unix
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class _OpenSpan:
+    __slots__ = ("name", "start", "id", "parent")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = _stack()
+        self.parent = stack[-1] if stack else None
+        self.id = next(_ids)
+        stack.append(self.id)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        _stack().pop()
+        _records.append(Span(self.name, self.start, end, self.id, self.parent, None))
+        return False
+
+
+def span(name: str):
+    """``with span("engine.tick"): ...`` records the block as a Span while
+    tracing() is on; off, it returns the shared NO_SPAN."""
+    if not _on:
+        return NO_SPAN
+    return _OpenSpan(name)
+
+
+def begin(name: str, request_id: int, scope: object) -> None:
+    """Open a request's span now; end() with the same name, id and scope
+    (the object that numbers the requests: an Engine) closes it, from
+    anywhere later (a request waits and runs across calls). Off, and for an
+    end() whose begin() was not recorded, nothing happens."""
+    if not _on:
+        return
+    _open[(name, id(scope), request_id)] = (time.perf_counter_ns(), next(_ids))
+
+
+def end(name: str, request_id: int, scope: object) -> None:
+    if not _on:
+        return
+    opened = _open.pop((name, id(scope), request_id), None)
+    if opened is not None:
+        _records.append(Span(name, opened[0], time.perf_counter_ns(), opened[1], None,
+                             request_id))
+
+
+def forget(scope: object) -> None:
+    """Drop the request spans that ``scope`` left open (an Engine that
+    dropped its requests)."""
+    for key in [k for k in _open if k[1] == id(scope)]:
+        del _open[key]
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record spans over the block (nested, the outermost turns recording
+    off); the records stay until drain()."""
+    global _on, _since
+    if _on:
+        yield
+        return
+    if _since is None:
+        _since = _clock_pair()
+    _on = True
+    try:
+        yield
+    finally:
+        _on = False
+        _open.clear()
+
+
+def drain() -> Tuple[List[Span], Optional[Clock]]:
+    """The spans recorded since the last drain, in the order they closed,
+    and their Clock (None when nothing was ever recorded); request spans
+    still open stay open."""
+    global _records, _since
+    now = _clock_pair()
+    spans, _records = _records, []
+    clock = None if _since is None else Clock(*_since, *now)
+    _since = now if _on else None
+    return spans, clock
+
+
+def profiler_ns(t: float, clock: Clock) -> float:
+    """A time.perf_counter_ns() time on torch.profiler's clock (the
+    Unix-epoch nanoseconds of kineto's events), linear through the Clock's
+    two pairs."""
+    if clock.perf1 <= clock.perf0:
+        return clock.unix0 + (t - clock.perf0)
+    return clock.unix0 + (t - clock.perf0) * (clock.unix1 - clock.unix0) / (
+        clock.perf1 - clock.perf0)
+
+
 def _default_logdir() -> str:
     return os.path.join(tempfile.gettempdir(), "tinyfusers_trace")
 
@@ -72,15 +235,56 @@ def _default_logdir() -> str:
 @contextlib.contextmanager
 def trace(logdir: Optional[str] = None):
     """``torch.profiler`` (CPU, and CUDA where there is a GPU) over the
-    block; the trace is written as ``logdir/trace_<ns>.json`` on exit."""
+    block, with the program's spans recorded over it; the trace is written
+    as ``logdir/trace_<ns>.json`` on exit, with the spans that closed in
+    the block on a host track of their own, on the profiler's clock, so
+    that a span shows over the ops and kernels issued inside it. Inside a
+    tracing() that is already on, the spans stay for its drain()."""
+    global _records, _since
     logdir = logdir or _default_logdir()
     os.makedirs(logdir, exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    owner, since, first = not _on, _since, _clock_pair()
+    with tracing(), torch.profiler.profile(activities=acts) as prof:
         yield logdir
-    prof.export_chrome_trace(os.path.join(logdir, f"trace_{time.time_ns()}.json"))
+    clock = Clock(*first, *_clock_pair())
+    spans = [s for s in _records if s.end_ns >= first[0]]
+    if owner:  # the recording was this block's: leave the recorder as it was
+        _records = [s for s in _records if s.end_ns < first[0]]
+        _since = since
+    path = os.path.join(logdir, f"trace_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    if spans:
+        with open(path) as fh:
+            data = json.load(fh)
+        data["traceEvents"].extend(_chrome_events(spans, clock,
+                                                  data.get("baseTimeNanoseconds", 0)))
+        with open(path, "w") as fh:
+            json.dump(data, fh)
+
+
+SPAN_TRACK = "program spans"  # the spans' tid: a name, so no thread's track
+
+
+def _chrome_events(spans: List[Span], clock: Clock, base_ns: int) -> List[dict]:
+    """Chrome-trace events of spans, in microseconds from the trace's base
+    as kineto writes them: the spans of the thread, which nest, as complete
+    ("X") events on the SPAN_TRACK; a request's span, which crosses other
+    spans, as an async begin / end pair ("b" / "e") of its own id."""
+    pid, out = os.getpid(), []
+    for s in spans:
+        ts, te = ((profiler_ns(t, clock) - base_ns) / 1e3 for t in (s.start_ns, s.end_ns))
+        if s.request_id is None:
+            out.append({"ph": "X", "cat": "span", "name": s.name, "pid": pid,
+                        "tid": SPAN_TRACK, "ts": ts, "dur": te - ts,
+                        "args": {"id": s.id, "parent": s.parent}})
+        else:
+            ev = {"cat": "request", "name": s.name, "id": s.id, "pid": pid, "tid": SPAN_TRACK}
+            out += [{**ev, "ph": "b", "ts": ts, "args": {"request_id": s.request_id}},
+                    {**ev, "ph": "e", "ts": te}]
+    return out
 
 
 def _kernel_busy_us(events) -> float:
