@@ -263,8 +263,14 @@ Phases, one or more lines each:
    steps in turn (seeds 0-11), one submitted a tick, run until idle: the
    launches checked exactly (20 flash_packed a tick with an active slot,
    all on wgmma at the four batch-8 shapes of phase 3; 16 geglu a tick; 1
-   flash_bhsd a request); images/s, wall seconds, ticks, submit -> result
-   p50 / p95 (``utils/profiling.StepMetrics``), the first result, held and
+   flash_bhsd a request). The slot step is replayed from the engine's CUDA
+   graph, so flash_packed and geglu count as the calls its capture made
+   (checked against one UNet pass) times its replays (one a tick with an
+   active slot, no eager step); 4 more replayed ticks under the
+   profiler, after one that lets it settle, count each replay's kernels
+   by name, matched to its graph launch (20 flash_fwd, 16 geglu_ff).
+   Then images/s, wall seconds, ticks,
+   submit -> result p50 / p95 (``utils/profiling.StepMetrics``), the first result, held and
    peak memory, model TFLOP/s (``utils/flops``) and the device's busy share
    over 4 profiled ticks, and the conv shapes the engine runs one row at a
    time (``ops.conv.RowInvariance``); [serve-join] the request of seed 6,
@@ -308,12 +314,15 @@ Phases, one or more lines each:
    12 requests of 20 steps submitted together (60 ticks): the launches
    checked exactly (20 flash_packed a tick; 184 quant launches a tick at
    the 19 batch-8 shapes of phase 3, on wgmma; 16 geglu a tick dense; 1
-   flash_bhsd a request), images/s, wall, p50 / p95, held memory;
+   flash_bhsd a request; the replayed ones as in [serve], with 2 more
+   replayed ticks under the profiler counted by kernel name against the
+   capture), images/s, wall, p50 / p95, held memory;
    [serve-join] over the int4 engine: a request that joins two busy slots
    (slot 2) against itself alone (slot 0), bit for bit;
 5mf. memory: ``tools/memory_footprint_torch.py --preset sd15 --slots 4``:
    the engine step's argument (UNet, slot buffers, control block), output
-   and temporary (allocator peak over one tick) MB by format, argument
+   and temporary (allocator peak over one tick, and the CUDA graph's
+   pool) MB by format, argument
    strictly fp16 > int8 > int4;
 3g. [train-grad] (in phase 3): flash_packed at the training step's four
    batch-4 shapes and flash_bhsd at the 512x512 VAE's, geglu at the
@@ -698,6 +707,71 @@ def launches_of(*parts):
             for key, n in counts.items():
                 out[key] = out.get(key, 0) + times * n
     return ({k: n for k, n in flash.items() if n}, {k: n for k, n in geglu.items() if n})
+
+
+# A hand-written kernel's family by the wrapper that launches it: its name
+# in a profiler trace holds the family, then its variant and template.
+KERNEL_FAMILY = {"flash_packed": "flash_fwd", "flash_bhsd": "flash_fwd",
+                 "geglu_matmul": "geglu_ff", "quant_matmul": "quant_mm",
+                 "quant_matmul_int4": "quant_mm"}
+
+
+def traced_replays(logdir: str):
+    """From the newest Chrome trace under ``logdir`` (a ``profiling.trace``
+    block): for each CUDA graph launch (``cudaGraphLaunch`` call), in
+    order, the kernels of each KERNEL_FAMILY that it ran, counted by name
+    and matched to the launch by correlation id."""
+    import collections
+    import glob
+    import os
+
+    path = max(glob.glob(os.path.join(logdir, "*.json")), key=os.path.getmtime)
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    family = re.compile("(" + "|".join(sorted(set(KERNEL_FAMILY.values()))) + ")_")
+    launches = sorted((e for e in events if e.get("name", "").startswith("cudaGraphLaunch")),
+                      key=lambda e: e["ts"])
+    ran = {e.get("args", {}).get("correlation"): collections.Counter() for e in launches}
+    for e in events:
+        found = family.search(e.get("name", ""))
+        launch = e.get("args", {}).get("correlation")
+        if e.get("cat") == "kernel" and found and launch in ran:
+            ran[launch][found.group(1)] += 1
+    return [dict(ran[e.get("args", {}).get("correlation")]) for e in launches]
+
+
+def replays_by_name(eng, ids, ticks: int, seed: int):
+    """Every slot of ``eng`` busy, then 1 + ``ticks`` replayed ticks under
+    ``profiling.trace``: the first lets the profiler settle (a replay
+    launched as it starts can lose its first kernels' records), the others
+    are counted. -> (each counted replay's kernels by KERNEL_FAMILY, by
+    name; one replay of the capture's counts; the graph launches traced)."""
+    from tinyfusers_tpu_torch.utils.profiling import trace
+
+    for i in range(eng.S):
+        eng.submit(eng.make_request(ids, ids, num_steps=ticks + 3, seed=seed + i))
+    eng.step()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            for _ in range(1 + ticks):
+                eng.step()
+            torch.cuda.synchronize()
+        replays = traced_replays(tmp)
+    eng.run_until_idle()
+    return replays[1:], captured_launches(eng._graph_counts), len(replays)
+
+
+def captured_launches(graph_counts):
+    """One replay of a graph whose capture counted ``graph_counts`` (an
+    Engine's, in kernels/counters.COUNTED's order): launches by
+    KERNEL_FAMILY."""
+    from tinyfusers_tpu_torch.kernels import counters
+
+    out = {}
+    for w, (n, _, _) in zip(counters.COUNTED, graph_counts):
+        family = KERNEL_FAMILY[w.__name__]
+        out[family] = out.get(family, 0) + n
+    return {family: n for family, n in out.items() if n}
 
 
 def fail(msg: str) -> None:
@@ -3309,6 +3383,7 @@ def main() -> None:
     # 5e. serving: the continuous-batching engine over 4 slots ------------------
     import numpy as np
 
+    from tinyfusers_tpu_torch.kernels import counters
     from tinyfusers_tpu_torch.native import get_lib
     from tinyfusers_tpu_torch.serve import Engine, Router
     from tinyfusers_tpu_torch.serve.engine import _NativeSchedulerCore, _PySchedulerCore
@@ -3349,7 +3424,8 @@ def main() -> None:
             served[r.request_id] = r.image
             latency.record(now - submitted[r.request_id])
 
-    eng.stats = {"submitted": 0, "completed": 0, "first_submit_t": None, "first_result_s": None}
+    eng.stats.update(submitted=0, completed=0, first_submit_t=None, first_result_s=None,
+                     graph_steps=0, eager_steps=0)
     torch.cuda.synchronize()
     held = device_memory_stats()["bytes_in_use"]
     torch.cuda.reset_peak_memory_stats()
@@ -3381,9 +3457,23 @@ def main() -> None:
     want_shapes.update(flash_packed=want_flash, flash_bhsd=want_bhsd, geglu=want_geglu)
     want_counts = {kn: sum(c.values()) for kn, c in want_shapes.items()}
     want_by_variant = want_variants_of(want_flash, want_bhsd, want_geglu)
+    captured = {kn: dict(c[1]) for kn, w in wrappers.items()
+                for f, c in zip(counters.COUNTED, eng._graph_counts) if f is w}
+    want_captured = {kn: {} for kn in wrappers}
+    want_captured.update(flash_packed=per_tick[0], geglu=per_tick[1])
     say(f"[serve] launches over {SERVE_REQUESTS} requests, {active_ticks} ticks with an active "
         f"slot: {counts} (want {want_counts}: 20 flash_packed and 16 geglu a tick, 1 "
-        f"flash_bhsd a request); shapes {counted}; by variant {by_variant}")
+        f"flash_bhsd a request); shapes {counted}; by variant {by_variant}. flash_bhsd is "
+        f"counted at its calls (the decodes run eagerly); flash_packed and geglu are the "
+        f"calls the engine's CUDA graph captured, {captured} (want one UNet pass, "
+        f"{want_captured}), times its {eng.stats['graph_steps']} replays (eager slot steps "
+        f"{eng.stats['eager_steps']}; want {active_ticks}, 0); the replayed kernels are "
+        f"counted by name in the profiled ticks below")
+    if captured != want_captured:
+        fail(f"serve: the graph captured {captured}, not one UNet pass {want_captured}")
+    if (eng.stats["graph_steps"], eng.stats["eager_steps"]) != (active_ticks, 0):
+        fail(f"serve: {eng.stats['graph_steps']} graph and {eng.stats['eager_steps']} eager "
+             f"slot steps for {active_ticks} ticks with an active slot")
     if (counts != want_counts or counted != want_shapes or by_variant != want_by_variant
             or set(by_variant["flash_packed"]) != {"wgmma"}
             or set(want_flash) != {key for _, key in SERVE_PACKED_SHAPES}):
@@ -3431,6 +3521,14 @@ def main() -> None:
     say(f"[serve] 4 ticks of {SERVE_SLOTS} busy slots under torch.profiler: {window:.3f} s, "
         f"device busy {busy:.3f} s (the union of the kernels' intervals), busy share "
         f"{busy / window:.3f}; card {card}")
+    replays, want_replay, launched = replays_by_name(eng, serve_ids, 4, 50)
+    say(f"[serve] 4 replayed ticks of {SERVE_SLOTS} busy slots under torch.profiler, after one "
+        f"that lets it settle: each replay's kernels by name {replays} (want {want_replay}: 20 "
+        f"flash_packed and 16 geglu), graph launches {launched} (want 5)")
+    if (replays != [want_replay] * 4 or want_replay != {"flash_fwd": 20, "geglu_ff": 16}
+            or launched != 5):
+        fail(f"serve: the replayed ticks ran {replays} in {launched} graph launches, not 4 x "
+             f"{want_replay} in 5")
 
     # [serve-join] the request with seed 6 joined a busy engine: alone, the same bits
     join = reqs[6]
@@ -3759,11 +3857,20 @@ def main() -> None:
         want_by_variant.update(quant_matmul={}, quant_matmul_int4={})
         if qname != "fp16":
             want_by_variant[kname] = {"wgmma": sum(want_shapes[kname].values())}
+        # the counts above are the graph's captured calls times its replays:
+        # 2 replayed ticks under the profiler count its kernels by name
+        q_ids = serve_quant_bench_torch.prompt_ids(sd15)
+        replays, want_replay, launched = replays_by_name(eng, q_ids, 2, 80)
         say(f"[serve-{qname}] launches over {SERVE_REQUESTS} requests, {bench_ticks} ticks: "
-            f"{counts}; by variant {by_variant}")
+            f"{counts}; by variant {by_variant}; 2 replayed ticks under torch.profiler, after "
+            f"one that lets it settle: each replay's kernels by name {replays}, graph launches "
+            f"{launched} (want {want_replay} each, 3)")
         if counted != want_shapes or by_variant != want_by_variant:
             fail(f"[serve-{qname}] launches {counted} / {by_variant} against {want_shapes} / "
                  f"{want_by_variant}")
+        if replays != [want_replay] * 2 or launched != 3:
+            fail(f"[serve-{qname}] the replayed ticks ran {replays} in {launched} graph "
+                 f"launches, not 2 x {want_replay} in 3")
         for kn, by_shape in counted.items():
             if set(by_shape) - measured(kn):
                 fail(f"[serve-{qname}] {kn}: shapes {by_shape} not all measured in phase 3")

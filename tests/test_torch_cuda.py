@@ -1013,6 +1013,71 @@ def test_cuda_serve_join_matches_solo(cuda):
     assert joined.shape == (32, 32, 3) and (joined == alone).all()
 
 
+def _counts_since(before):
+    """How much each kernel wrapper's (launches, shapes, variants) grew
+    since ``before`` (a counters.snapshot())."""
+    from tinyfusers_tpu_torch.kernels import counters
+
+    return [(a[0] - b[0], a[1] - b[1], a[2] - b[2])
+            for a, b in zip(counters.snapshot(), before)]
+
+
+@pytest.mark.cuda
+def test_cuda_serve_graph_replays_the_eager_step_bit_for_bit(cuda):
+    """A 4-slot engine replays its captured slot step; beside it an engine
+    on the same model runs the step eagerly (its graph dropped, as on a
+    mesh). TINY at 64x64, so that the 32x32 latent's 1024 tokens take
+    flash_packed and its FF tails geglu. Requests of 3 and 5 steps join and
+    leave mid-run, a queue included: after every tick the latents are equal
+    bit for bit, the replays are the ticks with an active slot, and the
+    kernel wrappers' launches, shapes and variants grew as the eager
+    engine's did. After a reset the same graph serves a new request."""
+    from tinyfusers_tpu_torch.kernels import counters
+    from tinyfusers_tpu_torch.pipeline import sd
+    from tinyfusers_tpu_torch.serve import Engine
+
+    cfg = dataclasses.replace(sd.TINY, height=64, width=64)
+    model = sd.StableDiffusion(cfg, device=cuda, dtype=torch.bfloat16, seed=4)
+    eng, eager = Engine(model, num_slots=4), Engine(model, num_slots=4)
+    eager._graph = None
+    assert eng._graph is not None
+    assert (eng.stats["graph_steps"], eng.stats["eager_steps"]) == (0, 1)
+    assert eager._rows.apart == eng._rows.apart
+    joining = {0: [5, 3], 1: [3], 3: [5, 3, 3], 4: [5], 7: [3]}  # tick -> step counts
+    grown = {id(eng): [], id(eager): []}
+    images = {id(eng): {}, id(eager): {}}
+    stepping, t = 0, 0
+    while t <= max(joining) or eng.core.active() or eng.core.pending():
+        for e in (eng, eager):
+            before = counters.snapshot()
+            for i, steps in enumerate(joining.get(t, [])):
+                e.submit(_serve_request(e, seed=10 * t + i, steps=steps, tok=3 + i))
+            if e is eng:
+                stepping += bool(e.core.active() or e.core.pending())
+            images[id(e)].update((r.request_id, r.image) for r in e.step())
+            grown[id(e)].append(_counts_since(before))
+        assert torch.equal(eng.latents, eager.latents), f"tick {t}"
+        t += 1
+    for e in (eng, eager):
+        images[id(e)].update((r.request_id, r.image) for r in e.flush())
+    assert stepping > 8 and eng.stats["graph_steps"] == stepping
+    assert eng.stats["eager_steps"] == 1 and eager.stats["graph_steps"] == 0
+    assert eager.stats["eager_steps"] == 1 + stepping
+    assert grown[id(eng)] == grown[id(eager)]
+    assert sum(g[0][0] for g in grown[id(eng)]) > 0 and sum(g[2][0] for g in grown[id(eng)]) > 0
+    assert images[id(eng)].keys() == images[id(eager)].keys() and len(images[id(eng)]) == 8
+    for rid, img in images[id(eng)].items():
+        assert (img == images[id(eager)][rid]).all(), rid
+
+    graph, replays = eng._graph, eng.stats["graph_steps"]
+    for e in (eng, eager):
+        e.reset()
+        e.submit(_serve_request(e, seed=99, steps=3))
+    again, want = eng.run_until_idle(), eager.run_until_idle()
+    assert eng._graph is graph and eng.stats["graph_steps"] == replays + 3
+    assert (again[0].image == want[0].image).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_cuda_quantized_serve_join_matches_solo(cuda, quant):
@@ -1073,7 +1138,8 @@ def test_cuda_clip_scorer_matches_cpu(cuda):
 def test_cuda_serve_ticks_do_not_synchronize(cuda):
     """Every tick, the one admitting requests (and staging encodes past the
     stage window) included, runs under torch.cuda.set_sync_debug_mode
-    ("error"): nothing in it waits for the card."""
+    ("error"): nothing in it reads the card back or synchronises a stream
+    (a replay waits only for the step before it, on that step's event)."""
     _, eng = _serve_engine(cuda, stage_window=2)
     for i in range(5):
         eng.submit(_serve_request(eng, seed=i, steps=2))

@@ -170,6 +170,33 @@ def test_cpu_wrappers_use_the_plain_versions_and_count_nothing():
     assert (dict(flash_packed.variants), dict(flash_bhsd.variants)) == variants
 
 
+def test_counters_take_back_and_add_again_what_was_counted():
+    """What a CUDA graph's owner does with the wrappers' counters: take
+    back what the capture counted (the counters read as before it, in
+    place) and add it at each replay."""
+    from tinyfusers_tpu_torch.kernels import counters
+
+    before = counters.snapshot()
+    shapes, variants = geglu_matmul.shapes, geglu_matmul.variants
+    try:
+        geglu_matmul.launches += 2
+        geglu_matmul.shapes[(8, 32, 16)] += 2
+        geglu_matmul.variants["wgmma"] += 2
+        flash_bhsd.launches += 1
+        grown = counters.take(before)
+        assert counters.snapshot() == before
+        assert geglu_matmul.shapes is shapes and geglu_matmul.variants is variants
+        assert grown[1][0] == 1 and grown[2] == (2, {(8, 32, 16): 2}, {"wgmma": 2})
+        counters.add(grown)
+        counters.add(grown)
+        after = counters.snapshot()
+        assert after[2][0] == before[2][0] + 4 and after[1][0] == before[1][0] + 2
+        assert after[2][1][(8, 32, 16)] == before[2][1][(8, 32, 16)] + 4
+        assert after[0] == before[0] and after[3:] == before[3:]
+    finally:
+        counters.take(before)
+
+
 # -- the CUDA wrappers' shape rule (no card needed) ---------------------------
 
 @pytest.mark.parametrize("dtype,d,want", [

@@ -73,6 +73,7 @@ from tinyfusers_tpu_torch.pipeline import samplers as tsamplers
 from tinyfusers_tpu_torch.pipeline import sd as tsd
 from tinyfusers_tpu_torch.pipeline import sd3 as tsd3
 from tinyfusers_tpu_torch.pipeline import sdxl as tsdxl
+from tinyfusers_tpu_torch.serve import engine as tengine
 
 import torch_parallel_worker as worker
 from torch_parity import few_torch_threads, jax_noises, random_tree  # noqa: F401
@@ -966,6 +967,24 @@ def test_sharded_engine_images_bit_equal_on_every_rank(ranks, name):
             np.testing.assert_array_equal(got[rid], first[rid], err_msg=f"rank {r}")
     if name == "serve_subgroup":
         assert [result(ranks, name, r)["ranks"] for r in range(WORLD)] == [[0, 1]] * 2 + [[2, 3]] * 2
+
+
+@pytest.mark.parametrize("name", ["serve_mesh", "serve_subgroup"])
+def test_sharded_engine_steps_eagerly(ranks, name):
+    """A mesh engine's step runs collectives, which no CUDA graph holds: it
+    captures none, and runs eagerly construction's probe and each tick in
+    which one of the rank's own slots is active."""
+    for r in range(WORLD):
+        got = result(ranks, name, r)
+        core = tengine._PySchedulerCore(4)
+        for i, n in enumerate(SERVE_STEPS):
+            core.submit(i, n)
+        ticks = 0
+        while core.active() or core.pending():
+            core.assign()
+            ticks += any(core.remaining(s) > 0 for s in got["slots"])
+            core.tick()
+        assert got["steps"] == {"graph_steps": 0, "eager_steps": 1 + ticks}, f"rank {r}"
 
 
 def test_router_over_a_sharded_and_a_local_engine(ranks):

@@ -119,8 +119,21 @@ def _drive(eng, ids, uids):
 
 @pytest.fixture(scope="module")
 def jax_engine(tiny):
+    """The JAX engine's images of ``_drive``. Each of its ticks waits for
+    its step: the step is dispatched with ``jnp.asarray`` of the engine's
+    host guidance array, which the CPU backend may alias, and the next
+    tick's admission writes that array (a request finishing in slot 0 then
+    took its last step at the guidance of the request admitted after it)."""
     params, _, ids, uids = tiny
     eng = jengine.Engine(params, jsd.TINY, num_slots=2)
+    step = eng.step
+
+    def step_and_wait():
+        out = step()
+        jax.block_until_ready(eng.latents)
+        return out
+
+    eng.step = step_and_wait
     return eng, _drive(eng, ids, uids)
 
 
@@ -253,6 +266,73 @@ def test_admission_tick_reads_nothing_back(tiny, monkeypatch):
     assert readbacks == []
     assert eng.core.active() == 2
     assert len(eng.run_until_idle()) == 2
+
+
+def test_cpu_engine_steps_eagerly(tiny):
+    """A CPU engine captures no CUDA graph: construction's probe and every
+    tick with an active slot run the slot step eagerly, and the kernel
+    wrappers' counters do not move (on the CPU no wrapper launches)."""
+    from tinyfusers_tpu_torch.kernels import counters
+
+    eng = Engine(tiny[1], num_slots=2)
+    assert eng._graph is None
+    assert (eng.stats["graph_steps"], eng.stats["eager_steps"]) == (0, 1)
+    before = counters.snapshot()
+    for i, steps in enumerate((3, 2, 2)):
+        eng.submit(_req(eng, seed=i, steps=steps))
+    stepping, done = 0, []
+    while eng.core.active() or eng.core.pending():
+        stepping += 1  # the free slots admit the queue's head: a slot steps
+        done += eng.step()
+    done += eng.flush()
+    assert sorted(r.request_id for r in done) == [0, 1, 2] and stepping == 4
+    assert (eng.stats["graph_steps"], eng.stats["eager_steps"]) == (0, 1 + stepping)
+    assert counters.snapshot() == before
+
+
+def test_smoke_counts_replayed_kernels_by_name(tmp_path):
+    """chip_smoke.py's check of an engine's replayed ticks: for each CUDA
+    graph launch of a Chrome trace, the hand-written kernels it ran (by
+    correlation id), counted by family from their names as the H100
+    profiler gives them, templates included; against a capture's counts.
+    Kernels of no graph launch, host ops and other kernels do not count."""
+    import collections
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    flash = ("void tf::(anonymous namespace)::flash_fwd_wgmma<tf::(anonymous namespace)::"
+             "Cfg<3, 1, 64, 128, 2> >(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+             "tf::(anonymous namespace)::Params)")
+    geglu = ("void tf::(anonymous namespace)::wg::geglu_ff_wgmma<tf::(anonymous namespace)::"
+             "wg::Cfg<320> >(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+             "tf::(anonymous namespace)::wg::Params)")
+
+    def kernel(name, corr):
+        return {"ph": "X", "cat": "kernel", "name": name, "args": {"correlation": corr}}
+
+    events = ([{"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": ts,
+                "args": {"correlation": corr}} for ts, corr in ((300, 9), (100, 7))]
+              + [kernel(flash, 7)] * 2 + [kernel(geglu, 7)]
+              + [kernel(flash, 9)] * 3 + [kernel(geglu, 9)] * 2
+              + [kernel("ampere_bf16_s16816gemm", 9), kernel(flash, 5)]
+              + [{"ph": "X", "cat": "cpu_op", "name": "flash_fwd_wgmma", "args": {"correlation": 9}},
+                 {"ph": "i", "cat": "kernel", "name": flash, "args": {"correlation": 9}}])
+    (tmp_path / "trace_1.json").write_text(json.dumps({"traceEvents": events}))
+    assert smoke.traced_replays(str(tmp_path)) == [{"flash_fwd": 2, "geglu_ff": 1},
+                                                   {"flash_fwd": 3, "geglu_ff": 2}]
+    none = (0, collections.Counter(), collections.Counter())
+    graph_counts = [(3, collections.Counter(), collections.Counter()), none,
+                    (2, collections.Counter(), collections.Counter()), none, none]
+    assert smoke.captured_launches(graph_counts) == {"flash_fwd": 3, "geglu_ff": 2}
+    quant = [none, (1, collections.Counter(), collections.Counter()), none,
+             (5, collections.Counter(), collections.Counter()),
+             (4, collections.Counter(), collections.Counter())]
+    assert smoke.captured_launches(quant) == {"flash_fwd": 1, "quant_mm": 9}
 
 
 def test_host_ladder_matches_ddim(tiny):

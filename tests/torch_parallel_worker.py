@@ -468,10 +468,17 @@ def _served(mesh, cfg, params, latents, ids, uids, steps, slots=4):
     return eng, images
 
 
+def _steps(eng):
+    """How the engine ran its slot steps, and the slots this rank holds."""
+    return {"steps": {k: eng.stats[k] for k in ("graph_steps", "eager_steps")},
+            "slots": list(range(eng._first, eng._first + eng.local_slots))}
+
+
 def serve_mesh(cfg, params, latents, ids, uids, steps):
     """The engine on the (data 2, model 2) mesh, then a Router over it and
     a local one-slot engine."""
     eng, images = _served(MESH, cfg, params, latents, ids, uids, steps)
+    steps = _steps(eng)
     eng.reset()
     local_model = sd.StableDiffusion(cfg, device="cpu", seed=None)
     load_sd(local_model, params)
@@ -488,7 +495,7 @@ def serve_mesh(cfg, params, latents, ids, uids, steps):
     except ValueError as e:
         slots_raised = str(e)
     return {"images": images, "routed": routed, "rids": rids, "health": router.health(),
-            "slots_raised": slots_raised, "lockstep": lockstep}
+            "slots_raised": slots_raised, "lockstep": lockstep, **steps}
 
 
 def serve_subgroup(cfg, params, latents, ids, uids, steps):
@@ -499,8 +506,8 @@ def serve_subgroup(cfg, params, latents, ids, uids, steps):
     mesh = init_device_mesh("cpu", (2, 2, 1), mesh_dim_names=("replica", parallel.DATA_AXIS,
                                                                 parallel.MODEL_AXIS))
     sub = mesh[parallel.DATA_AXIS, parallel.MODEL_AXIS]
-    _, images = _served(sub, cfg, params, latents, ids, uids, steps)
-    return {"images": images, "ranks": sub.mesh.flatten().tolist()}
+    eng, images = _served(sub, cfg, params, latents, ids, uids, steps)
+    return {"images": images, "ranks": sub.mesh.flatten().tolist(), **_steps(eng)}
 
 
 # -- the rank ---------------------------------------------------------------------

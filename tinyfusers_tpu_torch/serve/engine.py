@@ -14,14 +14,29 @@ tinyfusers_tpu/serve/engine.py).
   row at a time.
 - Slot and queue bookkeeping runs in the C++ core (native/scheduler.cpp
   through ctypes), with a pure-Python core of the same semantics.
-- Nothing in a tick waits for the device. The CLIP encode ([uncond ‖
+- Nothing in a tick reads the device back. The CLIP encode ([uncond ‖
   cond] in one call) and the seeded initial latent are issued at
   submit(), for at most ``stage_window`` queued requests, and admission
   copies them into the slot buffers on the device. The per-slot control
-  vectors are built on the host in numpy and uploaded from pinned memory
-  without blocking. Each completion's VAE decode is issued at once and
-  copied to pinned host memory without blocking, behind a CUDA event; a
-  later tick hands it out once the event has passed (flush() waits).
+  vectors are built on the host in numpy and copied from pinned memory,
+  without blocking, into a control block that stays on the device. Each
+  completion's VAE decode is issued at once and copied to pinned host
+  memory without blocking, behind a CUDA event; a later tick hands it out
+  once the event has passed (flush() waits).
+- On a card outside a mesh the slot step over the static buffers (the
+  latents, contexts and control block), the copy back into the latents
+  included, is captured once at construction as a CUDA graph and
+  replayed every tick: the same kernels in the same order, without the
+  host's cost of issuing them. A replay first waits for the step before
+  it to finish, so the host runs at most one step ahead of the device
+  and a request admitted now joins the next step the device runs. The
+  graph holds the UNet's weights at their addresses: a model whose
+  weights are replaced after that, not written in place, needs a new
+  Engine. CPU engines and mesh engines (whose step runs collectives)
+  step eagerly. ``stats["graph_steps"]`` counts the replays,
+  ``stats["eager_steps"]`` the eager steps, construction's probe
+  included. The kernel wrappers' counters (kernels/counters.py) grow at
+  each replay by what the capture counted, as eager calls would.
 - On a (data, model) mesh (``mesh=``) the slots split over the data axis:
   a rank holds the latents and contexts of its num_slots / n slots, its
   model (``parallel.shard_params``) split over the model axis. Every rank
@@ -57,6 +72,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..kernels import counters
 from ..models import unet as unet_model
 from ..models import vae as vae_model
 from ..ops.conv import RowInvariance
@@ -246,16 +262,30 @@ class Engine:
         self._staged: Dict[int, tuple] = {}
         self._unstaged: List[int] = []
         self.stage_window = 2 * num_slots if stage_window is None else stage_window
-        # time-to-first-image observability (serving cold-start metric)
+        # time-to-first-image observability (serving cold-start metric), and
+        # how the slot steps ran
         self.stats = {"submitted": 0, "completed": 0,
-                      "first_submit_t": None, "first_result_s": None}
+                      "first_submit_t": None, "first_result_s": None,
+                      "graph_steps": 0, "eager_steps": 0}
+        # the control block on the device; all slots inactive (the identity)
+        idle = np.zeros((5, s_l), np.float32)
+        idle[_A_T] = idle[_A_PREV] = 1.0
+        self._ctl = torch.from_numpy(idle).to(self.device)
         # one step on the empty slots probes every convolution of the step
-        # now, so that no tick reads back
+        # now, so that no tick reads back; on a card outside a mesh it runs on
+        # the capture stream, as the warm-up of the graph captured next
         self._rows = RowInvariance()
+        self._graph = self._graph_counts = self._step_done = None
+        capture = self.device.type == "cuda" and mesh is None
+        stream = torch.cuda.Stream(self.device) if capture else None
         with torch.inference_mode(), self._rows:
-            zero = torch.zeros((s_l,), dtype=torch.float32, device=self.device)
-            self._slot_step(model.unet, self.latents, self.contexts, zero, zero, zero + 1.0,
-                            zero + 1.0, zero > 0)
+            if capture:
+                stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):  # None: the current stream
+                self._step_in_place()
+            self.stats["eager_steps"] += 1
+            if capture:
+                self._capture(stream)
 
     # -- the per-tick step over all slots ---------------------------------
 
@@ -271,14 +301,54 @@ class Engine:
                              a_prev[:, None, None, None])
         return torch.where(active[:, None, None, None], new, latents)
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device without waiting: copied from
-        a pinned buffer of its own (the caching host allocator hands the
-        buffer out again only after the copy's event has passed)."""
+    def _step_in_place(self) -> None:
+        """The slot step over the static buffers: the latents, the contexts
+        and the control block; the new latents are written back."""
+        v = self._ctl
+        self.latents.copy_(self._slot_step(self.model.unet, self.latents, self.contexts,
+                                           v[_GUIDANCE], v[_T], v[_A_T], v[_A_PREV],
+                                           v[_ACTIVE] > 0.5))
+
+    def _capture(self, stream: torch.cuda.Stream) -> None:
+        """Capture ``_step_in_place`` as one CUDA graph on ``stream``, warm
+        from the probe step. The capture launches nothing, so the kernel
+        wrappers' counters are set back to what they read before it, and
+        each replay adds what it counted. Raises with the cause if the step
+        cannot be captured."""
+        before = counters.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                self._step_in_place()
+        except RuntimeError as e:
+            raise RuntimeError(f"Engine: the slot step could not be captured as a CUDA "
+                               f"graph: {e}") from e
+        finally:
+            counts = counters.take(before)
+        self._graph, self._graph_counts = graph, counts
+        self._step_done = torch.cuda.Event()
+
+    def _run_step(self) -> None:
+        """One slot step over every slot, from the control block on the
+        device: the graph's replay where there is one, else eagerly."""
+        if self._graph is None:
+            with self._rows:
+                self._step_in_place()
+            self.stats["eager_steps"] += 1
+            return
+        self._step_done.synchronize()  # the step before: at most one queued
+        self._graph.replay()  # on the capture device's current stream
+        self._step_done.record(torch.cuda.current_stream(self.device))
+        counters.add(self._graph_counts)
+        self.stats["graph_steps"] += 1
+
+    def _pinned(self, host: np.ndarray) -> torch.Tensor:
+        """A host array in a pinned buffer of its own on a card, to copy from
+        without waiting (the caching host allocator hands the buffer out
+        again only after the copy's event has passed); as it is on the
+        CPU."""
         x = torch.from_numpy(host)
-        if self.device.type != "cuda":
-            return x
-        return x.pin_memory().to(self.device, non_blocking=True)
+        return x.pin_memory() if self.device.type == "cuda" else x
 
     # -- public API ---------------------------------------------------------
 
@@ -304,7 +374,8 @@ class Engine:
         with profiling.span("engine.stage"):
             ids2 = np.stack([np.asarray(req.uncond_ids),
                              np.asarray(req.prompt_ids)]).astype(np.int64)
-            ctx2 = sd.encode_text(self.model, self._upload(ids2))
+            ids2 = self._pinned(ids2).to(self.device, non_blocking=True)
+            ctx2 = sd.encode_text(self.model, ids2)
             lat0 = sd.initial_latent(req.seed, 1, self.cfg, device=self.device, dtype=self.dtype)
             self._staged[req.request_id] = (ctx2, lat0)
 
@@ -363,20 +434,20 @@ class Engine:
         """One scheduler tick: admit, denoise every active slot by one
         step, issue the decodes of completions, hand out the decoded
         results that are ready. Nothing here waits for the device, but a
-        lockstep engine's collectives and its handing out of a decode
-        whose copy is still in flight."""
+        replay for the step before it, a lockstep engine's collectives and
+        its handing out of a decode whose copy is still in flight."""
         with profiling.span("engine.tick"):
             self._tick += 1
             with profiling.span("engine.admit"):
                 self._admit()
             with profiling.span("engine.control"):
                 ctl = self._control()
-                v = self._upload(ctl) if ctl[_ACTIVE].any() else None
-            if v is not None:
-                with profiling.span("engine.slot_step"), self._rows:
-                    self.latents.copy_(self._slot_step(
-                        self.model.unet, self.latents, self.contexts, v[_GUIDANCE], v[_T],
-                        v[_A_T], v[_A_PREV], v[_ACTIVE] > 0.5))
+                active = bool(ctl[_ACTIVE].any())
+                if active:
+                    self._ctl.copy_(self._pinned(ctl), non_blocking=True)
+            if active:
+                with profiling.span("engine.slot_step"):
+                    self._run_step()
             for rid, slot in self.core.tick():
                 with profiling.span("engine.decode"):
                     profiling.end("request.denoise", rid, self)

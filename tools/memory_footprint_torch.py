@@ -17,7 +17,10 @@ is quantized in place (io/quantize_tree.quantize_params) and an engine of
 - ``output_mb``: the step's output, the new slot latents.
 - ``temp_mb``: the caching allocator's peak over one tick with every slot
   busy, less the bytes held before the tick
-  (``torch.cuda.reset_peak_memory_stats`` / ``max_memory_allocated``).
+  (``torch.cuda.reset_peak_memory_stats`` / ``max_memory_allocated``),
+  plus the bytes that the private pools of CUDA graphs reserve on the
+  device (``graph_pool_bytes``): the temporaries of the step that the
+  engine replays live in its graph's pool, and a replay allocates nothing.
   The allocator's counters exist only on CUDA, so on the CPU it is null,
   and so is ``total_mb``.
 - ``total_mb``: the three together.
@@ -65,6 +68,15 @@ def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def graph_pool_bytes(device: torch.device) -> int:
+    """Bytes that the private pools of CUDA graphs reserve on ``device``:
+    the caching allocator's segments in any pool but its default one."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == index and tuple(seg["segment_pool_id"]) != (0, 0))
+
+
 def footprint(eng: Engine) -> Dict[str, Optional[float]]:
     """The engine step's argument, output and temporary bytes, in MB."""
     unet = eng.model.unet
@@ -81,7 +93,8 @@ def footprint(eng: Engine) -> Dict[str, Optional[float]]:
         torch.cuda.reset_peak_memory_stats(eng.device)
         eng.step()
         torch.cuda.synchronize(eng.device)
-        temp = torch.cuda.max_memory_allocated(eng.device) - before
+        temp = (torch.cuda.max_memory_allocated(eng.device) - before
+                + graph_pool_bytes(eng.device))
         eng.run_until_idle()
     return {"argument_mb": argument / MB, "output_mb": output / MB,
             "temp_mb": None if temp is None else temp / MB,
