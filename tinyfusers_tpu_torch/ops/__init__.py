@@ -5,6 +5,7 @@ from .conv import conv2d, upsample_nearest_2x
 from .embedding import embedding
 from .linear import geglu_linear, linear
 from .norms import group_norm, layer_norm
+from .rope import apply_rope, rope_table
 from .quant import (Int4Tensor, QuantizedTensor, dequantize, is_quantized, quantize,
                     quantize_int4)
 
@@ -15,6 +16,7 @@ __all__ = [
     "embedding",
     "geglu_linear", "linear",
     "group_norm", "layer_norm",
+    "apply_rope", "rope_table",
     "Int4Tensor", "QuantizedTensor", "dequantize", "is_quantized", "quantize",
     "quantize_int4",
 ]
